@@ -5,31 +5,37 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py
 
-It builds the hand-written kernels from ``src/repro_torch/csrc`` with
-``nvcc`` and then, one line per phase:
+It drives two serving paths, each at full width and depth with seeded
+random bf16 weights, 8 slots and ``max_seq`` 1024: Llama2-7B (32 layers;
+kernels B1 ``fused_decode``, B2 ``fused_ffn``, B3 ``fused_head``) and the
+dense-MLA arm of DeepSeek-V2-Lite (27 layers, ``moe=None``; kernels B4
+``fused_mla_decode``, B2, B3).  It builds the hand-written kernels from
+``src/repro_torch/csrc`` with ``nvcc`` and then, one line per phase:
 
 1. prints the card (``nvidia-smi`` name and power limit);
-2. builds B1–B3 (``fused_decode``, ``fused_ffn``, ``fused_head``);
+2. builds B1–B4, one ``nvcc`` per source, all at once;
 3. holds each kernel against its plain PyTorch version on the card at
-   the main path's shapes (Llama2-7B widths, 8 slots, bf16, ragged
-   cache lengths including −1, 0 and 1): bf16 outputs to 2e-2 in f32,
-   head candidates to exact indices and values within 4 f32 ulps;
-4. serves a staggered 12-request trace through ``SlotScheduler`` on
-   the full-width Llama2-7B (32 layers, seeded random bf16 weights,
-   8 slots, ``max_seq`` 1024) and checks that every decode step made
-   exactly ``L`` launches of B1, ``L`` of B2 and one of B3 (``2·L + 1``)
-   and no launch fell outside a step, that every token lies in the
-   vocabulary and that every residual row stayed finite;
-5. runs teacher-forced decode steps of the same model once through the
-   kernels and once through their plain versions, and requires their
-   greedy tokens to agree on at least 90 % of (step, slot); then traces
-   a few decode steps with ``torch.profiler`` for the device time per
-   kernel and the device's idle share;
-6. times each kernel and its plain version beside its bound (device
-   time per call: CUDA events around back-to-back calls queued behind a
-   spin kernel, median after warm-up; ``call_ms`` is one call with its
-   host work), and prints them as one JSON ``kernels`` line with each
-   kernel's launches per step as phase 4 counted them.
+   each path's shapes (8 slots, bf16, ragged cache lengths −1, 0, 1 …
+   1023 with stale entries past each live prefix): bf16 outputs to 2e-2
+   in f32; B4's f32 ``o``, ``m`` and ``l`` relative to each slot's
+   largest element to ``MLA_REL_TOL``; head candidates to exact indices
+   and values within 4 f32 ulps;
+4. per path, serves a staggered 12-request trace through
+   ``SlotScheduler`` and checks that every decode step made exactly
+   ``L`` launches of the attention kernel, ``L`` of B2 and one of B3
+   (``2·L + 1``) and no launch fell outside a step, that every token lies
+   in the vocabulary and that every residual row stayed finite;
+5. per path, runs teacher-forced decode steps once through the kernels
+   and once through their plain versions, and requires their greedy
+   tokens to agree on at least 90 % of (step, slot); then traces a few
+   decode steps with ``torch.profiler`` for the device time per kernel
+   and the device's idle share;
+6. times each kernel and its plain version beside its bound at each
+   path's shapes (device time per call: CUDA events around back-to-back
+   calls queued behind a spin kernel, median after warm-up; ``call_ms``
+   is one call with its host work), and prints them as one JSON
+   ``kernels`` line with each kernel's launches per step as its path's
+   phase 4 counted them.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failure raises
 and the script exits nonzero; without a CUDA device it exits nonzero
@@ -37,6 +43,7 @@ before printing any result.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import statistics
@@ -59,14 +66,16 @@ from repro_torch.kernels.fused_ffn.fused_ffn import (  # noqa: E402
     fused_ffn_block, fused_ffn_plain)
 from repro_torch.kernels.fused_head.fused_head import (  # noqa: E402
     fused_head_block, fused_head_plain)
+from repro_torch.kernels.fused_mla_decode.fused_mla_decode import (  # noqa: E402
+    fused_mla_decode_attention, fused_mla_decode_plain)
 from repro_torch.launch.serve import build_engine_full  # noqa: E402
 from repro_torch.serving.engine import (  # noqa: E402
-    KERNELS, PLAIN_KERNELS, EngineOptions, Kernels, decode_step,
+    KERNELS, PLAIN_KERNELS, EngineOptions, decode_step,
     init_decode_state)
 from repro_torch.serving.scheduler import (  # noqa: E402
     Request, SlotScheduler, replay_trace)
 
-ARCH = "llama2-7b"
+ARCHS = ("llama2-7b", "deepseek-v2-lite")   # the second as its dense-MLA arm
 SLOTS = 8
 MAX_SEQ = 1024
 SEED = 0
@@ -76,6 +85,10 @@ BF16_TOL = 2e-2                # bf16 inputs: a value on a rounding
                                # boundary may round the other way under
                                # another summation order
 HEAD_ULPS = 4                  # head values: f32 summation order only
+MLA_REL_TOL = 1e-3             # B4's f32 outputs from the same bf16
+                               # inputs: summation order only, relative to
+                               # each slot's largest element (o is not
+                               # normalized: it grows with the live length)
 SPIN_CYCLES = 50_000_000       # ≈ 25 ms at the H100's clock: longer than
                                # the host needs to queue a timed batch
 
@@ -98,6 +111,18 @@ def close_bf16(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
         raise AssertionError(
             f"{name}: {int(bad.sum())} of {bad.numel()} elements off by "
             f"more than {BF16_TOL} (max abs err {float(err.max()):.3e})")
+    return float(err.max())
+
+
+def close_rel(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
+    """f32 outputs, per slot relative to the slot's largest element."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    size = want.abs().flatten(1).amax(dim=1).clamp(min=1e-30)
+    rel = err.flatten(1).amax(dim=1) / size
+    if not torch.isfinite(got).all() or (rel > MLA_REL_TOL).any():
+        raise AssertionError(f"{name}: off by {rel.max():.3e} of the slot's "
+                             f"largest element (tolerance {MLA_REL_TOL})")
     return float(err.max())
 
 
@@ -183,20 +208,24 @@ def bound(n_bytes: float, n_ops: float):
 
 
 # ---------------------------------------------------------------------------
-# Phase 3 inputs: one layer's operands at the main path's shapes
+# Phase 3 inputs: one layer's operands at each path's shapes
 # ---------------------------------------------------------------------------
-def kernel_cases(cfg):
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(SEED + 1)
-    B, D, S = SLOTS, cfg.d_model, MAX_SEQ
-    nq, nkv, hd, F, V = (cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim,
-                         cfg.d_ff, cfg.vocab_size)
-    P = (nq + 2 * nkv) * hd
+def decode_lens(S: int):
+    """Ragged cache lengths (−1 = free slot … S − 1) and per-slot
+    positions with stale entries past each live prefix, which the
+    kernels must skip."""
     lens = torch.tensor([-1, 0, 1, 127, 300, 513, 777, S - 1],
                         dtype=torch.int32, device="cuda")
     s_idx = torch.arange(S, dtype=torch.int32, device="cuda")[:, None]
-    # stale entries past each live prefix: the kernel must skip them
     pos = torch.where(s_idx < lens[None, :] + 40, s_idx, -1).to(torch.int32)
+    return lens, pos, int(lens.clamp(min=0).sum())
+
+
+def gqa_case(cfg, gen):
+    B, D, S = SLOTS, cfg.d_model, MAX_SEQ
+    nq, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    P = (nq + 2 * nkv) * hd
+    lens, pos, live = decode_lens(S)
     cos, sin = rope_at(lens, hd, cfg.rope_theta)
     dec = dict(
         x=randn(gen, (B, D), 1.0),
@@ -207,8 +236,62 @@ def kernel_cases(cfg):
         v_cache=randn(gen, (S, B * nkv, hd), 1.0),
         pos=pos, cache_lens=lens, include_new=(lens >= 0).to(torch.int32),
         cos=cos, sin=sin)
-    dec_kw = dict(q_heads=nq, kv_heads=nkv, scale=hd ** -0.5,
-                  norm_eps=cfg.norm_eps)
+    dec_bytes = (B * D * 2 + D * P * 2 + nq * hd * D * 2 + D * 4
+                 + 2 * live * nkv * hd * 2 + live * 4 + B * 4 * (2 + hd)
+                 + B * nq * D * 4 + 2 * B * nkv * hd * 2 + 2 * B * nq * 4)
+    dec_ops = 2 * B * D * P + 4 * live * nq * hd + 4 * B * nq * hd \
+        + 2 * B * nq * hd * D
+    return dict(name="fused_decode", fn=fused_decode_attention,
+                plain=fused_decode_plain, args=dec,
+                kw=dict(q_heads=nq, kv_heads=nkv, scale=hd ** -0.5,
+                        norm_eps=cfg.norm_eps),
+                cost=(dec_bytes, dec_ops),
+                replaces="src/repro/kernels/fused_decode/fused_decode.py:276")
+
+
+def mla_case(cfg, gen):
+    B, D, S = SLOTS, cfg.d_model, MAX_SEQ
+    m = cfg.mla
+    nq, nope, rope, lat = (cfg.n_heads, m.nope_head_dim, m.rope_head_dim,
+                           m.kv_lora_rank)
+    lr, Pq = lat + rope, cfg.n_heads * (nope + rope)
+    lens, pos, live = decode_lens(S)
+    cos, sin = rope_at(lens, rope, cfg.rope_theta)
+    args = dict(
+        x=randn(gen, (B, D), 1.0),
+        wq=randn(gen, (D, Pq), D ** -0.5),
+        wdkv=randn(gen, (D, lr), D ** -0.5),
+        wuk=randn(gen, (nq, nope, lat), 0.05),
+        # the init's W_UV (0.05) times W_O (1/√(q·v)), summed over v
+        wproj=randn(gen, (nq, lat, D), 0.05 / nq ** 0.5),
+        norm_scale=randn(gen, (D,), 0.1, torch.float32),
+        c_cache=randn(gen, (S, B, lr), 1.0),
+        pos=pos, cache_lens=lens,
+        include_new=((lens >= 0) & (lens < S)).to(torch.int32),
+        cos=cos, sin=sin)
+    n_bytes = (B * D * 2 + D * Pq * 2 + D * lr * 2 + nq * nope * lat * 2
+               + nq * lat * D * 2 + D * 4 + live * lr * 2 + live * 4
+               + B * 4 * (2 + rope)
+               + B * nq * D * 4 + B * lr * 2 + 2 * B * nq * 4)
+    n_ops = (2 * B * D * (Pq + lr) + 2 * B * nq * nope * lat
+             + 2 * live * nq * (lr + lat) + 2 * B * nq * (lr + lat)
+             + 2 * B * nq * lat * D)
+    return dict(name="fused_mla_decode", fn=fused_mla_decode_attention,
+                plain=fused_mla_decode_plain, args=args,
+                kw=dict(q_heads=nq, nope=nope, rope_d=rope, l_rank=lat,
+                        norm_eps=cfg.norm_eps),
+                cost=(n_bytes, n_ops),
+                replaces="src/repro/kernels/fused_mla_decode/"
+                         "fused_mla_decode.py:180")
+
+
+def kernel_cases(cfg):
+    """The attention kernel of ``cfg``'s path (B1, or B4 for MLA), B2 and
+    B3, at its widths."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 1)
+    B, D, F, V = SLOTS, cfg.d_model, cfg.d_ff, cfg.vocab_size
+    attn = mla_case(cfg, gen) if cfg.mla is not None else gqa_case(cfg, gen)
     ffn = dict(x=randn(gen, (B, D), 1.0), a=randn(gen, (B, D), 1.0),
                w_in=randn(gen, (D, F), D ** -0.5),
                w_gate=randn(gen, (D, F), D ** -0.5),
@@ -222,22 +305,12 @@ def kernel_cases(cfg):
     table[V - 1] = table[100]
     head = dict(x=x_head, table=table,
                 ln=torch.zeros((D,), dtype=torch.float32, device="cuda"))
-
-    live = int(lens.clamp(min=0).sum())
-    dec_bytes = (B * D * 2 + D * P * 2 + nq * hd * D * 2 + D * 4
-                 + 2 * live * nkv * hd * 2 + live * 4 + B * 4 * (2 + hd)
-                 + B * nq * D * 4 + 2 * B * nkv * hd * 2 + 2 * B * nq * 4)
-    dec_ops = 2 * B * D * P + 4 * live * nq * hd + 4 * B * nq * hd \
-        + 2 * B * nq * hd * D
     ffn_bytes = 4 * B * D * 2 + 3 * D * F * 2 + D * 4
     ffn_ops = 2 * B * D * F * 3
     head_bytes = B * D * 2 + V * D * 2 + D * 4 + B * 8 * 8
     head_ops = 2 * B * D * V
-    return [
-        dict(name="fused_decode", fn=fused_decode_attention,
-             plain=fused_decode_plain, args=dec, kw=dec_kw,
-             cost=(dec_bytes, dec_ops),
-             replaces="src/repro/kernels/fused_decode/fused_decode.py:276"),
+    cases = [
+        attn,
         dict(name="fused_ffn", fn=fused_ffn_block, plain=fused_ffn_plain,
              args=ffn, kw=dict(add_r=1.0, eps=cfg.norm_eps),
              cost=(ffn_bytes, ffn_ops),
@@ -247,6 +320,9 @@ def kernel_cases(cfg):
              cost=(head_bytes, head_ops),
              replaces="src/repro/kernels/fused_head/fused_head.py:97"),
     ]
+    for case in cases:
+        case["path"] = cfg.name
+    return cases
 
 
 def check_kernel(case) -> float:
@@ -256,6 +332,13 @@ def check_kernel(case) -> float:
     name = case["name"]
     if name == "fused_head":
         return close_head(name, got, want)
+    if name == "fused_mla_decode":
+        (o, c_new, m, l), (wo, wc, wm, wl) = got, want
+        err = close_rel(f"{name}[o]", o, wo)
+        close_bf16(f"{name}[c_new]", c_new, wc)
+        close_rel(f"{name}[m]", m, wm)
+        close_rel(f"{name}[l]", l, wl)
+        return err
     errs = [close_bf16(f"{name}[{i}]", g, w)
             for i, (g, w) in enumerate(zip(got, want))]
     return errs[0]
@@ -264,6 +347,10 @@ def check_kernel(case) -> float:
 # ---------------------------------------------------------------------------
 # Phase 4: the staggered request trace at full width
 # ---------------------------------------------------------------------------
+def attention_kernel(cfg) -> str:
+    return "fused_mla_decode" if cfg.mla is not None else "fused_decode"
+
+
 def serve_trace(cfg, eng):
     rng = np.random.default_rng(SEED)
     n_req = 12
@@ -273,7 +360,7 @@ def serve_trace(cfg, eng):
         prompt=rng.integers(0, cfg.vocab_size,
                             int(rng.integers(16, 513))).tolist(),
         max_new=int(rng.integers(8, 65)))) for i in range(n_req)]
-    step_launches, step_ms = [], []
+    step_launches, step_ms, host_ms = [], [], []
     dec = eng.decode_fn
 
     def counted_decode(p, st, tok):
@@ -281,7 +368,11 @@ def serve_trace(cfg, eng):
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
+        t0 = time.perf_counter()
         nxt, st = dec(p, st, tok)
+        # the host's time to enqueue the step; near step_ms, the step
+        # waits on the host
+        host_ms.append(1e3 * (time.perf_counter() - t0))
         e1.record()
         e1.synchronize()
         step_ms.append(e0.elapsed_time(e1))
@@ -300,13 +391,14 @@ def serve_trace(cfg, eng):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = tracecount.launches()
-    want = dict(fused_decode=cfg.n_layers, fused_ffn=cfg.n_layers,
-                fused_head=1)
+    want = {k: 0 for k in launches}
+    want.update({attention_kernel(cfg): cfg.n_layers,
+                 "fused_ffn": cfg.n_layers, "fused_head": 1})
     bad = [(i, n) for i, n in enumerate(step_launches) if n != want]
     if bad or not step_launches:
         raise AssertionError(f"launches per decode step {bad[:4]}, want "
                              f"{want} on each of {len(step_launches)} steps")
-    if any(v == 0 for v in launches.values()):
+    if any(launches[k] == 0 for k, n in want.items() if n):
         raise AssertionError(f"a kernel never launched: {launches}")
     per_kernel = step_launches[0]      # the same on every step, as checked
     if len(step_launches) != sched.decode_calls or any(
@@ -325,6 +417,7 @@ def serve_trace(cfg, eng):
                 readmits=refills,
                 launches_per_step=sum(per_kernel.values()),
                 median_step_ms=round(statistics.median(step_ms), 3),
+                median_host_ms=round(statistics.median(host_ms), 3),
                 wall_s=round(wall, 2)), launches, per_kernel, results
 
 
@@ -351,7 +444,7 @@ def forced_decode(cfg, eng, steps: int = 8):
             cands.append(out)
             return out
 
-        ks = Kernels(kernels.decode, kernels.ffn, head)
+        ks = kernels._replace(head=head)
         for t in range(steps):
             _, st = decode_step(cfg, eng.scfg, eng.params["serve"], st,
                                 torch.as_tensor(forced[t], device="cuda"),
@@ -374,7 +467,10 @@ def forced_decode(cfg, eng, steps: int = 8):
 # ---------------------------------------------------------------------------
 GROUPS = (("fused_decode", ("fused_decode_kernel",)),
           ("fused_ffn", ("ffn_tile_kernel", "ffn_reduce_kernel")),
-          ("fused_head", ("head_tile_kernel", "head_merge_kernel")))
+          ("fused_head", ("head_tile_kernel", "head_merge_kernel")),
+          ("fused_mla_decode", ("mla_proj_kernel", "mla_qlat_kernel",
+                                "mla_attn_kernel", "mla_merge_kernel",
+                                "mla_out_kernel")))
 
 
 def profile_steps(cfg, eng, state, steps: int = 4):
@@ -398,18 +494,66 @@ def profile_steps(cfg, eng, state, steps: int = 4):
     busy, end = 0.0, spans[0][0]
     per = {name: 0.0 for name, _ in GROUPS}
     per["other"] = 0.0
+    stages = {}                  # each launch of a multi-launch kernel
     for t0, t1, name in spans:
         busy += max(0.0, t1 - max(t0, end))
         end = max(end, t1)
-        group = next((g for g, keys in GROUPS
-                      if any(k in name for k in keys)), "other")
+        group, key = next(((g, k) for g, keys in GROUPS for k in keys
+                           if k in name), ("other", None))
         per[group] += t1 - t0
+        if key is not None and len(dict(GROUPS)[group]) > 1:
+            stages[key] = stages.get(key, 0.0) + t1 - t0
     window = end - spans[0][0]
     out = {f"{g}_ms_per_step": round(v / steps / 1e3, 3)
            for g, v in per.items()}
+    out["stage_ms_per_step"] = {k: round(v / steps / 1e3, 3)
+                                for k, v in stages.items()}
     out.update(window_ms_per_step=round(window / steps / 1e3, 3),
                idle_share=round(1.0 - busy / window, 4))
     return out
+
+
+def path_config(arch: str):
+    """The path's config: DeepSeek-V2-Lite as its dense-MLA arm (MoE is
+    a later slice)."""
+    cfg = get_config(arch)
+    return dataclasses.replace(cfg, moe=None) if cfg.moe else cfg
+
+
+def serve_path(cfg):
+    """Phases 4 and 5 for one path: build the engine, serve the trace,
+    kernels against plain versions end to end, a traced run.  Returns
+    the path's launch counts (total and per step)."""
+    t0 = time.perf_counter()
+    eng = build_engine_full(cfg, max_seq=MAX_SEQ, batch_global=SLOTS,
+                            options=EngineOptions(check_finite=True),
+                            device="cuda", seed=SEED)
+    torch.cuda.synchronize()
+    say("engine", path=cfg.name, layers=cfg.n_layers,
+        build_s=round(time.perf_counter() - t0, 1),
+        weights_gb=round(tree_bytes(eng.params) / 1e9, 3),
+        kv_gb=round(tree_bytes(eng.state["layers"]) / 1e9, 3),
+        allocated_gb=round(torch.cuda.memory_allocated() / 1e9, 3))
+    serve, launches, per_step, results = serve_trace(cfg, eng)
+    # the floor of a step: every weight byte read once at the HBM rate
+    blk, head = eng.params["serve"]["blocks"][0], eng.params["serve"]["head"]
+    attn = blk["attn"]
+    attn_w = ((attn.wq, attn.wdkv, attn.wuk, attn.wproj)
+              if cfg.mla is not None else (attn.wqkv, attn.wo))
+    weight_bytes = sum(t.numel() * t.element_size() for t in attn_w + (
+        blk["ffn"].w_in, blk["ffn"].w_gate, blk["ffn"].w_out, head.table))
+    serve["step_weights_gb"] = round(weight_bytes / 1e9, 3)
+    serve["weights_bound_ms"] = round(1e3 * weight_bytes / HBM_BYTES_PER_S, 3)
+    say("serve", path=cfg.name, **serve)
+    say("serve", path=cfg.name,
+        first_tokens={r: res.tokens[:4]
+                      for r, res in sorted(results.items())[:3]})
+    forced, state = forced_decode(cfg, eng)
+    say("forced", path=cfg.name, **forced)
+    say("profile", path=cfg.name, **profile_steps(cfg, eng, state))
+    del eng, state
+    torch.cuda.empty_cache()
+    return launches, per_step
 
 
 def main() -> int:
@@ -419,7 +563,7 @@ def main() -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = get_config(ARCH)
+    cfgs = [path_config(arch) for arch in ARCHS]
 
     # 1. device
     smi = subprocess.run(
@@ -440,46 +584,21 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
 
-    # 3. each kernel against its plain version at the main path's shapes
-    cases = kernel_cases(cfg)
+    # 3. each kernel against its plain version at each path's shapes
+    cases = [case for cfg in cfgs for case in kernel_cases(cfg)]
     for case in cases:
         case["max_abs_err"] = check_kernel(case)
-        say("kernel", name=case["name"], ok=True,
+        say("kernel", name=case["name"], path=case["path"], ok=True,
             max_abs_err=f"{case['max_abs_err']:.3e}")
 
-    # 4. serving at full width
-    t0 = time.perf_counter()
-    eng = build_engine_full(cfg, max_seq=MAX_SEQ, batch_global=SLOTS,
-                            options=EngineOptions(check_finite=True),
-                            device="cuda", seed=SEED)
-    torch.cuda.synchronize()
-    say("engine", build_s=round(time.perf_counter() - t0, 1),
-        weights_gb=round(tree_bytes(eng.params) / 1e9, 3),
-        kv_gb=round(tree_bytes(eng.state["layers"]) / 1e9, 3),
-        allocated_gb=round(torch.cuda.memory_allocated() / 1e9, 3))
-    serve, launches, per_step, results = serve_trace(cfg, eng)
-    # the floor of a step: every weight byte read once at the HBM rate
-    blk, head = eng.params["serve"]["blocks"][0], eng.params["serve"]["head"]
-    weight_bytes = sum(t.numel() * t.element_size() for t in (
-        blk["attn"].wqkv, blk["attn"].wo, blk["ffn"].w_in,
-        blk["ffn"].w_gate, blk["ffn"].w_out, head.table))
-    serve["step_weights_gb"] = round(weight_bytes / 1e9, 3)
-    serve["weights_bound_ms"] = round(1e3 * weight_bytes / HBM_BYTES_PER_S, 3)
-    say("serve", **serve)
-    say("serve", first_tokens={r: res.tokens[:4]
-                               for r, res in sorted(results.items())[:3]})
-
-    # 5. kernels against plain versions, end to end; then a traced run
-    forced, state = forced_decode(cfg, eng)
-    say("forced", **forced)
-    say("profile", **profile_steps(cfg, eng, state))
-    del eng
-    torch.cuda.empty_cache()
+    # 4-5. each path served at full width, one engine at a time
+    counts = {cfg.name: serve_path(cfg) for cfg in cfgs}
 
     # 6. times beside the bounds
     rows = []
     for case in cases:
         args, kw = case["args"], case["kw"]
+        launches, per_step = counts[case["path"]]
         ms, covered = cuda_ms(lambda: case["fn"](**args, **kw), 20)
         # the plain versions may sync with the host: their time is
         # whatever the device waits, host gaps included
@@ -487,7 +606,7 @@ def main() -> int:
         one_call = call_ms(lambda: case["fn"](**args, **kw), 20)
         bound_ms, bound_by = bound(*case["cost"])
         rows.append(dict(
-            name=case["name"], route="cuda",
+            name=case["name"], path=case["path"], route="cuda",
             source=f"src/repro_torch/csrc/{case['name']}.cu",
             replaces=case["replaces"], launches=launches[case["name"]],
             launches_per_step=per_step[case["name"]],

@@ -2,10 +2,11 @@
 ``repro/core/dataflow.py`` the prepacked serving path runs.
 
 At cluster size 1 the paper's ClusterGather/ClusterReduce are the
-identity, so one layer is: the B1 kernel (``fused_decode``) for all
-slots, the append of the new k/v into the cache, and the normalize +
-head sum of the per-head partials — the last two plain torch, as they
-are XLA ops in the reference.
+identity, so one layer is: the attention kernel for all slots (B1
+``fused_decode``, or B4 ``fused_mla_decode`` for MLA), the append of the
+new k/v (or latent entry) into the cache, and the normalize + head sum
+of the per-head partials — the last two plain torch, as they are XLA
+ops in the reference.
 
 The port updates the KV cache in place (the reference rebuilt it).
 The reference's ``_fit_block_s`` has no counterpart: it fits Pallas
@@ -21,12 +22,16 @@ import torch
 
 from repro_torch.kernels.fused_decode.fused_decode import (
     fused_decode_attention, rope_at)
+from repro_torch.kernels.fused_mla_decode.fused_mla_decode import (
+    fused_mla_decode_attention)
 
 
 class KVBlock(NamedTuple):
     """One layer's KV cache: ``k``/``v [S, B·kv, hd]`` and per-slot
     positions ``pos [S, B]`` (−1 ⇒ empty).  Stacked over layers, each
-    leaf gains a leading layer axis."""
+    leaf gains a leading layer axis.  For MLA ``k [S, B, l+rope]`` holds
+    the latent entries and ``v [S, B, 1]`` only their first column (the
+    reference's layout; no kernel reads it)."""
 
     k: torch.Tensor
     v: torch.Tensor
@@ -41,6 +46,20 @@ class PackedSplitTokenWeights(NamedTuple):
     wqkv: torch.Tensor
     wo: torch.Tensor
     bqkv: Optional[torch.Tensor] = None
+    ln1: Optional[torch.Tensor] = None
+
+
+class PackedMLAWeights(NamedTuple):
+    """Serve-layout MLA weights: ``wq [D, q·(nope+rope)]`` (a view of the
+    train ``wq``), ``wdkv [D, l+rope]`` and ``wuk [q, nope, l]`` (aliases),
+    ``wproj [q, l, D]`` — the per-head ``W_UV·W_O`` fold, the one copy
+    the pack makes — and the fused pre-attention norm scale
+    ``ln1 [D]``."""
+
+    wq: torch.Tensor
+    wdkv: torch.Tensor
+    wuk: torch.Tensor
+    wproj: torch.Tensor
     ln1: Optional[torch.Tensor] = None
 
 
@@ -119,5 +138,31 @@ def split_token_attention_packed(x: torch.Tensor,
     return o_full.to(x.dtype)
 
 
-__all__ = ["KVBlock", "PackedSplitTokenWeights", "PackedFFNWeights",
-           "PackedHeadWeights", "split_token_attention_packed", "rope_at"]
+def mla_attention_packed(x: torch.Tensor, w: PackedMLAWeights,
+                         cache: KVBlock, cache_lens: torch.Tensor,
+                         cos: torch.Tensor, sin: torch.Tensor, *,
+                         nope_dim: int, rope_dim: int,
+                         norm_eps: float = 1e-6,
+                         kernel=fused_mla_decode_attention) -> torch.Tensor:
+    """One MLA layer on prepacked weights (``_mla_attention_pallas_packed``
+    at cluster 1): the B4 kernel for all slots, the latent entry appended
+    in place (rounded, as the kernel emits it: the entry to ``k`` and its
+    first column to ``v``, ``dataflow.py:1088``), then
+    ``(o / max(l, 1e-30))`` summed over heads in ``x.dtype``.
+    ``cos``/``sin`` are :func:`rope_at` of ``cache_lens`` at the RoPE
+    width ``rope_dim``.  ``kernel`` is the B4 entry point (its plain
+    version to hold the kernel against it on the card)."""
+    q_loc, _, l_rank = w.wuk.shape
+    include_new = _appends(cache.k.shape[0], cache_lens).to(torch.int32)
+    o, c_new, m, l = kernel(
+        x, w.wq, w.wdkv, w.wuk, w.wproj, w.ln1, cache.k, cache.pos,
+        cache_lens, include_new, cos, sin, q_heads=q_loc, nope=nope_dim,
+        rope_d=rope_dim, l_rank=l_rank, norm_eps=norm_eps)
+    _insert_kv_ragged(cache, c_new, c_new[:, :1], cache_lens)
+    o_full = (o / torch.clamp(l[..., None], min=1e-30)).sum(dim=1)
+    return o_full.to(x.dtype)
+
+
+__all__ = ["KVBlock", "PackedSplitTokenWeights", "PackedMLAWeights",
+           "PackedFFNWeights", "PackedHeadWeights",
+           "split_token_attention_packed", "mla_attention_packed", "rope_at"]

@@ -7,8 +7,8 @@ two numbers per kernel:
 
 * ``calls``: every entry into a kernel wrapper, whatever the device —
   the CPU tests read it to prove a decode step makes ``2·L + 1`` kernel
-  calls (one ``fused_decode`` and one ``fused_ffn`` per layer, one
-  ``fused_head`` per step);
+  calls (one attention kernel, ``fused_decode`` or ``fused_mla_decode``,
+  and one ``fused_ffn`` per layer, one ``fused_head`` per step);
 * ``launches``: bumped by each CUDA wrapper at the one place where it
   launches its kernel, and nowhere else (a plain-version call on a CPU
   tensor does not count) — ``chip_smoke.py`` reads it to prove the main
@@ -18,7 +18,7 @@ from __future__ import annotations
 
 from typing import Dict
 
-KERNELS = ("fused_decode", "fused_ffn", "fused_head")
+KERNELS = ("fused_decode", "fused_ffn", "fused_head", "fused_mla_decode")
 
 _calls: Dict[str, int] = {name: 0 for name in KERNELS}
 _launches: Dict[str, int] = {name: 0 for name in KERNELS}

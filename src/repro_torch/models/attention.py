@@ -1,5 +1,5 @@
 """Training / prefill attention — the port of ``repro/models/attention.py``
-for the dense GQA path at cluster size 1.
+for the dense GQA path and MLA at cluster size 1.
 
 ``_flash`` mirrors the reference's chunked online-softmax oracle in
 plain torch ops (no fused library attention): prefill attention stays
@@ -17,6 +17,8 @@ from repro_torch.models.layers import apply_rope, rope_cos_sin, softcap
 
 # AttnParams is a dict: wq [D, q, hd], wk/wv [D, kv, hd], wo [q·hd, D]
 # (no q/k/v biases: ``qkv_bias`` configs are a later slice).
+# MLAAttnParams is a dict: wq [D, q, nope+rope], wdkv [D, l+rope],
+# wuk [q, nope, l], wuv [q, l, v], wo [q·v, D].
 
 
 def _flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -93,3 +95,37 @@ def attention_train(p: dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
                  cap=cfg.attn_softcap, scale=1.0 / math.sqrt(hd))
     y = out.reshape(B, S, q_loc * hd) @ p["wo"]
     return y, kv_out
+
+
+def mla_attention_train(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
+                        return_kv: bool = False
+                        ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """MLA over a full sequence (prefill), in the latent-space form of the
+    reference (``attention.py:mla_attention_train``): ``q_nope`` absorbs
+    ``W_UK`` into ``q_lat``, scores run over ``l + rope`` against the
+    latent cache entries, and the values are ``c_lat``.  With
+    ``return_kv`` it also returns those entries ``[B, S, l + rope]`` (RoPE
+    applied), which prefill writes into the decode cache."""
+    B, S, D = x.shape
+    m = cfg.mla
+    nope, rope_d, l_rank, v_dim = (m.nope_head_dim, m.rope_head_dim,
+                                   m.kv_lora_rank, m.v_head_dim)
+    q_loc = p["wq"].shape[1]
+    q = torch.einsum("bsd,dqh->bsqh", x, p["wq"])       # [B,S,q,nope+rope]
+    c = x @ p["wdkv"]                                    # [B,S,l+rope]
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    c_lat, c_rope = c[..., :l_rank], c[..., l_rank:]
+    cos, sin = rope_cos_sin(torch.arange(S, device=x.device), rope_d,
+                            cfg.rope_theta)
+    q_rope = apply_rope(q_rope, cos, sin)
+    c_rope = apply_rope(c_rope[:, :, None, :], cos, sin)[:, :, 0, :]
+    kk = torch.cat([c_lat, c_rope], dim=-1)              # [B,S,l+rope]
+    q_lat = torch.einsum("bsqn,qnl->bsql", q_nope, p["wuk"])
+    qq = torch.cat([q_lat, q_rope], dim=-1)              # [B,S,q,l+rope]
+    out = _flash(qq[:, :, None], kk[:, :, None], c_lat[:, :, None],
+                 q_offset=0, causal=True, window=0, cap=0.0,
+                 scale=1.0 / math.sqrt(nope + rope_d))
+    a_lat = out[:, :, 0]                                 # [B,S,q,l]
+    o_head = torch.einsum("bsql,qlv->bsqv", a_lat, p["wuv"])
+    y = o_head.reshape(B, S, q_loc * v_dim) @ p["wo"]
+    return y, (kk if return_kv else None)

@@ -12,7 +12,9 @@ Parameter tree (the train layout; leaves are tensors):
 * ``blocks``: one dict per block-pattern position with the layer-group
   axis leading, as the reference's scanned groups: ``ln1``/``ln2
   [G, D]`` f32, ``attn`` = ``wq [G, D, q, hd]``, ``wk``/``wv
-  [G, D, kv, hd]``, ``wo [G, q·hd, D]``; ``ffn`` = ``w_in``/``w_gate
+  [G, D, kv, hd]``, ``wo [G, q·hd, D]`` — or, for MLA, ``wq [G, D, q,
+  nope+rope]``, ``wdkv [G, D, l+rope]``, ``wuk [G, q, nope, l]``, ``wuv
+  [G, q, l, v]``, ``wo [G, q·v, D]``; ``ffn`` = ``w_in``/``w_gate
   [G, D, F]``, ``w_out [G, F, D]``.  The reference's ``tail`` list (layers
   past the last whole group) is always empty for the one-kind pattern
   this slice runs, so the port has none.
@@ -32,16 +34,21 @@ from repro_torch.models.layers import (embed_lookup, ffn_apply, rms_norm)
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    """This port slice runs dense global-attention decoders (Llama-style);
-    every other block kind, MoE, MLA, encoders and frontends are later
-    slices (ROADMAP.md)."""
-    if (any(k != ATTN_GLOBAL for k in cfg.layer_kinds) or cfg.moe
-            or cfg.mla or cfg.encoder or cfg.frontend or cfg.use_post_norm
-            or cfg.tie_embeddings or cfg.qkv_bias):
+    """The port runs global-attention decoders with dense FFNs: GQA/MHA
+    (Llama-style) or MLA (the dense-MLA arm of DeepSeek-V2-Lite).  Every
+    other block kind, MoE, encoders and frontends are later slices
+    (ROADMAP.md)."""
+    if cfg.moe:
         raise NotImplementedError(
-            f"{cfg.name}: the port runs dense global-attention decoders "
-            "only (window/ring, softcap, post-norm, tied embeddings, bias, "
-            "MoE, MLA, encoders and recurrent blocks are later slices)")
+            f"{cfg.name}: MoE is ROADMAP item 13; serve the dense arm, "
+            "dataclasses.replace(cfg, moe=None)")
+    if (any(k != ATTN_GLOBAL for k in cfg.layer_kinds) or cfg.encoder
+            or cfg.frontend or cfg.use_post_norm or cfg.tie_embeddings
+            or cfg.qkv_bias):
+        raise NotImplementedError(
+            f"{cfg.name}: the port runs global-attention decoders only "
+            "(window/ring, softcap, post-norm, tied embeddings, bias, "
+            "encoders and recurrent blocks are later slices)")
 
 
 # ---------------------------------------------------------------------------
@@ -54,7 +61,9 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda",
     The scales are the reference's (``init_logical_block``): 1/√D for
     the q/k/v and up/gate projections, 1/√(q·hd) for ``wo``, 1/√F for
     the down projection, 0.02 for the embedding, 1/√D for the LM head,
-    zero norm scales — so many random layers stay finite."""
+    zero norm scales — so many random layers stay finite.  MLA: 1/√D
+    for ``wq`` and ``wdkv``, 0.05 for ``wuk`` and ``wuv``, 1/√(q·v) for
+    ``wo`` (``transformer.py:94–107``)."""
     _check_supported(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
@@ -74,15 +83,27 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda",
         return out
 
     s_in = 1.0 / math.sqrt(d)
-    blk = {
-        "ln1": torch.zeros((L, d), device=dev),
-        "ln2": torch.zeros((L, d), device=dev),
-        "attn": {
+    if cfg.mla is not None:
+        m = cfg.mla
+        attn = {
+            "wq": dense((L, d, nq, m.nope_head_dim + m.rope_head_dim), s_in),
+            "wdkv": dense((L, d, m.kv_lora_rank + m.rope_head_dim), s_in),
+            "wuk": dense((L, nq, m.nope_head_dim, m.kv_lora_rank), 0.05),
+            "wuv": dense((L, nq, m.kv_lora_rank, m.v_head_dim), 0.05),
+            "wo": dense((L, nq * m.v_head_dim, d),
+                        1.0 / math.sqrt(nq * m.v_head_dim)),
+        }
+    else:
+        attn = {
             "wq": dense((L, d, nq, hd), s_in),
             "wk": dense((L, d, nkv, hd), s_in),
             "wv": dense((L, d, nkv, hd), s_in),
             "wo": dense((L, nq * hd, d), 1.0 / math.sqrt(nq * hd)),
-        },
+        }
+    blk = {
+        "ln1": torch.zeros((L, d), device=dev),
+        "ln2": torch.zeros((L, d), device=dev),
+        "attn": attn,
         "ffn": {
             "w_in": dense((L, d, F), s_in),
             "w_gate": dense((L, d, F), s_in),
@@ -113,8 +134,9 @@ def _leaf_to_torch(arr, device) -> torch.Tensor:
 def from_reference_params(cfg: ModelConfig, tree: Dict[str, Any], *,
                           device="cuda") -> Dict[str, Any]:
     """The JAX package's device-major train params at model size 1 —
-    as nested dicts / lists of numpy arrays, NamedTuple fields turned
-    into dict keys and the leading device axis (size 1) kept — → the
+    as nested dicts / lists of numpy arrays, NamedTuple fields
+    (``AttnParams``, ``MLAAttnParams``, …) turned into dict keys and the
+    leading device axis (size 1) kept — → the
     port's train params (same tree, device axis stripped)."""
     _check_supported(cfg)
     dev = resolve_device(device)
@@ -161,9 +183,17 @@ def layer_params(params: Dict[str, Any], cfg: ModelConfig
 
 def apply_block(cfg: ModelConfig, blk: Dict[str, Any], x: torch.Tensor, *,
                 return_kv: bool = False):
+    """One layer of the train-path forward.  With ``return_kv`` the
+    second result is what prefill caches: ``(k, v)`` of GQA attention,
+    or MLA's latent entries ``[B, S, l + rope]``."""
     eps = cfg.norm_eps
-    a, kv = attn_mod.attention_train(blk["attn"], rms_norm(x, blk["ln1"], eps),
-                                     cfg, ATTN_GLOBAL, return_kv=return_kv)
+    h = rms_norm(x, blk["ln1"], eps)
+    if cfg.mla is not None:
+        a, kv = attn_mod.mla_attention_train(blk["attn"], h, cfg,
+                                             return_kv=return_kv)
+    else:
+        a, kv = attn_mod.attention_train(blk["attn"], h, cfg, ATTN_GLOBAL,
+                                         return_kv=return_kv)
     x = x + a
     h = rms_norm(x, blk["ln2"], eps)
     return x + ffn_apply(blk["ffn"], h, cfg.ffn_act), kv

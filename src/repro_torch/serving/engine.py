@@ -1,13 +1,15 @@
 """Decode engine — the port of ``repro/serving/engine.py`` for the fused,
 prepacked path on one GPU.
 
-One decode step is the embedding, then per layer the B1 kernel
-(``fused_decode``, attention with its fused ``ln1`` and per-head output
-projection) and the B2 kernel (``fused_ffn``, the block tail), then the
-B3 kernel (``fused_head``, final norm + LM head + top-k): ``2·L + 1``
-kernel launches.  Plain torch runs only where the reference ran XLA
-ops: the embedding, ``rope_at``, the KV append, the normalize-and-head
-sum, the greedy finalize and the ``cache_lens`` update.
+One decode step is the embedding, then per layer the attention kernel
+— B1 (``fused_decode``, with its fused ``ln1`` and per-head output
+projection) or, for MLA, B4 (``fused_mla_decode``, with its fused ``ln1``
+and the folded ``W_UV·W_O`` projection) — and the B2 kernel
+(``fused_ffn``, the block tail), then the B3 kernel (``fused_head``,
+final norm + LM head + top-k): ``2·L + 1`` kernel calls.  Plain torch
+runs only where the reference ran XLA ops: the embedding, ``rope_at``,
+the KV append, the normalize-and-head sum, the greedy finalize and the
+``cache_lens`` update.
 
 Decode is ragged: ``state["cache_lens"] [B]`` lets every slot advance on
 its own, and ``−1`` marks a free slot (no KV write, no attention work,
@@ -25,6 +27,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.dataflow import (KVBlock, PackedFFNWeights,
                                        PackedHeadWeights,
+                                       mla_attention_packed,
                                        split_token_attention_packed)
 from repro_torch.core.device import resolve_device
 from repro_torch.kernels.fused_decode.fused_decode import (
@@ -33,6 +36,8 @@ from repro_torch.kernels.fused_ffn.fused_ffn import (fused_ffn_block,
                                                      fused_ffn_plain)
 from repro_torch.kernels.fused_head.fused_head import (fused_head_block,
                                                        fused_head_plain)
+from repro_torch.kernels.fused_mla_decode.fused_mla_decode import (
+    fused_mla_decode_attention, fused_mla_decode_plain)
 from repro_torch.models.layers import embed_lookup
 from repro_torch.serving.sampling import (CAND_K, advance_sampling_step,
                                           finalize_candidates,
@@ -57,34 +62,43 @@ class EngineOptions:
 
 
 class Kernels(NamedTuple):
-    """The B1–B3 entry points a decode step calls.  ``PLAIN_KERNELS``
-    holds the kernels against their plain versions end to end on the
-    card (``chip_smoke.py``); the wrappers take the plain versions on
-    the CPU anyway."""
+    """The B1–B4 entry points a decode step calls (``decode`` for GQA
+    attention, ``mla`` for MLA).  ``PLAIN_KERNELS`` holds the kernels
+    against their plain versions end to end on the card
+    (``chip_smoke.py``); the wrappers take the plain versions on the CPU
+    anyway."""
     decode: Callable
     ffn: Callable
     head: Callable
+    mla: Callable
 
 
-KERNELS = Kernels(fused_decode_attention, fused_ffn_block, fused_head_block)
-PLAIN_KERNELS = Kernels(fused_decode_plain, fused_ffn_plain, fused_head_plain)
+KERNELS = Kernels(fused_decode_attention, fused_ffn_block, fused_head_block,
+                  fused_mla_decode_attention)
+PLAIN_KERNELS = Kernels(fused_decode_plain, fused_ffn_plain, fused_head_plain,
+                        fused_mla_decode_plain)
 
 
 def init_decode_state(cfg: ModelConfig, scfg: ServeConfig, *,
                       device="cuda") -> Dict[str, Any]:
     """``cache_lens [B]`` (0: a fresh lockstep batch), the sampling leaves,
     and per block-pattern position one :class:`KVBlock` stacked over the
-    layer groups: ``k``/``v [G, S, B·kv, hd]`` bf16, ``pos [G, S, B]``."""
+    layer groups: ``k``/``v [G, S, B·kv, hd]`` bf16, ``pos [G, S, B]`` —
+    for MLA the latent cache ``k [G, S, B, l+rope]``, ``v [G, S, B, 1]``
+    (``engine.py:153–157``)."""
     dev = resolve_device(device)
     B, S = scfg.batch_local, scfg.max_seq
     G = cfg.n_layers // len(cfg.block_pattern)
-    kv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    if cfg.mla is not None:
+        k_shape = (G, S, B, cfg.mla.kv_lora_rank + cfg.mla.rope_head_dim)
+        v_shape = (G, S, B, 1)
+    else:
+        k_shape = v_shape = (G, S, B * cfg.n_kv_heads, cfg.resolved_head_dim)
 
     def cache():
-        shape = (G, S, B * kv, hd)
         return KVBlock(
-            k=torch.zeros(shape, dtype=torch.bfloat16, device=dev),
-            v=torch.zeros(shape, dtype=torch.bfloat16, device=dev),
+            k=torch.zeros(k_shape, dtype=torch.bfloat16, device=dev),
+            v=torch.zeros(v_shape, dtype=torch.bfloat16, device=dev),
             pos=torch.full((G, S, B), -1, dtype=torch.int32, device=dev))
 
     state = {"cache_lens": torch.zeros((B,), dtype=torch.int32, device=dev),
@@ -126,13 +140,20 @@ def decode_block(cfg: ModelConfig, blk: Dict[str, Any], x: torch.Tensor,
                  cache: KVBlock, cache_lens: torch.Tensor, cos: torch.Tensor,
                  sin: torch.Tensor, kernels: Kernels = KERNELS
                  ) -> torch.Tensor:
-    """One dense attention layer, ``x [B, D] → [B, D]``: B1 (attention
-    with its fused ``ln1`` and per-head output projection) with the KV
-    append, then B2 (both residual adds and the FFN).  The reference's
-    ``decode_block`` on the prepacked path at cluster size 1."""
-    a = split_token_attention_packed(x, blk["attn"], cache, cache_lens, cos,
-                                     sin, norm_eps=cfg.norm_eps,
-                                     kernel=kernels.decode)
+    """One attention layer, ``x [B, D] → [B, D]``: B1 (attention with its
+    fused ``ln1`` and per-head output projection) — or B4 for MLA — with
+    the cache append, then B2 (both residual adds and the FFN).  The
+    reference's ``decode_block`` on the prepacked path at cluster size
+    1."""
+    if cfg.mla is not None:
+        a = mla_attention_packed(x, blk["attn"], cache, cache_lens, cos, sin,
+                                 nope_dim=cfg.mla.nope_head_dim,
+                                 rope_dim=cfg.mla.rope_head_dim,
+                                 norm_eps=cfg.norm_eps, kernel=kernels.mla)
+    else:
+        a = split_token_attention_packed(x, blk["attn"], cache, cache_lens,
+                                         cos, sin, norm_eps=cfg.norm_eps,
+                                         kernel=kernels.decode)
     return _fused_ffn_tail(cfg, blk["ffn"], x, a, kernels)
 
 
@@ -161,7 +182,10 @@ def decode_step(cfg: ModelConfig, scfg: ServeConfig, params: Dict[str, Any],
     dev = cache_lens.device
     tokens = torch.as_tensor(tokens, device=dev)
     x = embed_lookup(params["embed"], tokens)
-    cos, sin = rope_at(cache_lens, cfg.resolved_head_dim, cfg.rope_theta)
+    # RoPE spans the head dim, or only MLA's rope part (64, not head_dim)
+    rope_dim = (cfg.mla.rope_head_dim if cfg.mla is not None
+                else cfg.resolved_head_dim)
+    cos, sin = rope_at(cache_lens, rope_dim, cfg.rope_theta)
     for g in range(cfg.n_layers // len(cfg.block_pattern)):
         for blk, caches in zip(params["blocks"], state["layers"]):
             layer = {"attn": _layer(blk["attn"], g),

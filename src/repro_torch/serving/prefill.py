@@ -1,8 +1,8 @@
-"""Prefill — the port of ``repro/serving/prefill.py`` for dense attention
+"""Prefill — the port of ``repro/serving/prefill.py`` for attention
 decoders: run the prompt through the train-path forward (plain torch, as
-the reference leaves prefill to XLA), scatter each layer's k/v into the
-decode cache, and sample each admitted slot's first token from its last
-real position.
+the reference leaves prefill to XLA), scatter each layer's k/v (for MLA
+its latent entries) into the decode cache, and sample each admitted
+slot's first token from its last real position.
 
 Per-slot ``lengths`` make prefill a targeted insert: ``lengths[b] == 0``
 leaves slot b untouched.  Rows are independent in every op of this
@@ -30,7 +30,8 @@ from repro_torch.serving.sampling import (admit_sampling_state,
 
 def _fill_global(cache: KVBlock, k: torch.Tensor, v: torch.Tensor,
                  rows: torch.Tensor, lens: torch.Tensor) -> None:
-    """Write the prompt k/v ``[n, S_p, kv, hd]`` of the admitted slots
+    """Write the prompt k/v ``[n, S_p, kv, hd]`` (MLA: the latent entries
+    ``[n, S_p, l+rope]`` and their first column) of the admitted slots
     ``rows [n]`` (lengths ``lens [n]``) into one layer's cache, in place:
     positions below the length hold the prompt, the rest zeros and
     ``pos = −1`` (the reference's ``_fill_global`` + ``_merge_admitted``
@@ -86,8 +87,10 @@ def prefill(cfg: ModelConfig, scfg: ServeConfig, params: Dict[str, Any],
                   for g in range(cfg.n_layers // len(cfg.block_pattern))
                   for c in state["layers"]]
         for blk, cache in zip(blocks, caches):
-            x, (k, v) = apply_block(cfg, blk, x, return_kv=True)
-            _fill_global(cache, k, v, rows, lens_a)
+            x, kv = apply_block(cfg, blk, x, return_kv=True)
+            if cfg.mla is not None:            # prefill.py:145–149
+                kv = (kv, kv[..., :1])
+            _fill_global(cache, *kv, rows, lens_a)
         last_raw = x[torch.arange(len(rows), device=dev), lens_a - 1]
         last = rms_norm(last_raw, params["final_norm"], cfg.norm_eps)
         logits = lm_head_logits(params["lm_head"], last)

@@ -4,7 +4,9 @@
 At model size 1 there is no cluster gather: ``_pack_attn`` concatenates
 ``wq|wk|wv`` into one ``wqkv [D, (q + 2kv)·hd]`` (the one copy the pack
 makes) and views ``wo`` as per-head full-width rows ``[q, hd, D]``;
-``bundle_ffn`` and ``bundle_head`` only alias train tensors.
+``_pack_mla`` views ``wq``, aliases ``wdkv``/``wuk`` and folds
+``wproj = W_UV·W_O`` (its one copy); ``bundle_ffn`` and ``bundle_head``
+only alias train tensors.
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.dataflow import (PackedFFNWeights, PackedHeadWeights,
+                                       PackedMLAWeights,
                                        PackedSplitTokenWeights)
 
 
@@ -34,6 +37,26 @@ def _pack_attn(a: Dict[str, torch.Tensor], ln1: torch.Tensor
     return PackedSplitTokenWeights(wqkv=wqkv, wo=wo, bqkv=bqkv, ln1=ln1)
 
 
+def _pack_mla(a: Dict[str, torch.Tensor], ln1: torch.Tensor
+              ) -> PackedMLAWeights:
+    """Stacked train-layout MLA (``wq [G, D, q, nope+rope]``, …) → packed
+    serve layout (``prepack.py:118–144`` at model size 1).  ``wproj[g, h]
+    = wuv[g, h] · wo[g] rows of head h``, computed in f32 and rounded once
+    to the weights' dtype, one layer at a time so the f32 scratch stays
+    one layer's size."""
+    G, D, q_loc, hr = a["wq"].shape
+    v_dim = a["wuv"].shape[-1]
+    wo4 = a["wo"].reshape(G, q_loc, v_dim, a["wo"].shape[-1])
+    wproj = torch.empty(a["wuv"].shape[:3] + (wo4.shape[-1],),
+                        dtype=a["wo"].dtype, device=a["wo"].device)
+    for g in range(G):
+        wproj[g] = torch.einsum("qlv,qvd->qld", a["wuv"][g].float(),
+                                wo4[g].float()).to(wproj.dtype)
+    return PackedMLAWeights(wq=a["wq"].reshape(G, D, q_loc * hr),
+                            wdkv=a["wdkv"], wuk=a["wuk"], wproj=wproj,
+                            ln1=ln1)
+
+
 def bundle_ffn(blk: Dict[str, Any]) -> PackedFFNWeights:
     f = blk["ffn"]
     return PackedFFNWeights(w_in=f["w_in"], w_out=f["w_out"], ln2=blk["ln2"],
@@ -50,8 +73,10 @@ def prepack_for_serving(cfg: ModelConfig, params: Dict[str, Any]
                         ) -> Dict[str, Any]:
     """Serve tree: every block's ``attn`` packed, ``ffn`` bundled, plus
     the ``head`` bundle; ``embed`` aliases the train tensor."""
+    pack_attn = _pack_mla if cfg.mla is not None else _pack_attn
+
     def pack_block(blk):
-        return {"attn": _pack_attn(blk["attn"], blk["ln1"]),
+        return {"attn": pack_attn(blk["attn"], blk["ln1"]),
                 "ffn": bundle_ffn(blk)}
 
     return {"embed": params["embed"],

@@ -1,15 +1,19 @@
 """The port's serving slice as a whole held against the JAX package's
 single-device engine on the fused, prepacked Pallas path (interpret
 mode), with the same weights carried across by
-``from_reference_params``, at the reduced Llama2-7B config.
+``from_reference_params``, at the reduced Llama2-7B config and the
+reduced dense-MLA DeepSeek-V2-Lite (``moe=None``): the ``engines``
+fixture runs every engine test on both.
 
 Token streams are bf16 greedy decodes: a near-tie may flip the argmax
 under another summation order (ROADMAP fault C2), so per-step tokens
 must agree on at least 90 % of (step, active slot) — the bar the
 reference's own backend-parity tests use.  With the seeds below the
-teacher-forced run agrees on 25 of 27 cells (the other two are near-ties,
-the port's top two logits within 0.015) and the trace on every token.
+Llama teacher-forced run agrees on 25 of 27 cells (the other two are
+near-ties, the port's top two logits within 0.015) and the trace on
+every token.  The dense-MLA teacher-forced run agrees on 27 of 27.
 """
+
 import jax
 import numpy as np
 import pytest
@@ -24,7 +28,7 @@ from repro.serving.scheduler import Request as RefRequest
 from repro.serving.scheduler import SlotScheduler as RefScheduler
 from repro.serving.scheduler import replay_trace as ref_replay
 
-from test_torch_layers import jax_tree_to_numpy
+from test_torch_layers import dense_mla, jax_tree_to_numpy
 
 from repro_torch.configs import get_config, reduced
 from repro_torch.core import tracecount
@@ -34,16 +38,26 @@ from repro_torch.serving.sampling import SamplingParams
 from repro_torch.serving.scheduler import Request, SlotScheduler, replay_trace
 
 SLOTS, MAX_SEQ, PROMPT_CAP = 3, 48, 16
+ARCHS = ("llama2-7b", "deepseek-v2-lite")
 
 
-@pytest.fixture(scope="module")
-def engines():
-    cfg = ref_reduced(ref_get_config("llama2-7b"))
+def _configs(arch):
+    """(reference, port) reduced configs; DeepSeek-V2-Lite as its dense-MLA
+    arm (MoE is ROADMAP item 13)."""
+    ref_cfg = ref_reduced(ref_get_config(arch))
+    port_cfg = reduced(get_config(arch))
+    if ref_cfg.moe is not None:
+        ref_cfg, port_cfg = dense_mla(ref_cfg), dense_mla(port_cfg)
+    return ref_cfg, port_cfg
+
+
+@pytest.fixture(scope="module", params=ARCHS)
+def engines(request):
+    cfg, port_cfg = _configs(request.param)
     ref = ref_build(cfg, make_test_mesh(data=1, model=1), max_seq=MAX_SEQ,
                     batch_global=SLOTS,
                     options=RefOptions(backend="pallas", interpret=True,
                                        prepack="on", fuse_head=True))
-    port_cfg = reduced(get_config("llama2-7b"))
     train = from_reference_params(
         port_cfg, jax_tree_to_numpy(ref.params["train"]), device="cpu")
     port = build_engine_full(port_cfg, max_seq=MAX_SEQ, batch_global=SLOTS,
@@ -78,7 +92,9 @@ def test_decode_step_makes_two_calls_per_layer_plus_head(engines):
     tracecount.reset()
     port.decode_fn(port.params["serve"], st, nxt)
     calls = tracecount.calls()
-    assert calls == {"fused_decode": cfg.n_layers,
+    attn, other = (("fused_mla_decode", "fused_decode") if cfg.mla
+                   else ("fused_decode", "fused_mla_decode"))
+    assert calls == {attn: cfg.n_layers, other: 0,
                      "fused_ffn": cfg.n_layers, "fused_head": 1}
     assert sum(calls.values()) == 2 * cfg.n_layers + 1
     assert sum(tracecount.launches().values()) == 0     # CPU: no kernels
@@ -234,3 +250,34 @@ def test_prefill_insert_matches_reference_cache(engines):
             want = np.asarray(getattr(r, name)[0, 0], np.float32)
             np.testing.assert_array_equal(got == 0, want == 0)
             np.testing.assert_allclose(got[0], want[0], rtol=2e-2, atol=2e-2)
+
+
+def test_pack_mla_matches_reference():
+    """``wproj = W_UV·W_O`` per head: within one bf16 ulp of the
+    reference's ``_pack_mla`` (both sum in f32, in different orders, and
+    round once); ``wq`` is a view of the train tensor, ``wdkv``/``wuk``
+    alias it."""
+    from repro.models.transformer import Layout, init_device_major
+    from repro.serving import prepack as ref_prepack
+    from repro_torch.serving import prepack
+    cfg, port_cfg = _configs("deepseek-v2-lite")
+    tree = init_device_major(cfg, Layout(1), jax.random.PRNGKey(3))
+    train = from_reference_params(port_cfg, jax_tree_to_numpy(tree),
+                                  device="cpu")
+    blk = train["blocks"][0]
+    got = prepack._pack_mla(blk["attn"], blk["ln1"])
+    assert got.wq.data_ptr() == blk["attn"]["wq"].data_ptr()
+    assert got.wdkv is blk["attn"]["wdkv"] and got.wuk is blk["attn"]["wuk"]
+    assert got.ln1 is blk["ln1"]
+    ref_attn = tree["blocks"][0]["attn"]
+    for g in range(port_cfg.n_layers):
+        want = ref_prepack._pack_mla(
+            cfg, Layout(1), "pallas",
+            jax.tree.map(lambda leaf: leaf[:, g], ref_attn))
+        w = np.asarray(want.wproj[0], np.float32)
+        gw = got.wproj[g].float().numpy()
+        assert gw.shape == w.shape
+        ulp = np.exp2(np.floor(np.log2(np.maximum(np.abs(w), 1e-30))) - 7)
+        assert (np.abs(gw - w) <= ulp).all(), np.abs(gw - w).max()
+        np.testing.assert_array_equal(got.wq[g].float().numpy(), np.asarray(
+            want.wq[0], np.float32))

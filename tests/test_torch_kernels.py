@@ -10,7 +10,13 @@ Tolerances: f32 inputs ``rtol = atol = 1e-5`` (summation order only);
 bf16 inputs compared in f32 at ``2e-2`` (a value on a bf16 rounding
 boundary may round the other way under another summation order); head
 candidates: indices exact, values within 4 f32 ulps (ROADMAP fault C1).
+B4 (MLA): 1e-5 against the Pallas kernel in both dtypes, the file's
+tolerances against ``ref.py``, which attends the new token unrounded
+(ROADMAP C4); its unnormalized ``o`` relative to each slot's largest
+element.
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -25,6 +31,9 @@ from repro.kernels.fused_ffn.ref import fused_ffn_block_ref
 from repro.kernels.fused_head import topk as jax_topk
 from repro.kernels.fused_head.fused_head import fused_head_block as jax_head
 from repro.kernels.fused_head.ref import fused_head_ref
+from repro.kernels.fused_mla_decode.fused_mla_decode import \
+    fused_mla_decode_attention as jax_mla
+from repro.kernels.fused_mla_decode.ref import fused_mla_decode_attention_ref
 
 from repro_torch.core import tracecount
 from repro_torch.kernels import _build
@@ -32,6 +41,7 @@ from repro_torch.kernels.fused_decode import fused_decode as b1
 from repro_torch.kernels.fused_ffn import fused_ffn as b2
 from repro_torch.kernels.fused_head import fused_head as b3
 from repro_torch.kernels.fused_head import topk as port_topk
+from repro_torch.kernels.fused_mla_decode import fused_mla_decode as b4
 
 DTYPES = {"f32": (jnp.float32, torch.float32),
           "bf16": (jnp.bfloat16, torch.bfloat16)}
@@ -153,6 +163,119 @@ def test_fused_decode_unported_modes_raise():
             b1.fused_decode_attention(*args, **kw, **bad)
     with pytest.raises(NotImplementedError):
         b1.fused_decode_attention(*args[:3], None, *args[4:], **kw)
+
+
+# ---------------------------------------------------------------------------
+# B4 fused_mla_decode (partial_o through wproj, fused ln1, ragged)
+# ---------------------------------------------------------------------------
+B4_SHAPE = dict(B=5, D=64, S=32, nq=4, nope=16, rope=8, l=32)
+
+
+def _b4_inputs(lens, include, dt, seed=4):
+    rng = np.random.default_rng(seed)
+    B, D, S, nq, nope, rope, lr_ = (B4_SHAPE[k] for k in
+                                    ("B", "D", "S", "nq", "nope", "rope", "l"))
+    lr = lr_ + rope
+    lens = np.asarray(lens, np.int32)
+    s = np.arange(S, dtype=np.int32)[:, None]
+    # linear cache; a few stale entries past each live prefix
+    pos = np.where(s < lens[None, :] + 3, s, -1).astype(np.int32)
+    inc = (((lens >= 0) & (lens < S)) if include == "owner"
+           else np.zeros(B, bool)).astype(np.int32)
+    ang = np.asarray(lens, np.float32)[:, None] * (
+        10000.0 ** (-np.arange(rope // 2, dtype=np.float32) / (rope // 2)))
+    f = lambda *shape, sc=1.0: (rng.standard_normal(shape) * sc).astype(
+        np.float32)
+    arrs = dict(x=f(B, D), wq=f(D, nq * (nope + rope), sc=D ** -0.5),
+                wdkv=f(D, lr, sc=D ** -0.5), wuk=f(nq, nope, lr_, sc=0.3),
+                wproj=f(nq, lr_, D, sc=0.3 * lr_ ** -0.5), ln1=f(D, sc=0.1),
+                cc=f(S, B, lr), pos=pos, lens=lens, inc=inc,
+                cos=np.cos(ang), sin=np.sin(ang))
+    j, t = {}, {}
+    for k, a in arrs.items():
+        j[k], t[k] = _both(a, "f32" if k in ("ln1", "cos", "sin") else dt)
+    return j, t
+
+
+def _jax_b4(j, *, use_ref):
+    nq, nope, rope, lr_, D = (B4_SHAPE[k] for k in
+                              ("nq", "nope", "rope", "l", "D"))
+    wo_unused = jnp.zeros((1, 1), j["x"].dtype)
+
+    def one(xb, cb, cl, cosb, sinb, pb, ib):
+        kw = dict(q_heads=nq, nope=nope, rope_d=rope, l_rank=lr_, v_dim=D,
+                  fuse_out="partial_o", pos=pb, include_new=ib,
+                  norm_scale=j["ln1"], norm_eps=1e-6)
+        fn = fused_mla_decode_attention_ref if use_ref else functools.partial(
+            jax_mla, block_s=8, interpret=True, pos_base=jnp.int32(0))
+        out = fn(xb[None], j["wq"], j["wdkv"], j["wuk"], j["wproj"],
+                 wo_unused, cb, cl, cosb, sinb, **kw)
+        return tuple(o[0] for o in out)
+
+    return jax.jit(jax.vmap(one, in_axes=(0, 1, 0, 0, 0, 1, 0)))(
+        j["x"], j["cc"], j["lens"], j["cos"], j["sin"], j["pos"], j["inc"])
+
+
+def _call_b4(t, **kw):
+    return b4.fused_mla_decode_attention(
+        t["x"], t["wq"], t["wdkv"], t["wuk"], t["wproj"], t["ln1"], t["cc"],
+        t["pos"], t["lens"], t["inc"], t["cos"], t["sin"],
+        q_heads=B4_SHAPE["nq"], nope=B4_SHAPE["nope"], rope_d=B4_SHAPE["rope"],
+        l_rank=B4_SHAPE["l"], norm_eps=1e-6, **kw)
+
+
+# B4's plain version and the Pallas kernel compute in f32 from the same
+# inputs in either dtype: held to 1e-5 (measured ≤ 6e-7).  ref.py attends
+# the new token with its f32 entry where the Pallas kernel (and the port)
+# read it back rounded to the cache dtype, so in bf16 ref.py is held only
+# to the file's bf16 tolerance (measured ≤ 2.2e-3).  The unnormalized o is
+# compared relative to each slot's largest element.
+B4_PALLAS_TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("include", ["owner", "none"])
+@pytest.mark.parametrize("lens", [(-1, 0, 1, 31, 32), (7, 8, 23, 16, 2)])
+def test_fused_mla_decode_plain_vs_pallas_and_ref(lens, include, dt):
+    """Ragged per-slot lengths (−1 = free, 0, 1, S−1, a full cache S,
+    block boundaries), the new token counted where the append rule owns
+    it (``include_new`` = owner) or nowhere.  Against the interpret-mode
+    Pallas kernel: ``B4_PALLAS_TOL`` in both dtypes; against ``ref.py``:
+    the tolerances of this file (looser in bf16: the new-token
+    rounding)."""
+    j, t = _b4_inputs(lens, include, dt)
+    got = _call_b4(t)
+    for use_ref in (False, True):
+        want = _jax_b4(j, use_ref=use_ref)
+        tol = _tol(dt) if use_ref else B4_PALLAS_TOL
+        for name, g, w in zip(("o", "c_new", "m", "l"), got, want):
+            assert g.shape == w.shape, (name, g.shape, w.shape)
+            g, w = _np(g), _np(w)
+            if name == "o":
+                scale = np.abs(w).max(axis=(1, 2), keepdims=True)
+                g, w = g / scale, w / scale
+            np.testing.assert_allclose(g, w, **tol,
+                                       err_msg=f"{name} ref={use_ref}")
+    o, c_new, m, l = got
+    assert o.dtype == torch.float32 and c_new.dtype == t["cc"].dtype
+    assert torch.isfinite(o).all()
+    if lens[0] == -1:
+        # a free slot ends with l = 1 and acc = c_new[:l] (m from −1e30)
+        assert torch.all(l[0] == 1.0) and torch.all(m[0] == -1e30)
+        acc = c_new[0, :B4_SHAPE["l"]].float()
+        want_o = torch.einsum("l,qld->qd", acc, t["wproj"].float())
+        torch.testing.assert_close(o[0], want_o, rtol=1e-5, atol=1e-5)
+
+
+def test_fused_mla_decode_unported_modes_raise():
+    _, t = _b4_inputs((1, 2, 3, 4, 5), "owner", "f32")
+    for bad in (dict(fuse_out=True), dict(fuse_out=False),
+                dict(pos_base=-1), dict(pos_base=32)):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            _call_b4(t, **bad)
+    t["ln1"] = None
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        _call_b4(t)
 
 
 # ---------------------------------------------------------------------------
@@ -279,10 +402,19 @@ def _cuda_calls():
             z(8, dt=torch.float32)),
         "fused_head": lambda c: b3.fused_head_block(
             c(z(1, 8)), z(4, 8), z(8, dt=torch.float32)),
+        "fused_mla_decode": lambda c: b4.fused_mla_decode_attention(
+            c(z(1, 16)), z(16, 4 * 24), z(16, 40), z(4, 16, 32),
+            z(4, 32, 16), z(16, dt=torch.float32), z(S, 1, 40),
+            z(S, 1, dt=i32), z(1, dt=i32), z(1, dt=i32),
+            z(1, 4, dt=torch.float32), z(1, 4, dt=torch.float32),
+            q_heads=4, nope=16, rope_d=8, l_rank=32),
     }
 
 
-@pytest.mark.parametrize("name", ["fused_decode", "fused_ffn", "fused_head"])
+KERNEL_NAMES = ["fused_decode", "fused_ffn", "fused_head", "fused_mla_decode"]
+
+
+@pytest.mark.parametrize("name", KERNEL_NAMES)
 def test_cuda_path_raises_when_the_library_cannot_be_built(
         name, monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
@@ -297,7 +429,7 @@ def test_cuda_path_raises_when_the_library_cannot_be_built(
     assert tracecount.launches()[name] == 0
 
 
-@pytest.mark.parametrize("name", ["fused_decode", "fused_ffn", "fused_head"])
+@pytest.mark.parametrize("name", KERNEL_NAMES)
 def test_plain_path_only_for_cpu_tensors(name, monkeypatch):
     def no_library(*_a, **_k):
         raise AssertionError("a CPU tensor reached the CUDA library")
