@@ -5,26 +5,40 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py
 
-It drives two serving paths, each at full width and depth with seeded
-random bf16 weights, 8 slots and ``max_seq`` 1024: Llama2-7B (32 layers;
-kernels B1 ``fused_decode``, B2 ``fused_ffn``, B3 ``fused_head``) and the
-dense-MLA arm of DeepSeek-V2-Lite (27 layers, ``moe=None``; kernels B4
-``fused_mla_decode``, B2, B3).  It builds the hand-written kernels from
-``src/repro_torch/csrc`` with ``nvcc`` and then, one line per phase:
+It drives three serving paths, each at full width and depth with seeded
+random bf16 weights and 8 slots: Llama2-7B (32 layers; kernels B1
+``fused_decode``, B2 ``fused_ffn``, B3 ``fused_head``) and the dense-MLA
+arm of DeepSeek-V2-Lite (27 layers, ``moe=None``; kernels B4
+``fused_mla_decode``, B2, B3), both ragged with ``max_seq`` 1024, and
+RWKV-6 3B (32 layers, attention-free; kernels B7 ``rwkv6_scan`` at
+prefill and at every decode step, B3), served lockstep.  It builds the
+hand-written kernels from ``src/repro_torch/csrc`` with ``nvcc`` and
+then, one line per phase:
 
 1. prints the card (``nvidia-smi`` name and power limit);
-2. builds B1–B4, one ``nvcc`` per source, all at once;
+2. builds B1–B4 and B7, one ``nvcc`` per source, all at once;
 3. holds each kernel against its plain PyTorch version on the card at
    each path's shapes (8 slots, bf16, ragged cache lengths −1, 0, 1 …
    1023 with stale entries past each live prefix): bf16 outputs to 2e-2
    in f32; B4's f32 ``o``, ``m`` and ``l`` relative to each slot's
-   largest element to ``MLA_REL_TOL``; head candidates to exact indices
-   and values within 4 f32 ulps;
-4. per path, serves a staggered 12-request trace through
+   largest element to ``MLA_REL_TOL``; B7's f32 ``o`` and ``s_fin``
+   relative to each (slot, head)'s largest element to ``WKV_REL_TOL``,
+   at the prefill shape ``[8, 512, 40, 64]`` from a zero and a random
+   ``s0`` and at the decode shape ``[8, 1, 40, 64]``, the state updated
+   in place as the engine does; head candidates to exact indices and
+   values within 4 f32 ulps;
+4. per attention path, serves a staggered 12-request trace through
    ``SlotScheduler`` and checks that every decode step made exactly
    ``L`` launches of the attention kernel, ``L`` of B2 and one of B3
    (``2·L + 1``) and no launch fell outside a step, that every token lies
-   in the vocabulary and that every residual row stayed finite;
+   in the vocabulary and that every residual row stayed finite; on
+   RWKV-6 (no per-slot insert: the reference's ``admit`` raises) one
+   engine runs two ``generate`` batches of 8 requests (prompts of 128
+   then 512 tokens, 32 then 64 new tokens) and checks ``L`` B7 launches
+   and no B3 launch per prefill, ``L`` B7 and one B3 per decode step,
+   none outside them, tokens in the vocabulary, every row finite, and
+   that the second batch's first tokens equal a prefill's from a fresh
+   state; it prints the 512-token prefill's time (time to first token);
 5. per path, runs teacher-forced decode steps once through the kernels
    and once through their plain versions, and requires their greedy
    tokens to agree on at least 90 % of (step, slot); then traces a few
@@ -35,7 +49,7 @@ dense-MLA arm of DeepSeek-V2-Lite (27 layers, ``moe=None``; kernels B4
    calls queued behind a spin kernel, median after warm-up; ``call_ms``
    is one call with its host work), and prints them as one JSON
    ``kernels`` line with each kernel's launches per step as its path's
-   phase 4 counted them.
+   phase 4 counted them (``stage`` "prefill": per prefill).
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failure raises
 and the script exits nonzero; without a CUDA device it exits nonzero
@@ -57,7 +71,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import RWKV6, get_config  # noqa: E402
 from repro_torch.core import tracecount  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.fused_decode.fused_decode import (  # noqa: E402
@@ -68,19 +82,24 @@ from repro_torch.kernels.fused_head.fused_head import (  # noqa: E402
     fused_head_block, fused_head_plain)
 from repro_torch.kernels.fused_mla_decode.fused_mla_decode import (  # noqa: E402
     fused_mla_decode_attention, fused_mla_decode_plain)
-from repro_torch.launch.serve import build_engine_full  # noqa: E402
+from repro_torch.kernels.rwkv6_scan.rwkv6_scan import (  # noqa: E402
+    rwkv6_scan, rwkv6_scan_plain)
+from repro_torch.launch.serve import build_engine_full, generate  # noqa: E402
 from repro_torch.serving.engine import (  # noqa: E402
     KERNELS, PLAIN_KERNELS, EngineOptions, decode_step,
     init_decode_state)
 from repro_torch.serving.scheduler import (  # noqa: E402
     Request, SlotScheduler, replay_trace)
 
-ARCHS = ("llama2-7b", "deepseek-v2-lite")   # the second as its dense-MLA arm
+ARCHS = ("llama2-7b", "deepseek-v2-lite",   # the second as its dense-MLA arm
+         "rwkv6-3b")
 SLOTS = 8
 MAX_SEQ = 1024
 SEED = 0
+LOCKSTEP = ((128, 32), (512, 64))   # RWKV-6 batches: (prompt, new tokens)
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor rate
+F32_FLOPS = 67e12              # H100 SXM f32 on the CUDA cores
 BF16_TOL = 2e-2                # bf16 inputs: a value on a rounding
                                # boundary may round the other way under
                                # another summation order
@@ -89,6 +108,10 @@ MLA_REL_TOL = 1e-3             # B4's f32 outputs from the same bf16
                                # inputs: summation order only, relative to
                                # each slot's largest element (o is not
                                # normalized: it grows with the live length)
+WKV_REL_TOL = 1e-4             # B7's f32 o and s_fin from the same f32
+                               # inputs: summation order (and fused
+                               # multiply-adds) only, relative to each
+                               # (slot, head)'s largest element
 SPIN_CYCLES = 50_000_000       # ≈ 25 ms at the H100's clock: longer than
                                # the host needs to queue a timed batch
 
@@ -114,15 +137,17 @@ def close_bf16(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
     return float(err.max())
 
 
-def close_rel(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
-    """f32 outputs, per slot relative to the slot's largest element."""
+def close_rel(name: str, got: torch.Tensor, want: torch.Tensor,
+              tol: float = MLA_REL_TOL, lead: int = 1) -> float:
+    """f32 outputs, per group of the ``lead`` leading axes (a slot, or a
+    (slot, head)) relative to the group's largest element."""
     got, want = got.float(), want.float()
     err = (got - want).abs()
-    size = want.abs().flatten(1).amax(dim=1).clamp(min=1e-30)
-    rel = err.flatten(1).amax(dim=1) / size
-    if not torch.isfinite(got).all() or (rel > MLA_REL_TOL).any():
-        raise AssertionError(f"{name}: off by {rel.max():.3e} of the slot's "
-                             f"largest element (tolerance {MLA_REL_TOL})")
+    size = want.abs().flatten(lead).amax(dim=-1).clamp(min=1e-30)
+    rel = err.flatten(lead).amax(dim=-1) / size
+    if not torch.isfinite(got).all() or (rel > tol).any():
+        raise AssertionError(f"{name}: off by {rel.max():.3e} of the "
+                             f"group's largest element (tolerance {tol})")
     return float(err.max())
 
 
@@ -201,8 +226,8 @@ def tree_bytes(tree) -> int:
     return sum(storages.values())
 
 
-def bound(n_bytes: float, n_ops: float):
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / BF16_FLOPS
+def bound(n_bytes: float, n_ops: float, rate: float = BF16_FLOPS):
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / rate
     return (1e3 * max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -285,18 +310,67 @@ def mla_case(cfg, gen):
                          "fused_mla_decode.py:180")
 
 
+def wkv_case(cfg, gen, S: int):
+    """B7 at ``[SLOTS, S, H, hd]`` with the model path's scales: r, k, v
+    the projections of a normed row (≈ N(0, 1)), w the decay
+    exp(−exp(−0.5 + δ)), u ≈ 0.1, and a random ``s0`` (a state after a
+    prompt) beside the zero one prefill starts from."""
+    B, H, hd = SLOTS, cfg.d_model // cfg.rwkv_head_dim, cfg.rwkv_head_dim
+    f32 = torch.float32
+    shape = (B, S, H, hd)
+    args = dict(r=randn(gen, shape, 1.0, f32), k=randn(gen, shape, 1.0, f32),
+                v=randn(gen, shape, 1.0, f32),
+                w=torch.exp(-torch.exp(-0.5 + randn(gen, shape, 0.1, f32))),
+                u=randn(gen, (H, hd), 0.1, f32),
+                s0=randn(gen, (B, H, hd, hd), 1.0, f32))
+    s0s = [args["s0"]]
+    if S > 1:
+        s0s.insert(0, torch.zeros_like(args["s0"]))
+    n_bytes = 5 * B * S * H * hd * 4 + H * hd * 4 + 2 * B * H * hd * hd * 4
+    n_ops = 6 * B * S * H * hd * hd
+    return dict(name="rwkv6_scan", fn=rwkv6_scan, plain=rwkv6_scan_plain,
+                args=args, kw={}, s0s=s0s, rate=F32_FLOPS,
+                stage="prefill" if S > 1 else "decode",
+                cost=(n_bytes, n_ops),
+                replaces="src/repro/kernels/rwkv6_scan/rwkv6_scan.py:58")
+
+
 def kernel_cases(cfg):
-    """The attention kernel of ``cfg``'s path (B1, or B4 for MLA), B2 and
-    B3, at its widths."""
+    """The kernels of ``cfg``'s path at its widths: the attention kernel
+    (B1, or B4 for MLA), B2 and B3 — or, on RWKV-6, B7 at the prefill and
+    the decode shape, and B3."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED + 1)
     B, D, F, V = SLOTS, cfg.d_model, cfg.d_ff, cfg.vocab_size
-    attn = mla_case(cfg, gen) if cfg.mla is not None else gqa_case(cfg, gen)
-    ffn = dict(x=randn(gen, (B, D), 1.0), a=randn(gen, (B, D), 1.0),
-               w_in=randn(gen, (D, F), D ** -0.5),
-               w_gate=randn(gen, (D, F), D ** -0.5),
-               w_out=randn(gen, (F, D), F ** -0.5),
-               ln2=randn(gen, (D,), 0.1, torch.float32))
+    if cfg.block_pattern == (RWKV6,):
+        cases = [wkv_case(cfg, gen, LOCKSTEP[-1][0]), wkv_case(cfg, gen, 1),
+                 head_case(cfg, gen)]
+    else:
+        attn = (mla_case(cfg, gen) if cfg.mla is not None
+                else gqa_case(cfg, gen))
+        ffn = dict(x=randn(gen, (B, D), 1.0), a=randn(gen, (B, D), 1.0),
+                   w_in=randn(gen, (D, F), D ** -0.5),
+                   w_gate=randn(gen, (D, F), D ** -0.5),
+                   w_out=randn(gen, (F, D), F ** -0.5),
+                   ln2=randn(gen, (D,), 0.1, torch.float32))
+        ffn_bytes = 4 * B * D * 2 + 3 * D * F * 2 + D * 4
+        ffn_ops = 2 * B * D * F * 3
+        cases = [
+            attn,
+            dict(name="fused_ffn", fn=fused_ffn_block, plain=fused_ffn_plain,
+                 args=ffn, kw=dict(add_r=1.0, eps=cfg.norm_eps),
+                 cost=(ffn_bytes, ffn_ops),
+                 replaces="src/repro/kernels/fused_ffn/fused_ffn.py:105"),
+            head_case(cfg, gen),
+        ]
+    for case in cases:
+        case["path"] = cfg.name
+    return cases
+
+
+def head_case(cfg, gen):
+    """B3 at ``cfg``'s width and vocabulary."""
+    B, D, V = SLOTS, cfg.d_model, cfg.vocab_size
     table = randn(gen, (V, D), D ** -0.5)
     x_head = randn(gen, (B, D), 1.0)
     # a tie across the first and the last vocab tile, at the top of
@@ -305,27 +379,36 @@ def kernel_cases(cfg):
     table[V - 1] = table[100]
     head = dict(x=x_head, table=table,
                 ln=torch.zeros((D,), dtype=torch.float32, device="cuda"))
-    ffn_bytes = 4 * B * D * 2 + 3 * D * F * 2 + D * 4
-    ffn_ops = 2 * B * D * F * 3
     head_bytes = B * D * 2 + V * D * 2 + D * 4 + B * 8 * 8
     head_ops = 2 * B * D * V
-    cases = [
-        attn,
-        dict(name="fused_ffn", fn=fused_ffn_block, plain=fused_ffn_plain,
-             args=ffn, kw=dict(add_r=1.0, eps=cfg.norm_eps),
-             cost=(ffn_bytes, ffn_ops),
-             replaces="src/repro/kernels/fused_ffn/fused_ffn.py:105"),
-        dict(name="fused_head", fn=fused_head_block, plain=fused_head_plain,
-             args=head, kw=dict(eps=cfg.norm_eps, k=8),
-             cost=(head_bytes, head_ops),
-             replaces="src/repro/kernels/fused_head/fused_head.py:97"),
-    ]
-    for case in cases:
-        case["path"] = cfg.name
-    return cases
+    return dict(name="fused_head", fn=fused_head_block, plain=fused_head_plain,
+                args=head, kw=dict(eps=cfg.norm_eps, k=8),
+                cost=(head_bytes, head_ops),
+                replaces="src/repro/kernels/fused_head/fused_head.py:97")
+
+
+def check_wkv(case) -> float:
+    """B7 from each ``s0`` with the state updated in place (``s_out`` =
+    the state passed in, as the engine calls it) against the plain
+    version from a fresh copy: ``o`` and ``s_fin`` per (slot, head)."""
+    errs = []
+    for s0 in case["s0s"]:
+        args = dict(case["args"], s0=s0)
+        state = s0.clone()
+        o, s_fin = case["fn"](**dict(args, s0=state), s_out=state)
+        want_o, want_s = case["plain"](*args.values())
+        torch.cuda.synchronize()
+        if s_fin.data_ptr() != state.data_ptr():
+            raise AssertionError("rwkv6_scan: s_fin not written in place")
+        errs.append(close_rel("rwkv6_scan[o]", o.transpose(1, 2),
+                              want_o.transpose(1, 2), WKV_REL_TOL, lead=2))
+        close_rel("rwkv6_scan[s_fin]", s_fin, want_s, WKV_REL_TOL, lead=2)
+    return max(errs)
 
 
 def check_kernel(case) -> float:
+    if case["name"] == "rwkv6_scan":
+        return check_wkv(case)
     got = case["fn"](**case["args"], **case["kw"])
     want = case["plain"](*case["args"].values(), **case["kw"])
     torch.cuda.synchronize()
@@ -421,6 +504,94 @@ def serve_trace(cfg, eng):
                 wall_s=round(wall, 2)), launches, per_kernel, results
 
 
+def serve_lockstep(cfg, eng):
+    """RWKV-6's serving loop: two ``generate`` batches of ``SLOTS``
+    requests on one engine (``LOCKSTEP``), every prefill and decode step
+    counted, timed (CUDA events; host clock for the enqueue) and checked
+    for non-finite rows."""
+    rng = np.random.default_rng(SEED)
+    calls = {"prefill": [], "decode": []}
+
+    def counted(fn, stage):
+        def run(p, st, tok):
+            before = tracecount.launches()
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            t0 = time.perf_counter()
+            nxt, st = fn(p, st, tok)
+            host = 1e3 * (time.perf_counter() - t0)
+            e1.record()
+            e1.synchronize()
+            after = tracecount.launches()
+            calls[stage].append(dict(
+                ms=e0.elapsed_time(e1), host_ms=host,
+                launches={k: after[k] - before[k] for k in after}))
+            if int(st["nonfinite"].max()) != 0:
+                raise AssertionError(f"non-finite residual or head value: "
+                                     f"{st['nonfinite'].tolist()}")
+            return nxt, st
+        return run
+
+    state, batches = eng.state, []
+    tracecount.reset()
+    t0 = time.perf_counter()
+    for n_prompt, n_new in LOCKSTEP:
+        prompts = rng.integers(0, cfg.vocab_size,
+                               (SLOTS, n_prompt)).astype(np.int32)
+        toks, state = generate(eng.params,
+                               counted(eng.prefill_fn, "prefill"),
+                               counted(eng.decode_fn, "decode"), state,
+                               prompts, n_new)
+        toks = toks.cpu().numpy()
+        if toks.shape != (SLOTS, n_new) or toks.min() < 0 \
+                or toks.max() >= cfg.vocab_size:
+            raise AssertionError("tokens missing or outside the vocabulary")
+        batches.append((prompts, toks))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = tracecount.launches()
+    want = {stage: {k: 0 for k in launches} for stage in calls}
+    want["prefill"]["rwkv6_scan"] = cfg.n_layers
+    want["decode"].update(rwkv6_scan=cfg.n_layers, fused_head=1)
+    for stage, log in calls.items():
+        bad = [(i, c["launches"]) for i, c in enumerate(log)
+               if c["launches"] != want[stage]]
+        if bad or not log:
+            raise AssertionError(f"{stage} launches {bad[:4]}, want "
+                                 f"{want[stage]} on each of {len(log)}")
+    n_pre, n_dec = len(calls["prefill"]), len(calls["decode"])
+    if any(launches[k] != n_pre * want["prefill"][k]
+           + n_dec * want["decode"][k] for k in launches):
+        raise AssertionError(f"launches outside prefill and decode: "
+                             f"{launches} over {n_pre} prefills and {n_dec} "
+                             "steps")
+    # the second batch's prefill started afresh: its first tokens are a
+    # fresh state's (launches of this check are not counted)
+    prompts, toks = batches[-1]
+    fresh = init_decode_state(cfg, eng.scfg, device="cuda")
+    first, _ = eng.prefill_fn(eng.params["train"], fresh, prompts)
+    if not np.array_equal(first.cpu().numpy(), toks[:, 0]):
+        raise AssertionError("the second prefill did not start afresh")
+    dec = calls["decode"]
+    serve = dict(
+        batches=len(LOCKSTEP), prefills=n_pre, decode_steps=n_dec,
+        tokens=sum(t.size for _, t in batches),
+        launches_per_step=sum(want["decode"].values()),
+        launches_per_prefill=sum(want["prefill"].values()),
+        median_step_ms=round(statistics.median(c["ms"] for c in dec), 3),
+        median_host_ms=round(statistics.median(c["host_ms"] for c in dec),
+                             3),
+        prefill_ms={n: round(c["ms"], 3) for (n, _), c in
+                    zip(LOCKSTEP, calls["prefill"])},
+        prefill_host_ms={n: round(c["host_ms"], 3) for (n, _), c in
+                         zip(LOCKSTEP, calls["prefill"])},
+        wall_s=round(wall, 2))
+    counts = {stage: ({k: n * len(calls[stage]) for k, n in w.items()}, w)
+              for stage, w in want.items()}
+    return serve, counts, batches
+
+
 # ---------------------------------------------------------------------------
 # Phase 5: kernels against their plain versions, end to end
 # ---------------------------------------------------------------------------
@@ -429,7 +600,13 @@ def forced_decode(cfg, eng, steps: int = 8):
     lens = rng.integers(32, 513, SLOTS).astype(np.int32)
     toks = rng.integers(0, cfg.vocab_size, (SLOTS, 512)).astype(np.int32)
     state = init_decode_state(cfg, eng.scfg, device="cuda")
-    _, state = eng.admit_fn(eng.params["train"], state, toks, lens)
+    if cfg.block_pattern == (RWKV6,):       # lockstep: one prompt length
+        _, state = eng.prefill_fn(eng.params["train"], state,
+                                  toks[:, :LOCKSTEP[0][0]])
+    else:
+        _, state = eng.admit_fn(eng.params["train"], state, toks, lens)
+    # decode updates the caches and recurrent states in place: the plain
+    # run gets a copy of its own
     twin = {k: (v.clone() if torch.is_tensor(v) else
                 {n: t.clone() for n, t in v.items()} if isinstance(v, dict)
                 else [type(c)(*(t.clone() for t in c)) for c in v])
@@ -470,14 +647,18 @@ GROUPS = (("fused_decode", ("fused_decode_kernel",)),
           ("fused_head", ("head_tile_kernel", "head_merge_kernel")),
           ("fused_mla_decode", ("mla_proj_kernel", "mla_qlat_kernel",
                                 "mla_attn_kernel", "mla_merge_kernel",
-                                "mla_out_kernel")))
+                                "mla_out_kernel")),
+          ("rwkv6_scan", ("wkv_scan_kernel",)))
+MATMUL_NAMES = ("gemm", "gemv", "nvjet", "splitk", "cutlass", "xmma", "cublas")
 
 
 def profile_steps(cfg, eng, state, steps: int = 4):
-    """Device time per decode step by kernel, and the share of the
-    traced window in which no kernel or copy ran.  The profiler's own
-    host cost inflates that idle share; the untraced step time is
-    phase 4's."""
+    """Device time per decode step by kernel — the port's kernels by
+    name, cuBLAS/CUTLASS products as ``matmul``, everything else (the
+    small PyTorch ops) as ``other`` — the device launches per step, and
+    the share of the traced window in which no kernel or copy ran.  The
+    profiler's own host cost inflates that idle share; the untraced step
+    time is phase 4's."""
     from torch.profiler import ProfilerActivity, profile
     tok = torch.zeros(SLOTS, dtype=torch.int32, device="cuda")
     torch.cuda.synchronize()
@@ -493,13 +674,15 @@ def profile_steps(cfg, eng, state, steps: int = 4):
         return dict(device_time="not measured (no device events traced)")
     busy, end = 0.0, spans[0][0]
     per = {name: 0.0 for name, _ in GROUPS}
-    per["other"] = 0.0
+    per["matmul"] = per["other"] = 0.0
     stages = {}                  # each launch of a multi-launch kernel
     for t0, t1, name in spans:
         busy += max(0.0, t1 - max(t0, end))
         end = max(end, t1)
         group, key = next(((g, k) for g, keys in GROUPS for k in keys
                            if k in name), ("other", None))
+        if group == "other" and any(m in name.lower() for m in MATMUL_NAMES):
+            group = "matmul"
         per[group] += t1 - t0
         if key is not None and len(dict(GROUPS)[group]) > 1:
             stages[key] = stages.get(key, 0.0) + t1 - t0
@@ -508,7 +691,8 @@ def profile_steps(cfg, eng, state, steps: int = 4):
            for g, v in per.items()}
     out["stage_ms_per_step"] = {k: round(v / steps / 1e3, 3)
                                 for k, v in stages.items()}
-    out.update(window_ms_per_step=round(window / steps / 1e3, 3),
+    out.update(device_launches_per_step=len(spans) / steps,
+               window_ms_per_step=round(window / steps / 1e3, 3),
                idle_share=round(1.0 - busy / window, 4))
     return out
 
@@ -520,10 +704,27 @@ def path_config(arch: str):
     return dataclasses.replace(cfg, moe=None) if cfg.moe else cfg
 
 
+def step_weights(cfg, eng):
+    """The weights a decode step reads: every layer's attention and FFN
+    weights (or the RWKV-6 block's leaves) and the head table."""
+    blk, head = eng.params["serve"]["blocks"][0], eng.params["serve"]["head"]
+    if cfg.block_pattern == (RWKV6,):
+        block_w = tuple(blk["rwkv"].values())
+    else:
+        attn = blk["attn"]
+        block_w = ((attn.wq, attn.wdkv, attn.wuk, attn.wproj)
+                   if cfg.mla is not None else (attn.wqkv, attn.wo)) + (
+            blk["ffn"].w_in, blk["ffn"].w_gate, blk["ffn"].w_out)
+    return sum(t.numel() * t.element_size() for t in block_w + (head.table,))
+
+
 def serve_path(cfg):
-    """Phases 4 and 5 for one path: build the engine, serve the trace,
-    kernels against plain versions end to end, a traced run.  Returns
-    the path's launch counts (total and per step)."""
+    """Phases 4 and 5 for one path: build the engine, serve the trace
+    (RWKV-6: the lockstep batches), kernels against plain versions end
+    to end, a traced run.  Returns the path's launch counts per stage
+    ("decode", and "prefill" where prefill runs a kernel): total and per
+    call."""
+    rwkv = cfg.block_pattern == (RWKV6,)
     t0 = time.perf_counter()
     eng = build_engine_full(cfg, max_seq=MAX_SEQ, batch_global=SLOTS,
                             options=EngineOptions(check_finite=True),
@@ -532,28 +733,29 @@ def serve_path(cfg):
     say("engine", path=cfg.name, layers=cfg.n_layers,
         build_s=round(time.perf_counter() - t0, 1),
         weights_gb=round(tree_bytes(eng.params) / 1e9, 3),
-        kv_gb=round(tree_bytes(eng.state["layers"]) / 1e9, 3),
+        **{"state_gb" if rwkv else "kv_gb":
+           round(tree_bytes(eng.state["layers"]) / 1e9, 3)},
         allocated_gb=round(torch.cuda.memory_allocated() / 1e9, 3))
-    serve, launches, per_step, results = serve_trace(cfg, eng)
+    if rwkv:
+        serve, counts, batches = serve_lockstep(cfg, eng)
+        toks = batches[-1][1]
+        first = {b: toks[b, :4].tolist() for b in range(3)}
+    else:
+        serve, launches, per_step, results = serve_trace(cfg, eng)
+        counts = {"decode": (launches, per_step)}
+        first = {r: res.tokens[:4] for r, res in sorted(results.items())[:3]}
     # the floor of a step: every weight byte read once at the HBM rate
-    blk, head = eng.params["serve"]["blocks"][0], eng.params["serve"]["head"]
-    attn = blk["attn"]
-    attn_w = ((attn.wq, attn.wdkv, attn.wuk, attn.wproj)
-              if cfg.mla is not None else (attn.wqkv, attn.wo))
-    weight_bytes = sum(t.numel() * t.element_size() for t in attn_w + (
-        blk["ffn"].w_in, blk["ffn"].w_gate, blk["ffn"].w_out, head.table))
+    weight_bytes = step_weights(cfg, eng)
     serve["step_weights_gb"] = round(weight_bytes / 1e9, 3)
     serve["weights_bound_ms"] = round(1e3 * weight_bytes / HBM_BYTES_PER_S, 3)
     say("serve", path=cfg.name, **serve)
-    say("serve", path=cfg.name,
-        first_tokens={r: res.tokens[:4]
-                      for r, res in sorted(results.items())[:3]})
+    say("serve", path=cfg.name, first_tokens=first)
     forced, state = forced_decode(cfg, eng)
     say("forced", path=cfg.name, **forced)
     say("profile", path=cfg.name, **profile_steps(cfg, eng, state))
     del eng, state
     torch.cuda.empty_cache()
-    return launches, per_step
+    return counts
 
 
 def main() -> int:
@@ -587,8 +789,10 @@ def main() -> int:
     # 3. each kernel against its plain version at each path's shapes
     cases = [case for cfg in cfgs for case in kernel_cases(cfg)]
     for case in cases:
+        case.setdefault("stage", "decode")
         case["max_abs_err"] = check_kernel(case)
-        say("kernel", name=case["name"], path=case["path"], ok=True,
+        say("kernel", name=case["name"], path=case["path"],
+            stage=case["stage"], ok=True,
             max_abs_err=f"{case['max_abs_err']:.3e}")
 
     # 4-5. each path served at full width, one engine at a time
@@ -598,15 +802,17 @@ def main() -> int:
     rows = []
     for case in cases:
         args, kw = case["args"], case["kw"]
-        launches, per_step = counts[case["path"]]
+        launches, per_step = counts[case["path"]][case["stage"]]
         ms, covered = cuda_ms(lambda: case["fn"](**args, **kw), 20)
         # the plain versions may sync with the host: their time is
         # whatever the device waits, host gaps included
         plain_ms, _ = cuda_ms(lambda: case["plain"](*args.values(), **kw), 5)
         one_call = call_ms(lambda: case["fn"](**args, **kw), 20)
-        bound_ms, bound_by = bound(*case["cost"])
+        bound_ms, bound_by = bound(*case["cost"],
+                                   case.get("rate", BF16_FLOPS))
         rows.append(dict(
-            name=case["name"], path=case["path"], route="cuda",
+            name=case["name"], path=case["path"], stage=case["stage"],
+            route="cuda",
             source=f"src/repro_torch/csrc/{case['name']}.cu",
             replaces=case["replaces"], launches=launches[case["name"]],
             launches_per_step=per_step[case["name"]],

@@ -6,7 +6,9 @@ device, or carried over from the reference with
 layout once, allocates the decode state and returns the steps a serving
 loop drives: ``prefill_fn``/``decode_fn`` for lockstep batches
 (:func:`generate`) and ``admit_fn``/``retire_fn`` for continuous
-batching (``serving/scheduler.py``).
+batching (``serving/scheduler.py``).  An RWKV-6 model is served lockstep
+only: its ``admit_fn`` raises, as the reference's does (a recurrent
+state cannot take a per-slot insert).
 """
 from __future__ import annotations
 
@@ -35,11 +37,12 @@ class EngineHandle(NamedTuple):
     * ``decode_fn(params["serve"], state, tokens [B])``;
     * ``admit_fn(params["train"], state, tokens [B, S_cap], lengths [B],
       samp=None)`` — targeted prefill-insert of the slots with
-      ``lengths[b] > 0``;
+      ``lengths[b] > 0`` (attention models; raises on RWKV-6);
     * ``retire_fn(state, mask [B])`` — frees the masked slots.
 
-    Every step returns ``(tokens, new state)``; the KV caches inside are
-    shared with (and updated in place from) the state passed in."""
+    Every step returns ``(tokens, new state)``; the KV caches and RWKV-6
+    states inside are shared with (and updated in place from) the state
+    passed in."""
     params: Any
     prefill_fn: Callable
     decode_fn: Callable
@@ -98,7 +101,10 @@ def build_engine_full(cfg: ModelConfig, *, max_seq: int, batch_global: int,
 
 
 def generate(params, pf, dec, state, prompts, n_new: int):
-    """prompts ``[B, S]`` → greedy tokens ``[B, n_new]`` and the state."""
+    """prompts ``[B, S]`` → greedy tokens ``[B, n_new]`` and the state: a
+    lockstep batch, one prefill of every slot and ``n_new − 1`` decode
+    steps (the reference's ``generate``; the one serving loop of
+    RWKV-6)."""
     nxt, state = pf(params["train"], state, prompts)
     out = [nxt]
     for _ in range(n_new - 1):

@@ -24,6 +24,20 @@ def activation(name: str):
     }[name]
 
 
+def seeded_normal(gen: torch.Generator, shape, scale: float,
+                  dtype=torch.bfloat16) -> torch.Tensor:
+    """``N(0, scale²)`` of ``shape`` in ``dtype`` on ``gen``'s device, drawn
+    in slabs of rows so the f32 scratch stays ≤ 64 MB at full width."""
+    out = torch.empty(shape, dtype=dtype, device=gen.device)
+    rows = out.view(-1, shape[-1])
+    step = max(1, (1 << 24) // shape[-1])
+    for i in range(0, rows.shape[0], step):
+        slab = rows[i:i + step]
+        slab.copy_(torch.randn(slab.shape, generator=gen, device=gen.device)
+                   * scale)
+    return out
+
+
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6
              ) -> torch.Tensor:
     xf = x.float()

@@ -1,5 +1,5 @@
 """Model assembly — the port of ``repro/models/transformer.py`` for dense
-attention decoders on one device.
+attention decoders and RWKV-6 on one device.
 
 The reference's ``ParallelCtx`` (``repro/models/ctx.py``) is dropped:
 on one GPU the model axis is 1 and every collective it wraps is the
@@ -15,9 +15,11 @@ Parameter tree (the train layout; leaves are tensors):
   [G, D, kv, hd]``, ``wo [G, q·hd, D]`` — or, for MLA, ``wq [G, D, q,
   nope+rope]``, ``wdkv [G, D, l+rope]``, ``wuk [G, q, nope, l]``, ``wuv
   [G, q, l, v]``, ``wo [G, q·v, D]``; ``ffn`` = ``w_in``/``w_gate
-  [G, D, F]``, ``w_out [G, F, D]``.  The reference's ``tail`` list (layers
-  past the last whole group) is always empty for the one-kind pattern
-  this slice runs, so the port has none.
+  [G, D, F]``, ``w_out [G, F, D]``; an RWKV-6 block holds ``ln1``,
+  ``ln2`` and ``rwkv`` (the ``RWKV6Params`` fields, ``models/rwkv6.py``,
+  each with the group axis leading) and no ``attn`` or ``ffn``.  The
+  reference's ``tail`` list (layers past the last whole group) is always
+  empty for the one-kind patterns the port runs, so the port has none.
 """
 from __future__ import annotations
 
@@ -27,17 +29,36 @@ from typing import Any, Dict, List
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ATTN_GLOBAL, ModelConfig
+from repro_torch.configs.base import (ATTN_GLOBAL, ATTN_LOCAL, RECURRENT,
+                                      RWKV6, ModelConfig)
 from repro_torch.core.device import resolve_device
 from repro_torch.models import attention as attn_mod
-from repro_torch.models.layers import (embed_lookup, ffn_apply, rms_norm)
+from repro_torch.models import rwkv6 as rwkv_mod
+from repro_torch.models.layers import (embed_lookup, ffn_apply, rms_norm,
+                                       seeded_normal)
 
 
 def _check_supported(cfg: ModelConfig) -> None:
     """The port runs global-attention decoders with dense FFNs: GQA/MHA
-    (Llama-style) or MLA (the dense-MLA arm of DeepSeek-V2-Lite).  Every
-    other block kind, MoE, encoders and frontends are later slices
-    (ROADMAP.md)."""
+    (Llama-style) or MLA (the dense-MLA arm of DeepSeek-V2-Lite) — and
+    the all-RWKV-6 pattern (RWKV-6 3B).  RG-LRU and local-attention
+    blocks, MoE, encoders and frontends are later slices (ROADMAP.md)."""
+    kinds = set(cfg.layer_kinds)
+    if RECURRENT in kinds:
+        raise NotImplementedError(
+            f"{cfg.name}: RG-LRU blocks are ROADMAP item 15b (after the "
+            "Gemma-2 features of item 10)")
+    if ATTN_LOCAL in kinds:
+        raise NotImplementedError(
+            f"{cfg.name}: local attention and ring caches are ROADMAP "
+            "item 10")
+    if RWKV6 in kinds:
+        if (cfg.block_pattern != (RWKV6,) or cfg.encoder or cfg.frontend
+                or cfg.tie_embeddings or cfg.use_post_norm or cfg.moe):
+            raise NotImplementedError(
+                f"{cfg.name}: the port runs RWKV-6 as the only block kind, "
+                "with an untied head (ROADMAP.md item 15a)")
+        return
     if cfg.moe:
         raise NotImplementedError(
             f"{cfg.name}: MoE is ROADMAP item 13; serve the dense arm, "
@@ -63,7 +84,8 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda",
     the down projection, 0.02 for the embedding, 1/√D for the LM head,
     zero norm scales — so many random layers stay finite.  MLA: 1/√D
     for ``wq`` and ``wdkv``, 0.05 for ``wuk`` and ``wuv``, 1/√(q·v) for
-    ``wo`` (``transformer.py:94–107``)."""
+    ``wo`` (``transformer.py:94–107``).  RWKV-6: ``rwkv6_init``'s scales
+    per layer, zero ``ln1``/``ln2``, an untied ``lm_head``."""
     _check_supported(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
@@ -72,17 +94,19 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda",
     L, nq, nkv = cfg.n_layers, cfg.n_heads, cfg.n_kv_heads
 
     def dense(shape, scale):
-        # drawn in slabs of rows, so the f32 scratch stays ≤ 64 MB
-        out = torch.empty(shape, dtype=dtype, device=dev)
-        rows = out.view(-1, shape[-1])
-        step = max(1, (1 << 24) // shape[-1])
-        for i in range(0, rows.shape[0], step):
-            slab = rows[i:i + step]
-            slab.copy_(torch.randn(slab.shape, generator=gen, device=dev)
-                       * scale)
-        return out
+        return seeded_normal(gen, shape, scale, dtype)
 
     s_in = 1.0 / math.sqrt(d)
+    if cfg.block_pattern == (RWKV6,):
+        blk = {"ln1": torch.zeros((L, d), device=dev),
+               "ln2": torch.zeros((L, d), device=dev),
+               "rwkv": rwkv_mod.rwkv6_init(
+                   gen, d, cfg.rwkv_head_dim, d // cfg.rwkv_head_dim, F,
+                   lead=(L,), dtype=dtype)}
+        return {"embed": dense((cfg.vocab_size, d), 0.02),
+                "lm_head": dense((cfg.vocab_size, d), s_in),
+                "final_norm": torch.zeros((d,), device=dev),
+                "blocks": [blk]}
     if cfg.mla is not None:
         m = cfg.mla
         attn = {
@@ -185,8 +209,12 @@ def apply_block(cfg: ModelConfig, blk: Dict[str, Any], x: torch.Tensor, *,
                 return_kv: bool = False):
     """One layer of the train-path forward.  With ``return_kv`` the
     second result is what prefill caches: ``(k, v)`` of GQA attention,
-    or MLA's latent entries ``[B, S, l + rope]``."""
+    or MLA's latent entries ``[B, S, l + rope]`` (None for RWKV-6, whose
+    prefill state comes from ``serving/prefill.py``)."""
     eps = cfg.norm_eps
+    if "rwkv" in blk:                  # transformer.py:473–479
+        return rwkv_mod.rwkv6_block(blk["rwkv"], x, cfg.rwkv_head_dim,
+                                    blk["ln1"], blk["ln2"], eps), None
     h = rms_norm(x, blk["ln1"], eps)
     if cfg.mla is not None:
         a, kv = attn_mod.mla_attention_train(blk["attn"], h, cfg,

@@ -1,7 +1,8 @@
 """Decode engine — the port of ``repro/serving/engine.py`` for the fused,
 prepacked path on one GPU.
 
-One decode step is the embedding, then per layer the attention kernel
+On an attention model one decode step is the embedding, then per layer
+the attention kernel
 — B1 (``fused_decode``, with its fused ``ln1`` and per-head output
 projection) or, for MLA, B4 (``fused_mla_decode``, with its fused ``ln1``
 and the folded ``W_UV·W_O`` projection) — and the B2 kernel
@@ -11,11 +12,20 @@ runs only where the reference ran XLA ops: the embedding, ``rope_at``,
 the KV append, the normalize-and-head sum, the greedy finalize and the
 ``cache_lens`` update.
 
-Decode is ragged: ``state["cache_lens"] [B]`` lets every slot advance on
-its own, and ``−1`` marks a free slot (no KV write, no attention work,
-frozen position).  The KV caches in ``state`` are updated IN PLACE (the
-reference rebuilt them): a state passed to :func:`decode_step` or to
-``prefill`` shares its cache tensors with the state returned.
+On RWKV-6 a step is the embedding, then per layer the reference's
+``rwkv6_step`` + ``rwkv6_channel_step`` in plain torch around one B7
+launch (``rwkv6_scan`` at ``S = 1``, the WKV recurrence), then B3:
+``L + 1`` kernel calls.  Its per-slot state is the recurrence's f32
+matrix and the two shift rows of every layer, not a KV cache; it is
+served lockstep (``launch/serve.py:generate``) and does not mask free
+slots, as the reference does not.
+
+Decode is ragged on attention models: ``state["cache_lens"] [B]`` lets
+every slot advance on its own, and ``−1`` marks a free slot (no KV
+write, no attention work, frozen position).  The KV caches and the
+RWKV-6 states in ``state`` are updated IN PLACE (the reference rebuilt
+them): a state passed to :func:`decode_step` or to ``prefill`` shares
+those tensors with the state returned.
 """
 from __future__ import annotations
 
@@ -24,7 +34,7 @@ from typing import Any, Callable, Dict, NamedTuple, Tuple
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import RWKV6, ModelConfig
 from repro_torch.core.dataflow import (KVBlock, PackedFFNWeights,
                                        PackedHeadWeights,
                                        mla_attention_packed,
@@ -38,7 +48,11 @@ from repro_torch.kernels.fused_head.fused_head import (fused_head_block,
                                                        fused_head_plain)
 from repro_torch.kernels.fused_mla_decode.fused_mla_decode import (
     fused_mla_decode_attention, fused_mla_decode_plain)
-from repro_torch.models.layers import embed_lookup
+from repro_torch.kernels.rwkv6_scan.rwkv6_scan import (rwkv6_scan,
+                                                       rwkv6_scan_plain)
+from repro_torch.models.layers import embed_lookup, rms_norm
+from repro_torch.models.rwkv6 import (rwkv6_channel_step, rwkv6_state_init,
+                                      rwkv6_step)
 from repro_torch.serving.sampling import (CAND_K, advance_sampling_step,
                                           finalize_candidates,
                                           init_sampling_state)
@@ -62,8 +76,9 @@ class EngineOptions:
 
 
 class Kernels(NamedTuple):
-    """The B1–B4 entry points a decode step calls (``decode`` for GQA
-    attention, ``mla`` for MLA).  ``PLAIN_KERNELS`` holds the kernels
+    """The B1–B4 and B7 entry points a decode step calls (``decode`` for
+    GQA attention, ``mla`` for MLA, ``wkv`` for RWKV-6's recurrence).
+    ``PLAIN_KERNELS`` holds the kernels
     against their plain versions end to end on the card
     (``chip_smoke.py``); the wrappers take the plain versions on the CPU
     anyway."""
@@ -71,12 +86,13 @@ class Kernels(NamedTuple):
     ffn: Callable
     head: Callable
     mla: Callable
+    wkv: Callable
 
 
 KERNELS = Kernels(fused_decode_attention, fused_ffn_block, fused_head_block,
-                  fused_mla_decode_attention)
+                  fused_mla_decode_attention, rwkv6_scan)
 PLAIN_KERNELS = Kernels(fused_decode_plain, fused_ffn_plain, fused_head_plain,
-                        fused_mla_decode_plain)
+                        fused_mla_decode_plain, rwkv6_scan_plain)
 
 
 def init_decode_state(cfg: ModelConfig, scfg: ServeConfig, *,
@@ -85,7 +101,9 @@ def init_decode_state(cfg: ModelConfig, scfg: ServeConfig, *,
     and per block-pattern position one :class:`KVBlock` stacked over the
     layer groups: ``k``/``v [G, S, B·kv, hd]`` bf16, ``pos [G, S, B]`` —
     for MLA the latent cache ``k [G, S, B, l+rope]``, ``v [G, S, B, 1]``
-    (``engine.py:153–157``)."""
+    (``engine.py:153–157``); for RWKV-6 an ``RWKV6State``, ``s [G, B, H,
+    hd, hd]`` f32 and ``x_prev_t``/``x_prev_c [G, B, D]`` bf16
+    (``engine.py:206–210``)."""
     dev = resolve_device(device)
     B, S = scfg.batch_local, scfg.max_seq
     G = cfg.n_layers // len(cfg.block_pattern)
@@ -101,9 +119,15 @@ def init_decode_state(cfg: ModelConfig, scfg: ServeConfig, *,
             v=torch.zeros(v_shape, dtype=torch.bfloat16, device=dev),
             pos=torch.full((G, S, B), -1, dtype=torch.int32, device=dev))
 
+    def rwkv():
+        hd = cfg.rwkv_head_dim
+        return rwkv6_state_init(B, cfg.d_model // hd, hd, cfg.d_model,
+                                lead=(G,), device=dev)
+
     state = {"cache_lens": torch.zeros((B,), dtype=torch.int32, device=dev),
              "sampling": init_sampling_state(B, dev),
-             "layers": [cache() for _ in cfg.block_pattern]}
+             "layers": [rwkv() if kind == RWKV6 else cache()
+                        for kind in cfg.block_pattern]}
     if scfg.check_finite:
         state["nonfinite"] = torch.zeros((B,), dtype=torch.int32, device=dev)
     return state
@@ -136,15 +160,28 @@ def _fused_head_tail(cfg: ModelConfig, w: PackedHeadWeights, x: torch.Tensor,
     return kernels.head(x, w.table, w.ln, eps=cfg.norm_eps, k=CAND_K)
 
 
-def decode_block(cfg: ModelConfig, blk: Dict[str, Any], x: torch.Tensor,
-                 cache: KVBlock, cache_lens: torch.Tensor, cos: torch.Tensor,
-                 sin: torch.Tensor, kernels: Kernels = KERNELS
-                 ) -> torch.Tensor:
-    """One attention layer, ``x [B, D] → [B, D]``: B1 (attention with its
-    fused ``ln1`` and per-head output projection) — or B4 for MLA — with
-    the cache append, then B2 (both residual adds and the FFN).  The
-    reference's ``decode_block`` on the prepacked path at cluster size
-    1."""
+def decode_block(cfg: ModelConfig, kind: str, blk: Dict[str, Any],
+                 x: torch.Tensor, cache, cache_lens: torch.Tensor, cos, sin,
+                 kernels: Kernels = KERNELS) -> torch.Tensor:
+    """One layer, ``x [B, D] → [B, D]``; the reference's ``decode_block``
+    on the prepacked path at cluster size 1.
+
+    Attention: B1 (attention with its fused ``ln1`` and per-head output
+    projection) — or B4 for MLA — with the cache append, then B2 (both
+    residual adds and the FFN).  RWKV-6 (``engine.py:382–389``): the time
+    mix with its recurrence in one B7 launch, then the channel mix; the
+    layer's ``RWKV6State`` ``cache`` is updated in place (``s`` by the
+    kernel, the shift rows by a copy)."""
+    if kind == RWKV6:
+        p, eps = blk["rwkv"], cfg.norm_eps
+        a, _, st = rwkv6_step(p, rms_norm(x, blk["ln1"], eps),
+                              cfg.rwkv_head_dim, cache, scan=kernels.wkv,
+                              s_out=cache.s)
+        x = x + a
+        c, st = rwkv6_channel_step(p, rms_norm(x, blk["ln2"], eps), st)
+        cache.x_prev_t.copy_(st.x_prev_t)
+        cache.x_prev_c.copy_(st.x_prev_c)
+        return x + c
     if cfg.mla is not None:
         a = mla_attention_packed(x, blk["attn"], cache, cache_lens, cos, sin,
                                  nope_dim=cfg.mla.nope_head_dim,
@@ -166,8 +203,13 @@ def _check_not_param_pair(params: Any, want: str) -> None:
 
 
 def _layer(tree, g: int):
-    """Layer ``g`` of a stacked NamedTuple bundle (views, no copies)."""
-    return type(tree)(*(None if t is None else t[g] for t in tree))
+    """Layer ``g`` of a stacked block or state — dicts, NamedTuples,
+    tensors — as views, no copies."""
+    if isinstance(tree, dict):
+        return {k: _layer(v, g) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return type(tree)(*(_layer(t, g) for t in tree))
+    return None if tree is None else tree[g]
 
 
 def decode_step(cfg: ModelConfig, scfg: ServeConfig, params: Dict[str, Any],
@@ -175,23 +217,26 @@ def decode_step(cfg: ModelConfig, scfg: ServeConfig, params: Dict[str, Any],
                 *, kernels: Kernels = KERNELS
                 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """One ragged decode step: tokens ``[B]`` → ``(next tokens [B] int32,
-    new state)``.  The KV caches are updated in place; ``cache_lens`` and
-    the sampling leaves are new tensors in the returned dict."""
+    new state)``.  The KV caches and RWKV-6 states are updated in place;
+    ``cache_lens`` and the sampling leaves are new tensors in the
+    returned dict."""
     _check_not_param_pair(params, "serve")
     cache_lens = state["cache_lens"]
     dev = cache_lens.device
     tokens = torch.as_tensor(tokens, device=dev)
     x = embed_lookup(params["embed"], tokens)
-    # RoPE spans the head dim, or only MLA's rope part (64, not head_dim)
-    rope_dim = (cfg.mla.rope_head_dim if cfg.mla is not None
-                else cfg.resolved_head_dim)
-    cos, sin = rope_at(cache_lens, rope_dim, cfg.rope_theta)
+    cos = sin = None
+    if any(kind != RWKV6 for kind in cfg.block_pattern):
+        # RoPE spans the head dim, or only MLA's rope part (64, not 128)
+        rope_dim = (cfg.mla.rope_head_dim if cfg.mla is not None
+                    else cfg.resolved_head_dim)
+        cos, sin = rope_at(cache_lens, rope_dim, cfg.rope_theta)
     for g in range(cfg.n_layers // len(cfg.block_pattern)):
-        for blk, caches in zip(params["blocks"], state["layers"]):
-            layer = {"attn": _layer(blk["attn"], g),
-                     "ffn": _layer(blk["ffn"], g)}
-            x = decode_block(cfg, layer, x, _layer(caches, g), cache_lens,
-                             cos, sin, kernels)
+        for kind, blk, caches in zip(cfg.block_pattern, params["blocks"],
+                                     state["layers"]):
+            x = decode_block(cfg, kind, _layer(blk, g), x,
+                             _layer(caches, g), cache_lens, cos, sin,
+                             kernels)
     samp = state["sampling"]
     cand_v, cand_i = _fused_head_tail(cfg, params["head"], x, kernels)
     nxt, head_val = finalize_candidates(cand_v, cand_i, samp)

@@ -1,14 +1,21 @@
-"""Prefill — the port of ``repro/serving/prefill.py`` for attention
-decoders: run the prompt through the train-path forward (plain torch, as
-the reference leaves prefill to XLA), scatter each layer's k/v (for MLA
-its latent entries) into the decode cache, and sample each admitted
-slot's first token from its last real position.
+"""Prefill — the port of ``repro/serving/prefill.py``: run the prompt
+through the train-path forward (plain torch, as the reference leaves
+prefill to XLA), scatter each attention layer's k/v (for MLA its latent
+entries) into the decode cache, and sample each admitted slot's first
+token from its last real position.
 
-Per-slot ``lengths`` make prefill a targeted insert: ``lengths[b] == 0``
-leaves slot b untouched.  Rows are independent in every op of this
-path, so only the admitted rows are computed, and only up to their
-longest prompt (causal attention: a padded tail never reaches the
-positions before it).  The caches are written in place.
+RWKV-6 layers (``_prefill_block``'s RWKV6 branch, ``prefill.py:116–126``)
+run the time mix from the zero state and the zero shift through the B7
+scan and write the decode state: ``s_fin`` and the NORMED last inputs
+``h1[:, -1]``, ``h2[:, -1]``.
+
+Per-slot ``lengths`` make prefill a targeted insert on attention models:
+``lengths[b] == 0`` leaves slot b untouched.  Rows are independent in
+every op of this path, so only the admitted rows are computed, and only
+up to their longest prompt (causal attention: a padded tail never
+reaches the positions before it).  A recurrent state would fold a padded
+tail into itself, so ``lengths`` on an RWKV-6 config raises, as the
+reference's assertion does.  The caches and states are written in place.
 """
 from __future__ import annotations
 
@@ -17,12 +24,14 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import RWKV6, ModelConfig
 from repro_torch.core.dataflow import KVBlock
 from repro_torch.models.layers import embed_lookup, lm_head_logits, rms_norm
+from repro_torch.models.rwkv6 import (RWKV6State, rwkv6_channel_mix,
+                                      rwkv6_time_mix)
 from repro_torch.models.transformer import apply_block, layer_params
 from repro_torch.serving.engine import (ServeConfig, _check_not_param_pair,
-                                        _finite_violations)
+                                        _finite_violations, _layer)
 from repro_torch.serving.sampling import (admit_sampling_state,
                                           finalize_candidates,
                                           head_candidates)
@@ -52,6 +61,22 @@ def _fill_global(cache: KVBlock, k: torch.Tensor, v: torch.Tensor,
                                                   device=k.device))
 
 
+def _prefill_rwkv(cfg: ModelConfig, blk: Dict[str, Any], x: torch.Tensor,
+                  st: RWKV6State) -> torch.Tensor:
+    """One RWKV-6 layer over every slot's whole prompt, from the zero state
+    whatever the slot held; writes ``s_fin`` (through B7) and the normed
+    last inputs into the layer's state ``st`` in place."""
+    p, eps = blk["rwkv"], cfg.norm_eps
+    h1 = rms_norm(x, blk["ln1"], eps)
+    a, _ = rwkv6_time_mix(p, h1, cfg.rwkv_head_dim, s_out=st.s)
+    x = x + a
+    h2 = rms_norm(x, blk["ln2"], eps)
+    x = x + rwkv6_channel_mix(p, h2)
+    st.x_prev_t.copy_(h1[:, -1])
+    st.x_prev_c.copy_(h2[:, -1])
+    return x
+
+
 def prefill(cfg: ModelConfig, scfg: ServeConfig, params: Dict[str, Any],
             state: Dict[str, Any], tokens, *, lengths=None,
             sampling: Optional[Dict[str, np.ndarray]] = None
@@ -60,9 +85,13 @@ def prefill(cfg: ModelConfig, scfg: ServeConfig, params: Dict[str, Any],
 
     ``lengths [B]``: per-slot prompt lengths (default: every slot uses
     ``S_prompt``); 0 leaves the slot untouched, and its returned token
-    is 0.  ``sampling``: host rows of the sampling leaves for the
-    admitted slots (``serving/sampling.py``)."""
+    is 0 (attention models only).  ``sampling``: host rows of the
+    sampling leaves for the admitted slots (``serving/sampling.py``)."""
     _check_not_param_pair(params, "train")
+    rwkv = RWKV6 in cfg.block_pattern
+    if rwkv and lengths is not None:            # prefill.py:204–206
+        raise AssertionError(
+            "per-slot prefill insert supports attention-only models")
     dev = state["cache_lens"].device
     tokens = torch.as_tensor(np.asarray(tokens), device=dev)
     B, S = tokens.shape
@@ -83,10 +112,13 @@ def prefill(cfg: ModelConfig, scfg: ServeConfig, params: Dict[str, Any],
         lens_a = lens[rows]
         x = embed_lookup(params["embed"], tokens[rows, :s_eff])
         blocks = layer_params(params, cfg)
-        caches = [KVBlock(c.k[g], c.v[g], c.pos[g])
+        caches = [_layer(c, g)
                   for g in range(cfg.n_layers // len(cfg.block_pattern))
                   for c in state["layers"]]
         for blk, cache in zip(blocks, caches):
+            if rwkv:                  # every slot admitted (lengths None)
+                x = _prefill_rwkv(cfg, blk, x, cache)
+                continue
             x, kv = apply_block(cfg, blk, x, return_kv=True)
             if cfg.mla is not None:            # prefill.py:145–149
                 kv = (kv, kv[..., :1])

@@ -6,7 +6,8 @@ At model size 1 there is no cluster gather: ``_pack_attn`` concatenates
 makes) and views ``wo`` as per-head full-width rows ``[q, hd, D]``;
 ``_pack_mla`` views ``wq``, aliases ``wdkv``/``wuk`` and folds
 ``wproj = W_UV·W_O`` (its one copy); ``bundle_ffn`` and ``bundle_head``
-only alias train tensors.
+only alias train tensors.  RWKV-6 blocks ride through unpacked, as in
+the reference (``prepack.py:280–293``): the serve tree aliases them.
 """
 from __future__ import annotations
 
@@ -71,11 +72,14 @@ def bundle_head(cfg: ModelConfig, params: Dict[str, Any]) -> PackedHeadWeights:
 
 def prepack_for_serving(cfg: ModelConfig, params: Dict[str, Any]
                         ) -> Dict[str, Any]:
-    """Serve tree: every block's ``attn`` packed, ``ffn`` bundled, plus
-    the ``head`` bundle; ``embed`` aliases the train tensor."""
+    """Serve tree: every attention block's ``attn`` packed, ``ffn``
+    bundled, every other block (RWKV-6) aliased as it is, plus the
+    ``head`` bundle (B3's table); ``embed`` aliases the train tensor."""
     pack_attn = _pack_mla if cfg.mla is not None else _pack_attn
 
     def pack_block(blk):
+        if "attn" not in blk:
+            return blk
         return {"attn": pack_attn(blk["attn"], blk["ln1"]),
                 "ffn": bundle_ffn(blk)}
 

@@ -35,6 +35,8 @@ def test_every_module_imports_without_jax():
                          text=True, timeout=120)
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
     assert len(_modules()) >= 20
+    assert {"repro_torch.configs.rwkv6_3b", "repro_torch.models.rwkv6",
+            "repro_torch.kernels.rwkv6_scan.rwkv6_scan"} <= set(_modules())
 
 
 def test_no_source_names_jax_or_the_reference_package():

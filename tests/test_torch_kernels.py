@@ -13,7 +13,7 @@ candidates: indices exact, values within 4 f32 ulps (ROADMAP fault C1).
 B4 (MLA): 1e-5 against the Pallas kernel in both dtypes, the file's
 tolerances against ``ref.py``, which attends the new token unrounded
 (ROADMAP C4); its unnormalized ``o`` relative to each slot's largest
-element.
+element.  B7 (WKV scan): f32 only (the model path's dtype), 1e-5.
 """
 import functools
 
@@ -34,6 +34,8 @@ from repro.kernels.fused_head.ref import fused_head_ref
 from repro.kernels.fused_mla_decode.fused_mla_decode import \
     fused_mla_decode_attention as jax_mla
 from repro.kernels.fused_mla_decode.ref import fused_mla_decode_attention_ref
+from repro.kernels.rwkv6_scan.ref import rwkv6_scan_ref
+from repro.kernels.rwkv6_scan.rwkv6_scan import rwkv6_scan_kernel
 
 from repro_torch.core import tracecount
 from repro_torch.kernels import _build
@@ -42,6 +44,7 @@ from repro_torch.kernels.fused_ffn import fused_ffn as b2
 from repro_torch.kernels.fused_head import fused_head as b3
 from repro_torch.kernels.fused_head import topk as port_topk
 from repro_torch.kernels.fused_mla_decode import fused_mla_decode as b4
+from repro_torch.kernels.rwkv6_scan import rwkv6_scan as b7
 
 DTYPES = {"f32": (jnp.float32, torch.float32),
           "bf16": (jnp.bfloat16, torch.bfloat16)}
@@ -279,6 +282,66 @@ def test_fused_mla_decode_unported_modes_raise():
 
 
 # ---------------------------------------------------------------------------
+# B7 rwkv6_scan (the WKV recurrence, f32 state)
+# ---------------------------------------------------------------------------
+B7_SHAPE = dict(B=2, H=4, hd=16)
+
+
+def _b7_inputs(S, seed=5):
+    """r, k, v, w, u, s0 as f32 numpy (the scales of
+    ``tests/test_kernels.py::test_rwkv6_scan_sweep``), s0 nonzero."""
+    rng = np.random.default_rng(seed)
+    B, H, hd = (B7_SHAPE[k] for k in ("B", "H", "hd"))
+    f = lambda *shape, sc: (rng.standard_normal(shape) * sc).astype(
+        np.float32)
+    r, k, v = (f(B, S, H, hd, sc=0.3) for _ in range(3))
+    w = (0.4 + 0.5 / (1 + np.exp(-f(B, S, H, hd, sc=1.0)))).astype(
+        np.float32)
+    return r, k, v, w, f(H, hd, sc=0.1), f(B, H, hd, hd, sc=0.1)
+
+
+@pytest.mark.parametrize("S", [1, 32])
+def test_rwkv6_scan_plain_vs_pallas_and_ref(S):
+    """The plain version against the interpret-mode Pallas kernel
+    (``block_t=16, block_h=2``: S % min(16, S) and H % 2 hold) and
+    ``ref.py`` (the model's ``_wkv_scan``), from a random nonzero s0.
+    Measured ≤ 1.2e-7 at S = 32."""
+    arrs = _b7_inputs(S)
+    got = b7.rwkv6_scan(*(torch.from_numpy(a) for a in arrs))
+    j = [jnp.asarray(a) for a in arrs]
+    for want in (rwkv6_scan_kernel(*j, block_t=16, block_h=2,
+                                   interpret=True),
+                 rwkv6_scan_ref(*j)):
+        for name, g, w in zip(("o", "s_fin"), got, want):
+            assert g.dtype == torch.float32 and g.shape == w.shape, name
+            np.testing.assert_allclose(_np(g), _np(w), **_tol("f32"),
+                                       err_msg=name)
+
+
+def test_rwkv6_scan_updates_the_state_in_place():
+    """``s_out = s0``: the final state lands in the state passed in, the
+    same values as into a fresh tensor (the engine's in-place update)."""
+    t = [torch.from_numpy(a) for a in _b7_inputs(7)]
+    o, s_fin = b7.rwkv6_scan(*t)
+    s0 = t[5].clone()
+    o2, s_alias = b7.rwkv6_scan(*t[:5], s0, s_out=s0)
+    assert s_alias.data_ptr() == s0.data_ptr()
+    assert torch.equal(o2, o) and torch.equal(s0, s_fin)
+
+
+def test_rwkv6_scan_unsupported_inputs_raise():
+    """On the card the kernel takes f32 and hd = 64 only; other inputs
+    raise naming ROADMAP, never falling back to the plain version."""
+    r, k, v, w, u, s0 = (torch.from_numpy(a) for a in _b7_inputs(2))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        b7.rwkv6_scan_cuda(r, k, v, w, u, s0)              # hd = 16
+    z = lambda *s, dt=torch.float32: torch.zeros(s, dtype=dt)
+    x = z(1, 2, 1, 64, dt=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="float32"):
+        b7.rwkv6_scan_cuda(x, x, x, x, z(1, 64), z(1, 1, 64, 64))
+
+
+# ---------------------------------------------------------------------------
 # B2 fused_ffn (gated SiLU)
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
@@ -408,10 +471,15 @@ def _cuda_calls():
             z(S, 1, dt=i32), z(1, dt=i32), z(1, dt=i32),
             z(1, 4, dt=torch.float32), z(1, 4, dt=torch.float32),
             q_heads=4, nope=16, rope_d=8, l_rank=32),
+        "rwkv6_scan": lambda c: b7.rwkv6_scan(
+            c(z(1, 2, 1, 64, dt=torch.float32)), *(
+                z(1, 2, 1, 64, dt=torch.float32) for _ in range(3)),
+            z(1, 64, dt=torch.float32), z(1, 1, 64, 64, dt=torch.float32)),
     }
 
 
-KERNEL_NAMES = ["fused_decode", "fused_ffn", "fused_head", "fused_mla_decode"]
+KERNEL_NAMES = ["fused_decode", "fused_ffn", "fused_head", "fused_mla_decode",
+                "rwkv6_scan"]
 
 
 @pytest.mark.parametrize("name", KERNEL_NAMES)
