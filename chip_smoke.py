@@ -5,18 +5,23 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py
 
-It drives three serving paths, each at full width and depth with seeded
-random bf16 weights and 8 slots: Llama2-7B (32 layers; kernels B1
-``fused_decode``, B2 ``fused_ffn``, B3 ``fused_head``) and the dense-MLA
-arm of DeepSeek-V2-Lite (27 layers, ``moe=None``; kernels B4
+It drives four serving paths, each at full width and depth with seeded
+random bf16 weights and 8 slots.  Three run the fused ``backend="pallas"``
+kernels: Llama2-7B (32 layers; kernels B1 ``fused_decode``, B2
+``fused_ffn``, B3 ``fused_head``) and the dense-MLA arm of
+DeepSeek-V2-Lite (27 layers, ``moe=None``; kernels B4
 ``fused_mla_decode``, B2, B3), both ragged with ``max_seq`` 1024, and
 RWKV-6 3B (32 layers, attention-free; kernels B7 ``rwkv6_scan`` at
-prefill and at every decode step, B3), served lockstep.  It builds the
-hand-written kernels from ``src/repro_torch/csrc`` with ``nvcc`` and
-then, one line per phase:
+prefill and at every decode step, B3), served lockstep.  The fourth is
+Llama2-7B again, on the same weights, through the unfused
+``backend="xla"`` dataflow (the paper's baseline: plain torch products,
+RoPE, append and head around B5 ``flash_decode``), so the fused and the
+unfused step are timed in one call.  It builds the hand-written kernels
+from ``src/repro_torch/csrc`` with ``nvcc`` and then, one line per
+phase:
 
 1. prints the card (``nvidia-smi`` name and power limit);
-2. builds B1–B4 and B7, one ``nvcc`` per source, all at once;
+2. builds B1–B5 and B7, one ``nvcc`` per source, all at once;
 3. holds each kernel against its plain PyTorch version on the card at
    each path's shapes (8 slots, bf16, ragged cache lengths −1, 0, 1 …
    1023 with stale entries past each live prefix): bf16 outputs to 2e-2
@@ -26,12 +31,17 @@ then, one line per phase:
    at the prefill shape ``[8, 512, 40, 64]`` from a zero and a random
    ``s0`` and at the decode shape ``[8, 1, 40, 64]``, the state updated
    in place as the engine does; head candidates to exact indices and
-   values within 4 f32 ulps;
+   values within 4 f32 ulps; B5 per slot at the unfused path's shape
+   (``q [8, 32, 128]``, cache ``[1024, 8, 32, 128]``, the lengths above
+   clamped to 0) and at a GQA shape with a window and a softcap, bf16
+   to 2e-2 with the length-0 slots exactly zero;
 4. per attention path, serves a staggered 12-request trace through
    ``SlotScheduler`` and checks that every decode step made exactly
    ``L`` launches of the attention kernel, ``L`` of B2 and one of B3
-   (``2·L + 1``) and no launch fell outside a step, that every token lies
-   in the vocabulary and that every residual row stayed finite; on
+   (``2·L + 1``) — on the unfused path ``L`` of B5 and nothing else —
+   and no launch fell outside a step, that every token lies in the
+   vocabulary and that every residual row stayed finite; the unfused
+   path's line is followed by its step time over the fused path's; on
    RWKV-6 (no per-slot insert: the reference's ``admit`` raises) one
    engine runs two ``generate`` batches of 8 requests (prompts of 128
    then 512 tokens, 32 then 64 new tokens) and checks ``L`` B7 launches
@@ -41,7 +51,8 @@ then, one line per phase:
    state; it prints the 512-token prefill's time (time to first token);
 5. per path, runs teacher-forced decode steps once through the kernels
    and once through their plain versions, and requires their greedy
-   tokens to agree on at least 90 % of (step, slot); then traces a few
+   tokens to agree on at least 90 % of (step, slot) — the unfused path's
+   tokens also against the fused Llama path's; then traces a few
    decode steps with ``torch.profiler`` for the device time per kernel
    and the device's idle share;
 6. times each kernel and its plain version beside its bound at each
@@ -49,7 +60,9 @@ then, one line per phase:
    calls queued behind a spin kernel, median after warm-up; ``call_ms``
    is one call with its host work), and prints them as one JSON
    ``kernels`` line with each kernel's launches per step as its path's
-   phase 4 counted them (``stage`` "prefill": per prefill).
+   phase 4 counted them (``stage`` "prefill": per prefill); B5's row
+   carries ``library_ms``, one ``F.scaled_dot_product_attention`` call
+   with a per-slot mask on the same cache.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failure raises
 and the script exits nonzero; without a CUDA device it exits nonzero
@@ -70,10 +83,13 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs import RWKV6, get_config  # noqa: E402
 from repro_torch.core import tracecount  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.flash_decode.flash_decode import (  # noqa: E402
+    flash_decode_attention, flash_decode_plain)
 from repro_torch.kernels.fused_decode.fused_decode import (  # noqa: E402
     fused_decode_attention, fused_decode_plain, rope_at)
 from repro_torch.kernels.fused_ffn.fused_ffn import (  # noqa: E402
@@ -91,8 +107,10 @@ from repro_torch.serving.engine import (  # noqa: E402
 from repro_torch.serving.scheduler import (  # noqa: E402
     Request, SlotScheduler, replay_trace)
 
-ARCHS = ("llama2-7b", "deepseek-v2-lite",   # the second as its dense-MLA arm
-         "rwkv6-3b")
+PATHS = (("llama2-7b", "pallas"),
+         ("deepseek-v2-lite", "pallas"),   # its dense-MLA arm
+         ("rwkv6-3b", "pallas"),
+         ("llama2-7b", "xla"))             # the unfused baseline
 SLOTS = 8
 MAX_SEQ = 1024
 SEED = 0
@@ -335,14 +353,48 @@ def wkv_case(cfg, gen, S: int):
                 replaces="src/repro/kernels/rwkv6_scan/rwkv6_scan.py:58")
 
 
-def kernel_cases(cfg):
-    """The kernels of ``cfg``'s path at its widths: the attention kernel
-    (B1, or B4 for MLA), B2 and B3 — or, on RWKV-6, B7 at the prefill and
-    the decode shape, and B3."""
+def flash_case(cfg, gen, *, q_heads=None, kv_heads=None, q_scale=1.0,
+               window=0, cap=0.0):
+    """B5 in the engine's per-slot form: ``q [8, q, hd]`` bf16 against a
+    bf16 cache ``[1024, 8, kv, hd]`` at the phase 3 lengths clamped to 0
+    (each slot's rows past its length are stale and must be masked).
+    Default: the unfused Llama path's shape; with ``window``/``cap`` a
+    check-only shape (no path runs it, so it has no phase 6 row)."""
+    B, S, hd = SLOTS, MAX_SEQ, cfg.resolved_head_dim
+    nq, nkv = q_heads or cfg.n_heads, kv_heads or cfg.n_kv_heads
+    lens, _, _ = decode_lens(S)
+    lens = lens.clamp(min=0)
+    args = dict(q=randn(gen, (B, nq, hd), q_scale),
+                k_cache=randn(gen, (S, B, nkv, hd), 1.0),
+                v_cache=randn(gen, (S, B, nkv, hd), 1.0), cache_len=lens)
+    lo = (lens - window + 1).clamp(min=0) if window else 0 * lens
+    live = int((lens - lo).sum())
+    n_bytes = 2 * live * nkv * hd * 2 + 2 * B * nq * hd * 2 + B * 4
+    n_ops = 4 * live * nq * hd
+    case = dict(name="flash_decode", fn=flash_decode_attention,
+                plain=flash_decode_plain, args=args,
+                kw=dict(window=window, attn_softcap=cap),
+                cost=(n_bytes, n_ops),
+                replaces="src/repro/kernels/flash_decode/flash_decode.py:73")
+    if window or cap:
+        case.update(check_only=True, stage=f"gqa {nq}/{nkv} window "
+                                            f"{window} softcap {cap:g}")
+    return case
+
+
+def kernel_cases(cfg, backend):
+    """The kernels of ``cfg``'s path at its widths: on ``"pallas"`` the
+    attention kernel (B1, or B4 for MLA), B2 and B3 — or, on RWKV-6, B7
+    at the prefill and the decode shape, and B3; on ``"xla"`` B5 at the
+    path's shape and at a GQA shape with a window and a softcap."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED + 1)
     B, D, F, V = SLOTS, cfg.d_model, cfg.d_ff, cfg.vocab_size
-    if cfg.block_pattern == (RWKV6,):
+    if backend == "xla":
+        cases = [flash_case(cfg, gen),
+                 flash_case(cfg, gen, q_heads=32, kv_heads=8, q_scale=8.0,
+                            window=256, cap=50.0)]
+    elif cfg.block_pattern == (RWKV6,):
         cases = [wkv_case(cfg, gen, LOCKSTEP[-1][0]), wkv_case(cfg, gen, 1),
                  head_case(cfg, gen)]
     else:
@@ -364,7 +416,7 @@ def kernel_cases(cfg):
             head_case(cfg, gen),
         ]
     for case in cases:
-        case["path"] = cfg.name
+        case["path"], case["backend"] = cfg.name, backend
     return cases
 
 
@@ -415,6 +467,11 @@ def check_kernel(case) -> float:
     name = case["name"]
     if name == "fused_head":
         return close_head(name, got, want)
+    if name == "flash_decode":
+        empty = case["args"]["cache_len"] <= 0
+        if got[empty].any():
+            raise AssertionError("flash_decode: a length-0 slot is not zero")
+        return close_bf16(name, got, want)
     if name == "fused_mla_decode":
         (o, c_new, m, l), (wo, wc, wm, wl) = got, want
         err = close_rel(f"{name}[o]", o, wo)
@@ -430,8 +487,14 @@ def check_kernel(case) -> float:
 # ---------------------------------------------------------------------------
 # Phase 4: the staggered request trace at full width
 # ---------------------------------------------------------------------------
-def attention_kernel(cfg) -> str:
-    return "fused_mla_decode" if cfg.mla is not None else "fused_decode"
+def decode_launches(cfg, backend):
+    """Launches one decode step must make on an attention path: ``L`` of
+    the attention kernel, ``L`` of B2 and one of B3 on ``"pallas"``;
+    ``L`` of B5 on ``"xla"``."""
+    if backend == "xla":
+        return {"flash_decode": cfg.n_layers}
+    attn = "fused_mla_decode" if cfg.mla is not None else "fused_decode"
+    return {attn: cfg.n_layers, "fused_ffn": cfg.n_layers, "fused_head": 1}
 
 
 def serve_trace(cfg, eng):
@@ -475,8 +538,7 @@ def serve_trace(cfg, eng):
     wall = time.perf_counter() - t0
     launches = tracecount.launches()
     want = {k: 0 for k in launches}
-    want.update({attention_kernel(cfg): cfg.n_layers,
-                 "fused_ffn": cfg.n_layers, "fused_head": 1})
+    want.update(decode_launches(cfg, eng.scfg.backend))
     bad = [(i, n) for i, n in enumerate(step_launches) if n != want]
     if bad or not step_launches:
         raise AssertionError(f"launches per decode step {bad[:4]}, want "
@@ -614,7 +676,7 @@ def forced_decode(cfg, eng, steps: int = 8):
     forced = rng.integers(0, cfg.vocab_size, (steps, SLOTS)).astype(np.int32)
 
     def run(kernels, st):
-        cands = []
+        cands, toks = [], []
 
         def head(*a, **k):
             out = kernels.head(*a, **k)
@@ -623,20 +685,24 @@ def forced_decode(cfg, eng, steps: int = 8):
 
         ks = kernels._replace(head=head)
         for t in range(steps):
-            _, st = decode_step(cfg, eng.scfg, eng.params["serve"], st,
-                                torch.as_tensor(forced[t], device="cuda"),
-                                kernels=ks)
-        return cands, st
+            nxt, st = decode_step(cfg, eng.scfg, eng.params["serve"], st,
+                                  torch.as_tensor(forced[t], device="cuda"),
+                                  kernels=ks)
+            toks.append(nxt.cpu().numpy())
+        return np.stack(toks), cands, st
 
-    (got, state), (want, _) = run(KERNELS, state), run(PLAIN_KERNELS, twin)
-    agree = np.mean([torch.equal(g[1][b, 0], w[1][b, 0])
-                     for g, w in zip(got, want) for b in range(SLOTS)])
-    gap = max(float((g[0][:, 0] - w[0][:, 0]).abs().max())
-              for g, w in zip(got, want))
+    (got, g_cands, state), (want, w_cands, _) = (run(KERNELS, state),
+                                                 run(PLAIN_KERNELS, twin))
+    agree = float(np.mean(got == want))
+    # the fused head's candidate values; the loose head keeps none
+    gap = "not measured (loose head)"
+    if g_cands:
+        gap = "{:.3e}".format(max(float((g[0][:, 0] - w[0][:, 0]).abs().max())
+                                  for g, w in zip(g_cands, w_cands)))
     if agree < 0.9:
         raise AssertionError(f"kernel vs plain token agreement {agree}")
-    return dict(steps=steps, slots=SLOTS, agreement=round(float(agree), 4),
-                max_logit_gap=f"{gap:.3e}"), state
+    return dict(steps=steps, slots=SLOTS, agreement=round(agree, 4),
+                max_logit_gap=gap), state, got
 
 
 # ---------------------------------------------------------------------------
@@ -648,7 +714,8 @@ GROUPS = (("fused_decode", ("fused_decode_kernel",)),
           ("fused_mla_decode", ("mla_proj_kernel", "mla_qlat_kernel",
                                 "mla_attn_kernel", "mla_merge_kernel",
                                 "mla_out_kernel")),
-          ("rwkv6_scan", ("wkv_scan_kernel",)))
+          ("rwkv6_scan", ("wkv_scan_kernel",)),
+          ("flash_decode", ("flash_chunk_kernel", "flash_merge_kernel")))
 MATMUL_NAMES = ("gemm", "gemv", "nvjet", "splitk", "cutlass", "xmma", "cublas")
 
 
@@ -706,31 +773,43 @@ def path_config(arch: str):
 
 def step_weights(cfg, eng):
     """The weights a decode step reads: every layer's attention and FFN
-    weights (or the RWKV-6 block's leaves) and the head table."""
-    blk, head = eng.params["serve"]["blocks"][0], eng.params["serve"]["head"]
+    weights (or the RWKV-6 block's leaves) and the head table — on the
+    unfused path the train tree's ``wq``/``wk``/``wv``/``wo`` and the
+    ``lm_head`` the loose head reads."""
+    serve = eng.params["serve"]
+    blk = serve["blocks"][0]
+    table = (serve["head"].table if "head" in serve else
+             serve["embed" if cfg.tie_embeddings else "lm_head"])
     if cfg.block_pattern == (RWKV6,):
         block_w = tuple(blk["rwkv"].values())
+    elif isinstance(blk["attn"], dict):
+        block_w = tuple(blk["attn"].values()) + tuple(
+            t for t in blk["ffn"].values() if t is not None)
     else:
         attn = blk["attn"]
         block_w = ((attn.wq, attn.wdkv, attn.wuk, attn.wproj)
                    if cfg.mla is not None else (attn.wqkv, attn.wo)) + (
             blk["ffn"].w_in, blk["ffn"].w_gate, blk["ffn"].w_out)
-    return sum(t.numel() * t.element_size() for t in block_w + (head.table,))
+    return sum(t.numel() * t.element_size() for t in block_w + (table,))
 
 
-def serve_path(cfg):
+def serve_path(cfg, backend, peers):
     """Phases 4 and 5 for one path: build the engine, serve the trace
     (RWKV-6: the lockstep batches), kernels against plain versions end
-    to end, a traced run.  Returns the path's launch counts per stage
+    to end, a traced run.  ``peers`` holds the earlier paths' results by
+    (arch, backend); the unfused path is compared with the fused path of
+    its arch there.  Returns the path's launch counts per stage
     ("decode", and "prefill" where prefill runs a kernel): total and per
-    call."""
+    call, and its median step time and forced tokens."""
     rwkv = cfg.block_pattern == (RWKV6,)
     t0 = time.perf_counter()
     eng = build_engine_full(cfg, max_seq=MAX_SEQ, batch_global=SLOTS,
-                            options=EngineOptions(check_finite=True),
+                            options=EngineOptions(backend=backend,
+                                                  check_finite=True),
                             device="cuda", seed=SEED)
     torch.cuda.synchronize()
-    say("engine", path=cfg.name, layers=cfg.n_layers,
+    tag = dict(path=cfg.name, backend=backend)
+    say("engine", **tag, layers=cfg.n_layers,
         build_s=round(time.perf_counter() - t0, 1),
         weights_gb=round(tree_bytes(eng.params) / 1e9, 3),
         **{"state_gb" if rwkv else "kv_gb":
@@ -748,14 +827,44 @@ def serve_path(cfg):
     weight_bytes = step_weights(cfg, eng)
     serve["step_weights_gb"] = round(weight_bytes / 1e9, 3)
     serve["weights_bound_ms"] = round(1e3 * weight_bytes / HBM_BYTES_PER_S, 3)
-    say("serve", path=cfg.name, **serve)
-    say("serve", path=cfg.name, first_tokens=first)
-    forced, state = forced_decode(cfg, eng)
-    say("forced", path=cfg.name, **forced)
-    say("profile", path=cfg.name, **profile_steps(cfg, eng, state))
+    say("serve", **tag, **serve)
+    say("serve", **tag, first_tokens=first)
+    fused = peers.get((cfg.name, "pallas")) if backend == "xla" else None
+    if fused is not None:
+        say("serve", path=cfg.name, fused_median_step_ms=fused["step_ms"],
+            unfused_median_step_ms=serve["median_step_ms"],
+            unfused_over_fused=round(serve["median_step_ms"]
+                                     / fused["step_ms"], 4))
+    forced, state, forced_toks = forced_decode(cfg, eng)
+    if fused is not None:
+        # the card's counterpart of tests/test_backend_parity.py:241: the
+        # same weights and forced tokens through both backends
+        agree = float(np.mean(forced_toks == fused["forced"]))
+        if agree < 0.9:
+            raise AssertionError(f"unfused vs fused token agreement {agree}")
+        forced["agreement_with_fused"] = round(agree, 4)
+    say("forced", **tag, **forced)
+    say("profile", **tag, **profile_steps(cfg, eng, state))
     del eng, state
     torch.cuda.empty_cache()
-    return counts
+    return counts, dict(step_ms=serve["median_step_ms"], forced=forced_toks)
+
+
+def library_call(case):
+    """One PyTorch call computing B5's per-slot function on the same
+    inputs, for ``library_ms``: ``F.scaled_dot_product_attention`` with
+    q ``[B, H, 1, hd]``, the cache columns as ``[B, kv, S, hd]`` views
+    (permuted, not copied) and a boolean mask ``[B, 1, 1, S]`` of each
+    slot's valid rows, made outside the call."""
+    a = case["args"]
+    q, k, v, lens = a["q"], a["k_cache"], a["v_cache"], a["cache_len"]
+    S = k.shape[0]
+    mask = (torch.arange(S, device=q.device)[None, :]
+            < lens[:, None])[:, None, None, :]
+    q4, k4, v4 = q.unsqueeze(2), k.permute(1, 2, 0, 3), v.permute(1, 2, 0, 3)
+    gqa = {"enable_gqa": True} if q.shape[1] != k.shape[2] else {}
+    return lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask,
+                                                  **gqa)
 
 
 def main() -> int:
@@ -765,7 +874,7 @@ def main() -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfgs = [path_config(arch) for arch in ARCHS]
+    paths = [(path_config(arch), backend) for arch, backend in PATHS]
 
     # 1. device
     smi = subprocess.run(
@@ -787,22 +896,41 @@ def main() -> int:
                 print(f"  {name}: {line.strip()}")
 
     # 3. each kernel against its plain version at each path's shapes
-    cases = [case for cfg in cfgs for case in kernel_cases(cfg)]
+    cases = [case for cfg, backend in paths
+             for case in kernel_cases(cfg, backend)]
     for case in cases:
         case.setdefault("stage", "decode")
         case["max_abs_err"] = check_kernel(case)
         say("kernel", name=case["name"], path=case["path"],
-            stage=case["stage"], ok=True,
+            backend=case["backend"], stage=case["stage"], ok=True,
             max_abs_err=f"{case['max_abs_err']:.3e}")
 
     # 4-5. each path served at full width, one engine at a time
-    counts = {cfg.name: serve_path(cfg) for cfg in cfgs}
+    counts, peers = {}, {}
+    for cfg, backend in paths:
+        key = (cfg.name, backend)
+        counts[key], peers[key] = serve_path(cfg, backend, peers)
 
-    # 6. times beside the bounds
+    # 6. times beside the bounds (the check-only shapes run on no path)
     rows = []
     for case in cases:
+        if case.get("check_only"):
+            continue
         args, kw = case["args"], case["kw"]
-        launches, per_step = counts[case["path"]][case["stage"]]
+        launches, per_step = counts[case["path"], case["backend"]][
+            case["stage"]]
+        library_ms, extra = None, {}
+        if case["name"] == "flash_decode":
+            lib = library_call(case)
+            # the library call computes the same function: live slots
+            # agree with the kernel (its length-0 rows are NaN)
+            live = args["cache_len"] > 0
+            close_bf16("sdpa", lib()[:, :, 0][live],
+                       case["fn"](**args, **kw)[live])
+            library_ms = round(cuda_ms(lib, 20)[0], 4)
+            extra = dict(library="F.scaled_dot_product_attention on the "
+                         "cache as permuted views, no copy outside the "
+                         "call")
         ms, covered = cuda_ms(lambda: case["fn"](**args, **kw), 20)
         # the plain versions may sync with the host: their time is
         # whatever the device waits, host gaps included
@@ -811,16 +939,16 @@ def main() -> int:
         bound_ms, bound_by = bound(*case["cost"],
                                    case.get("rate", BF16_FLOPS))
         rows.append(dict(
-            name=case["name"], path=case["path"], stage=case["stage"],
-            route="cuda",
+            name=case["name"], path=case["path"], backend=case["backend"],
+            stage=case["stage"], route="cuda",
             source=f"src/repro_torch/csrc/{case['name']}.cu",
             replaces=case["replaces"], launches=launches[case["name"]],
             launches_per_step=per_step[case["name"]],
             max_abs_err=case["max_abs_err"], ms=round(ms, 4),
             plain_ms=round(plain_ms, 4), bound_ms=round(bound_ms, 4),
-            bound_by=bound_by, library_ms=None,
+            bound_by=bound_by, library_ms=library_ms,
             call_ms=round(one_call, 4),
-            queued_under_spin=covered))
+            queued_under_spin=covered, **extra))
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -98,6 +98,10 @@ class ModelConfig:
         reps = math.ceil(self.n_layers / len(pat))
         return tuple((pat * reps)[: self.n_layers])
 
+    @property
+    def is_attention_free(self) -> bool:
+        return all(k in (RECURRENT, RWKV6) for k in self.layer_kinds)
+
 
 _REGISTRY: Dict[str, Callable[[], ModelConfig]] = {}
 

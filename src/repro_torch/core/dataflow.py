@@ -1,12 +1,15 @@
-"""Fused decode dataflow at cluster size 1 — the port of the parts of
-``repro/core/dataflow.py`` the prepacked serving path runs.
+"""Decode dataflow at cluster size 1 — the port of the parts of
+``repro/core/dataflow.py`` the two serving backends run.
 
 At cluster size 1 the paper's ClusterGather/ClusterReduce are the
-identity, so one layer is: the attention kernel for all slots (B1
-``fused_decode``, or B4 ``fused_mla_decode`` for MLA), the append of the
-new k/v (or latent entry) into the cache, and the normalize + head sum
-of the per-head partials — the last two plain torch, as they are XLA
-ops in the reference.
+identity.  On the prepacked ``"pallas"`` path one layer is: the
+attention kernel for all slots (B1 ``fused_decode``, or B4
+``fused_mla_decode`` for MLA), the append of the new k/v (or latent
+entry) into the cache, and the normalize + head sum of the per-head
+partials — the last two plain torch, as they are XLA ops in the
+reference.  On the unfused ``"xla"`` path (:func:`split_token_attention`,
+the paper's baseline) the q/k/v projections, RoPE, the append and the
+output projection are plain torch around B5 ``flash_decode``.
 
 The port updates the KV cache in place (the reference rebuilt it).
 The reference's ``_fit_block_s`` has no counterpart: it fits Pallas
@@ -20,6 +23,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch.kernels.flash_decode.flash_decode import (
+    flash_decode_attention)
 from repro_torch.kernels.fused_decode.fused_decode import (
     fused_decode_attention, rope_at)
 from repro_torch.kernels.fused_mla_decode.fused_mla_decode import (
@@ -36,6 +41,22 @@ class KVBlock(NamedTuple):
     k: torch.Tensor
     v: torch.Tensor
     pos: torch.Tensor
+
+
+class SplitTokenWeights(NamedTuple):
+    """Train-layout attention weights the unfused path reads
+    (``dataflow.py:332`` at cluster size 1, where each rank's head-dim
+    segment is the whole head): ``wq [D, q, hd]``, ``wk``/``wv [D, kv,
+    hd]``, ``wo [q·hd, D]`` and the optional biases ``bq [q, hd]``,
+    ``bk``/``bv [kv, hd]``."""
+
+    wq: torch.Tensor
+    wk: torch.Tensor
+    wv: torch.Tensor
+    wo: torch.Tensor
+    bq: Optional[torch.Tensor] = None
+    bk: Optional[torch.Tensor] = None
+    bv: Optional[torch.Tensor] = None
 
 
 class PackedSplitTokenWeights(NamedTuple):
@@ -110,6 +131,60 @@ def _insert_kv_ragged(cache: KVBlock, k_new: torch.Tensor,
                                     cache.pos[idx, b])
 
 
+def _apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
+                ) -> torch.Tensor:
+    """``dataflow.py:180`` at per-slot positions: ``x [B, H, hd]`` rotated
+    in f32 by ``cos``/``sin [B, hd/2]`` (:func:`rope_at`) and cast back."""
+    half = x.shape[-1] // 2
+    c, s = cos[:, None, :], sin[:, None, :]
+    xf = x.float()
+    x1, x2 = xf[..., :half], xf[..., half:]
+    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
+
+
+def split_token_attention(x: torch.Tensor, w: SplitTokenWeights,
+                          cache: KVBlock, cache_lens: torch.Tensor,
+                          cos: torch.Tensor, sin: torch.Tensor, *,
+                          attn_softcap: float = 0.0,
+                          scale: Optional[float] = None,
+                          kernel=flash_decode_attention) -> torch.Tensor:
+    """One attention layer of the unfused dataflow (the XLA branch of
+    ``split_token_attention``, ``dataflow.py:500–571``, at cluster 1):
+    ``x [B, D]`` already normed → ``[B, D]`` in ``x.dtype``; the new k/v
+    is appended to ``cache`` in place.
+
+    Stages: ``x·wq``, ``x·wk``, ``x·wv`` as torch products (+ bias); RoPE
+    at ``cache_lens`` (``cos``/``sin``); the append; B5 over each slot's
+    own cache column with length ``min(cache_len + 1, S)``, 0 for a free
+    slot; ``att·wo``.  On a linear cache rows below a slot's length hold
+    ``pos = row`` and a stale row past it holds ``row`` or −1, so that
+    length is exactly the reference's mask ``0 ≤ pos ≤ cache_len``.  The
+    flash combine and the heads reduce are the identity at cluster 1.
+    Sliding-window layers (ring caches) come with ROADMAP item 10.
+
+    B5 keeps ``p`` in f32 for ``p·v``, where the reference's XLA branch
+    rounds q and p to the cache dtype (``dataflow.py:552``, ``:320``):
+    the two agree to bf16 tolerance (ROADMAP C5).  ``kernel`` is the B5
+    entry point (its plain version to hold the kernel against it on the
+    card)."""
+    B, D = x.shape
+    q_loc, hd = w.wq.shape[1], w.wq.shape[2]
+    kv_loc = w.wk.shape[1]
+    q = (x @ w.wq.reshape(D, q_loc * hd)).view(B, q_loc, hd)
+    k = (x @ w.wk.reshape(D, kv_loc * hd)).view(B, kv_loc, hd)
+    v = (x @ w.wv.reshape(D, kv_loc * hd)).view(B, kv_loc, hd)
+    if w.bq is not None:
+        q, k, v = q + w.bq, k + w.bk, v + w.bv
+    q, k = _apply_rope(q, cos, sin), _apply_rope(k, cos, sin)
+    _insert_kv_ragged(cache, k, v, cache_lens)
+    S = cache.k.shape[0]
+    lens = torch.clamp(cache_lens + 1, 0, S).to(torch.int32)
+    att = kernel(q, cache.k.view(S, B, kv_loc, hd),
+                 cache.v.view(S, B, kv_loc, hd), lens, scale=scale,
+                 attn_softcap=attn_softcap)
+    return att.reshape(B, q_loc * hd).to(x.dtype) @ w.wo
+
+
 def split_token_attention_packed(x: torch.Tensor,
                                  w: PackedSplitTokenWeights, cache: KVBlock,
                                  cache_lens: torch.Tensor, cos: torch.Tensor,
@@ -163,6 +238,7 @@ def mla_attention_packed(x: torch.Tensor, w: PackedMLAWeights,
     return o_full.to(x.dtype)
 
 
-__all__ = ["KVBlock", "PackedSplitTokenWeights", "PackedMLAWeights",
-           "PackedFFNWeights", "PackedHeadWeights",
-           "split_token_attention_packed", "mla_attention_packed", "rope_at"]
+__all__ = ["KVBlock", "SplitTokenWeights", "PackedSplitTokenWeights",
+           "PackedMLAWeights", "PackedFFNWeights", "PackedHeadWeights",
+           "split_token_attention", "split_token_attention_packed",
+           "mla_attention_packed", "rope_at"]

@@ -2,9 +2,13 @@
 
 :func:`build_engine_full` makes the weights (seeded random, on the
 device, or carried over from the reference with
-``models/transformer.py:from_reference_params``), prepacks the serve
-layout once, allocates the decode state and returns the steps a serving
-loop drives: ``prefill_fn``/``decode_fn`` for lockstep batches
+``models/transformer.py:from_reference_params``), resolves the backend
+and the prepack as the reference does (``core/autotune.py``: the
+unfused ``"xla"`` path by default, ``"auto"`` → the fused ``"pallas"``
+kernels for attention models), builds the serve tree once (the
+prepacked layout on ``"pallas"``, the train tree itself on ``"xla"``),
+allocates the decode state and returns the steps a serving loop
+drives: ``prefill_fn``/``decode_fn`` for lockstep batches
 (:func:`generate`) and ``admit_fn``/``retire_fn`` for continuous
 batching (``serving/scheduler.py``).  An RWKV-6 model is served lockstep
 only: its ``admit_fn`` raises, as the reference's does (a recurrent
@@ -18,6 +22,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.autotune import resolve_serving
 from repro_torch.core.device import resolve_device
 from repro_torch.models.transformer import init_params
 from repro_torch.serving.engine import (EngineOptions, ServeConfig,
@@ -30,8 +35,9 @@ from repro_torch.serving.sampling import (host_sampling_rows,
 
 class EngineHandle(NamedTuple):
     """Everything a serving loop needs.  ``params`` is the ``{"train",
-    "serve"}`` pair (the serve tree aliases every train tensor except the
-    packed ``wqkv``).
+    "serve"}`` pair (on ``"pallas"`` the serve tree aliases every train
+    tensor except the packed ``wqkv`` or MLA's ``wproj``; on ``"xla"`` it
+    is the train tree).
 
     * ``prefill_fn(params["train"], state, tokens [B, S])``;
     * ``decode_fn(params["serve"], state, tokens [B])``;
@@ -61,15 +67,22 @@ def build_engine_full(cfg: ModelConfig, *, max_seq: int, batch_global: int,
     """Build the serving steps for ``cfg`` on ``device`` (default CUDA;
     raises when no card is present and the CPU was not asked for).
 
-    ``train_params``: train-layout weights to serve (e.g. from
-    ``from_reference_params``); default: :func:`init_params` from
-    ``seed``."""
+    ``options.backend``/``options.prepack`` resolve as in the reference
+    (``core/autotune.py``); ``"pallas"`` with prepack off and MLA on
+    ``"xla"`` raise ``NotImplementedError`` naming their ROADMAP items.
+    Prefill does not depend on the backend.  ``train_params``:
+    train-layout weights to serve (e.g. from ``from_reference_params``);
+    default: :func:`init_params` from ``seed``."""
     dev = resolve_device(device)
     opt = options or EngineOptions()
+    backend, prepack = resolve_serving(cfg, opt.backend, opt.prepack)
     train = (train_params if train_params is not None
              else init_params(cfg, seed=seed, device=dev))
-    params = {"train": train, "serve": prepack_for_serving(cfg, train)}
+    serve = (prepack_for_serving(cfg, train, backend=backend) if prepack
+             else train)
+    params = {"train": train, "serve": serve}
     scfg = ServeConfig(max_seq=max_seq, batch_local=batch_global,
+                       backend=backend, prepack=prepack,
                        check_finite=opt.check_finite)
     state = init_decode_state(cfg, scfg, device=dev)
 

@@ -31,6 +31,7 @@ from typing import Callable, Dict, NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.device import resolve_device
 from repro_torch.kernels.rwkv6_scan.rwkv6_scan import rwkv6_scan
 from repro_torch.models.layers import rms_norm, seeded_normal
 
@@ -197,9 +198,12 @@ def rwkv6_init(gen: torch.Generator, d_model: int, head_dim: int,
 
 
 def rwkv6_state_init(batch: int, n_heads: int, head_dim: int, d_model: int,
-                     *, lead: Tuple[int, ...] = (), device="cpu"
+                     *, lead: Tuple[int, ...] = (), device="cuda"
                      ) -> RWKV6State:
-    """Zero state; ``lead``: leading axes (the layer-group axis)."""
+    """Zero state on ``device`` (default CUDA; raises without a card unless
+    the CPU is asked for); ``lead``: leading axes (the layer-group
+    axis)."""
+    device = resolve_device(device)
     return RWKV6State(
         s=torch.zeros(lead + (batch, n_heads, head_dim, head_dim),
                       dtype=torch.float32, device=device),

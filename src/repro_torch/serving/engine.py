@@ -1,8 +1,9 @@
-"""Decode engine — the port of ``repro/serving/engine.py`` for the fused,
-prepacked path on one GPU.
+"""Decode engine — the port of ``repro/serving/engine.py`` on one GPU,
+for its two backends (``ServeConfig.backend``, resolved by
+``core/autotune.py``).
 
-On an attention model one decode step is the embedding, then per layer
-the attention kernel
+On the fused, prepacked ``"pallas"`` path one decode step of an
+attention model is the embedding, then per layer the attention kernel
 — B1 (``fused_decode``, with its fused ``ln1`` and per-head output
 projection) or, for MLA, B4 (``fused_mla_decode``, with its fused ``ln1``
 and the folded ``W_UV·W_O`` projection) — and the B2 kernel
@@ -12,13 +13,23 @@ runs only where the reference ran XLA ops: the embedding, ``rope_at``,
 the KV append, the normalize-and-head sum, the greedy finalize and the
 ``cache_lens`` update.
 
+On the unfused ``"xla"`` path (the reference's default, the paper's
+baseline) the serve tree is the train tree, and a layer is
+``rms_norm(ln1)``, the q/k/v products, RoPE, the append, B5
+(``flash_decode``) over each slot's live prefix, the ``wo`` product, the
+residual add, ``rms_norm(ln2)``, the FFN products and the second add;
+the head is loose (``final_norm``, full f32 logits, softcap, top-k):
+``L`` kernel calls a step.
+
 On RWKV-6 a step is the embedding, then per layer the reference's
 ``rwkv6_step`` + ``rwkv6_channel_step`` in plain torch around one B7
-launch (``rwkv6_scan`` at ``S = 1``, the WKV recurrence), then B3:
-``L + 1`` kernel calls.  Its per-slot state is the recurrence's f32
-matrix and the two shift rows of every layer, not a KV cache; it is
-served lockstep (``launch/serve.py:generate``) and does not mask free
-slots, as the reference does not.
+launch (``rwkv6_scan`` at ``S = 1``, the WKV recurrence), then the head
+— B3 on ``"pallas"``, the loose head on ``"xla"`` (``"auto"``'s choice
+for an attention-free model): ``L + 1`` or ``L`` kernel calls.  Its
+per-slot state is the recurrence's f32 matrix and the two shift rows of
+every layer, not a KV cache; it is served lockstep
+(``launch/serve.py:generate``) and does not mask free slots, as the
+reference does not.
 
 Decode is ragged on attention models: ``state["cache_lens"] [B]`` lets
 every slot advance on its own, and ``−1`` marks a free slot (no KV
@@ -36,10 +47,15 @@ import torch
 
 from repro_torch.configs.base import RWKV6, ModelConfig
 from repro_torch.core.dataflow import (KVBlock, PackedFFNWeights,
-                                       PackedHeadWeights,
+                                       PackedHeadWeights, PackedMLAWeights,
+                                       PackedSplitTokenWeights,
+                                       SplitTokenWeights,
                                        mla_attention_packed,
+                                       split_token_attention,
                                        split_token_attention_packed)
 from repro_torch.core.device import resolve_device
+from repro_torch.kernels.flash_decode.flash_decode import (
+    flash_decode_attention, flash_decode_plain)
 from repro_torch.kernels.fused_decode.fused_decode import (
     fused_decode_attention, fused_decode_plain, rope_at)
 from repro_torch.kernels.fused_ffn.fused_ffn import (fused_ffn_block,
@@ -50,11 +66,13 @@ from repro_torch.kernels.fused_mla_decode.fused_mla_decode import (
     fused_mla_decode_attention, fused_mla_decode_plain)
 from repro_torch.kernels.rwkv6_scan.rwkv6_scan import (rwkv6_scan,
                                                        rwkv6_scan_plain)
-from repro_torch.models.layers import embed_lookup, rms_norm
+from repro_torch.models.layers import (embed_lookup, ffn_apply,
+                                       lm_head_logits, rms_norm, softcap)
 from repro_torch.models.rwkv6 import (rwkv6_channel_step, rwkv6_state_init,
                                       rwkv6_step)
 from repro_torch.serving.sampling import (CAND_K, advance_sampling_step,
                                           finalize_candidates,
+                                          head_candidates,
                                           init_sampling_state)
 
 
@@ -62,6 +80,12 @@ from repro_torch.serving.sampling import (CAND_K, advance_sampling_step,
 class ServeConfig:
     max_seq: int                   # cache capacity (positions)
     batch_local: int               # slots
+    # "xla" = the unfused dataflow around B5; "pallas" = the fused kernels
+    # (resolved from "auto" by core/autotune.py, as in the reference)
+    backend: str = "xla"
+    # serve-layout prepack (serving/prepack.py): on for "pallas"; on
+    # "xla" at model size 1 the serve tree is the train tree either way
+    prepack: bool = False
     # per-slot integrity sentinel: state["nonfinite"] counts, per slot,
     # the steps whose residual row or head value was non-finite or whose
     # token fell outside [0, vocab) (the reference's check_finite)
@@ -70,29 +94,37 @@ class ServeConfig:
 
 @dataclass(frozen=True)
 class EngineOptions:
-    """Construction options for ``launch/serve.py:build_engine_full``:
-    ``check_finite`` adds the per-slot sentinel (:class:`ServeConfig`)."""
+    """Construction options for ``launch/serve.py:build_engine_full``, with
+    the reference's defaults: ``backend`` ``"xla"`` | ``"pallas"`` |
+    ``"auto"`` and ``prepack`` ``"auto"`` | ``"on"`` | ``"off"``
+    (``core/autotune.py``); ``check_finite`` adds the per-slot sentinel
+    (:class:`ServeConfig`)."""
+    backend: str = "xla"
+    prepack: Any = "auto"
     check_finite: bool = False
 
 
 class Kernels(NamedTuple):
-    """The B1–B4 and B7 entry points a decode step calls (``decode`` for
-    GQA attention, ``mla`` for MLA, ``wkv`` for RWKV-6's recurrence).
-    ``PLAIN_KERNELS`` holds the kernels
-    against their plain versions end to end on the card
-    (``chip_smoke.py``); the wrappers take the plain versions on the CPU
-    anyway."""
+    """The B1–B5 and B7 entry points a decode step calls (``decode`` for
+    GQA attention, ``mla`` for MLA, ``wkv`` for RWKV-6's recurrence,
+    ``flash`` for the unfused path's attention core).  ``PLAIN_KERNELS``
+    holds the kernels against their plain versions end to end on the
+    card (``chip_smoke.py``); the wrappers take the plain versions on the
+    CPU anyway."""
     decode: Callable
     ffn: Callable
     head: Callable
     mla: Callable
     wkv: Callable
+    flash: Callable
 
 
 KERNELS = Kernels(fused_decode_attention, fused_ffn_block, fused_head_block,
-                  fused_mla_decode_attention, rwkv6_scan)
+                  fused_mla_decode_attention, rwkv6_scan,
+                  flash_decode_attention)
 PLAIN_KERNELS = Kernels(fused_decode_plain, fused_ffn_plain, fused_head_plain,
-                        fused_mla_decode_plain, rwkv6_scan_plain)
+                        fused_mla_decode_plain, rwkv6_scan_plain,
+                        flash_decode_plain)
 
 
 def init_decode_state(cfg: ModelConfig, scfg: ServeConfig, *,
@@ -160,20 +192,58 @@ def _fused_head_tail(cfg: ModelConfig, w: PackedHeadWeights, x: torch.Tensor,
     return kernels.head(x, w.table, w.ln, eps=cfg.norm_eps, k=CAND_K)
 
 
+def _loose_head_tail(cfg: ModelConfig, params: Dict[str, Any],
+                     x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The unfused head (``engine.py:664–672``): final norm, full f32
+    logits, softcap, then the top-``CAND_K`` candidates."""
+    xh = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    table = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    logits = softcap(lm_head_logits(table, xh), cfg.logit_softcap)
+    return head_candidates(logits, CAND_K)
+
+
+def _split_token_weights(a: Dict[str, torch.Tensor]) -> SplitTokenWeights:
+    """Train-layout attention → the unfused dataflow's weights
+    (``engine.py:250``): at cluster size 1 every rank slice is the whole
+    tensor, so this only names the train tensors (no copy)."""
+    return SplitTokenWeights(wq=a["wq"], wk=a["wk"], wv=a["wv"], wo=a["wo"],
+                             bq=a.get("bq"), bk=a.get("bk"),
+                             bv=a.get("bv"))
+
+
+def hoist_serve_weights(params: Dict[str, Any]) -> Dict[str, Any]:
+    """The per-step weight adapters, once per step outside the layer loop
+    (``engine.py:303``): every train-layout attention block's ``attn``
+    becomes :class:`SplitTokenWeights` (the identity at cluster 1);
+    packed blocks, MLA blocks and RWKV-6 blocks pass through."""
+    def adapt(blk):
+        a = blk.get("attn")
+        if isinstance(a, dict) and "wk" in a:
+            return dict(blk, attn=_split_token_weights(a))
+        return blk
+
+    return dict(params, blocks=[adapt(b) for b in params["blocks"]])
+
+
 def decode_block(cfg: ModelConfig, kind: str, blk: Dict[str, Any],
                  x: torch.Tensor, cache, cache_lens: torch.Tensor, cos, sin,
                  kernels: Kernels = KERNELS) -> torch.Tensor:
     """One layer, ``x [B, D] → [B, D]``; the reference's ``decode_block``
-    on the prepacked path at cluster size 1.
+    at cluster size 1.
 
-    Attention: B1 (attention with its fused ``ln1`` and per-head output
-    projection) — or B4 for MLA — with the cache append, then B2 (both
-    residual adds and the FFN).  RWKV-6 (``engine.py:382–389``): the time
-    mix with its recurrence in one B7 launch, then the channel mix; the
-    layer's ``RWKV6State`` ``cache`` is updated in place (``s`` by the
-    kernel, the shift rows by a copy)."""
+    Prepacked attention: B1 (attention with its fused ``ln1`` and
+    per-head output projection) — or B4 for MLA — with the cache append,
+    then B2 (both residual adds and the FFN).  :class:`SplitTokenWeights`
+    (the unfused ``"xla"`` path, ``engine.py:377–478``, after
+    :func:`hoist_serve_weights`):
+    ``rms_norm(ln1)``, :func:`split_token_attention` around B5,
+    ``x + a``, ``rms_norm(ln2)``, ``ffn_apply``, ``x + f``.  RWKV-6
+    (``engine.py:382–389``): the time mix with its recurrence in one B7
+    launch, then the channel mix; the layer's ``RWKV6State`` ``cache`` is
+    updated in place (``s`` by the kernel, the shift rows by a copy)."""
+    eps = cfg.norm_eps
     if kind == RWKV6:
-        p, eps = blk["rwkv"], cfg.norm_eps
+        p = blk["rwkv"]
         a, _, st = rwkv6_step(p, rms_norm(x, blk["ln1"], eps),
                               cfg.rwkv_head_dim, cache, scan=kernels.wkv,
                               s_out=cache.s)
@@ -182,16 +252,28 @@ def decode_block(cfg: ModelConfig, kind: str, blk: Dict[str, Any],
         cache.x_prev_t.copy_(st.x_prev_t)
         cache.x_prev_c.copy_(st.x_prev_c)
         return x + c
-    if cfg.mla is not None:
-        a = mla_attention_packed(x, blk["attn"], cache, cache_lens, cos, sin,
+    w = blk["attn"]
+    if isinstance(w, PackedMLAWeights):
+        a = mla_attention_packed(x, w, cache, cache_lens, cos, sin,
                                  nope_dim=cfg.mla.nope_head_dim,
                                  rope_dim=cfg.mla.rope_head_dim,
-                                 norm_eps=cfg.norm_eps, kernel=kernels.mla)
-    else:
-        a = split_token_attention_packed(x, blk["attn"], cache, cache_lens,
-                                         cos, sin, norm_eps=cfg.norm_eps,
-                                         kernel=kernels.decode)
-    return _fused_ffn_tail(cfg, blk["ffn"], x, a, kernels)
+                                 norm_eps=eps, kernel=kernels.mla)
+        return _fused_ffn_tail(cfg, blk["ffn"], x, a, kernels)
+    if isinstance(w, PackedSplitTokenWeights):
+        a = split_token_attention_packed(x, w, cache, cache_lens, cos, sin,
+                                         norm_eps=eps, kernel=kernels.decode)
+        return _fused_ffn_tail(cfg, blk["ffn"], x, a, kernels)
+    if cfg.mla is not None:
+        raise NotImplementedError(
+            "the XLA-backend MLA path (train-layout MLA weights) is ROADMAP "
+            "item 4b")
+    a = split_token_attention(rms_norm(x, blk["ln1"], eps), w, cache,
+                              cache_lens, cos, sin,
+                              attn_softcap=cfg.attn_softcap,
+                              kernel=kernels.flash)
+    x = x + a
+    return x + ffn_apply(blk["ffn"], rms_norm(x, blk["ln2"], eps),
+                         cfg.ffn_act)
 
 
 def _check_not_param_pair(params: Any, want: str) -> None:
@@ -221,6 +303,7 @@ def decode_step(cfg: ModelConfig, scfg: ServeConfig, params: Dict[str, Any],
     ``cache_lens`` and the sampling leaves are new tensors in the
     returned dict."""
     _check_not_param_pair(params, "serve")
+    params = hoist_serve_weights(params)
     cache_lens = state["cache_lens"]
     dev = cache_lens.device
     tokens = torch.as_tensor(tokens, device=dev)
@@ -238,7 +321,10 @@ def decode_step(cfg: ModelConfig, scfg: ServeConfig, params: Dict[str, Any],
                              _layer(caches, g), cache_lens, cos, sin,
                              kernels)
     samp = state["sampling"]
-    cand_v, cand_i = _fused_head_tail(cfg, params["head"], x, kernels)
+    if isinstance(params.get("head"), PackedHeadWeights):
+        cand_v, cand_i = _fused_head_tail(cfg, params["head"], x, kernels)
+    else:
+        cand_v, cand_i = _loose_head_tail(cfg, params, x)
     nxt, head_val = finalize_candidates(cand_v, cand_i, samp)
     new_state = dict(state)
     new_state["sampling"] = advance_sampling_step(samp, cache_lens >= 0)

@@ -8,6 +8,12 @@ makes) and views ``wo`` as per-head full-width rows ``[q, hd, D]``;
 ``wproj = W_UV·W_O`` (its one copy); ``bundle_ffn`` and ``bundle_head``
 only alias train tensors.  RWKV-6 blocks ride through unpacked, as in
 the reference (``prepack.py:280–293``): the serve tree aliases them.
+
+That is the ``"pallas"`` backend's serve layout.  On ``"xla"`` the
+reference keeps the train-layout segments and only moves the rank
+slices to load time (``prepack.py:84–90``), and at model size 1 every
+slice is the whole tensor: the serve tree IS the train tree — no
+``wqkv`` copy, no bundles, the loose head.
 """
 from __future__ import annotations
 
@@ -70,11 +76,14 @@ def bundle_head(cfg: ModelConfig, params: Dict[str, Any]) -> PackedHeadWeights:
     return PackedHeadWeights(table=params[key], ln=params["final_norm"])
 
 
-def prepack_for_serving(cfg: ModelConfig, params: Dict[str, Any]
-                        ) -> Dict[str, Any]:
-    """Serve tree: every attention block's ``attn`` packed, ``ffn``
-    bundled, every other block (RWKV-6) aliased as it is, plus the
-    ``head`` bundle (B3's table); ``embed`` aliases the train tensor."""
+def prepack_for_serving(cfg: ModelConfig, params: Dict[str, Any], *,
+                        backend: str = "pallas") -> Dict[str, Any]:
+    """Serve tree.  ``"pallas"``: every attention block's ``attn`` packed,
+    ``ffn`` bundled, every other block (RWKV-6) aliased as it is, plus
+    the ``head`` bundle (B3's table); ``embed`` aliases the train tensor.
+    ``"xla"``: ``params`` itself."""
+    if backend != "pallas":
+        return params
     pack_attn = _pack_mla if cfg.mla is not None else _pack_attn
 
     def pack_block(blk):

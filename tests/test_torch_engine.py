@@ -34,6 +34,7 @@ from repro_torch.configs import get_config, reduced
 from repro_torch.core import tracecount
 from repro_torch.launch.serve import build_engine_full, generate
 from repro_torch.models.transformer import from_reference_params
+from repro_torch.serving.engine import EngineOptions
 from repro_torch.serving.sampling import SamplingParams
 from repro_torch.serving.scheduler import Request, SlotScheduler, replay_trace
 
@@ -61,7 +62,8 @@ def engines(request):
     train = from_reference_params(
         port_cfg, jax_tree_to_numpy(ref.params["train"]), device="cpu")
     port = build_engine_full(port_cfg, max_seq=MAX_SEQ, batch_global=SLOTS,
-                             device="cpu", train_params=train)
+                             device="cpu", train_params=train,
+                             options=EngineOptions(backend="pallas"))
     return ref, port
 
 
@@ -95,7 +97,8 @@ def test_decode_step_makes_two_calls_per_layer_plus_head(engines):
     attn, other = (("fused_mla_decode", "fused_decode") if cfg.mla
                    else ("fused_decode", "fused_mla_decode"))
     assert calls == {attn: cfg.n_layers, other: 0, "rwkv6_scan": 0,
-                     "fused_ffn": cfg.n_layers, "fused_head": 1}
+                     "flash_decode": 0, "fused_ffn": cfg.n_layers,
+                     "fused_head": 1}
     assert sum(calls.values()) == 2 * cfg.n_layers + 1
     assert sum(tracecount.launches().values()) == 0     # CPU: no kernels
 
@@ -173,10 +176,10 @@ def test_generate_and_sampling_limits(engines):
 def test_check_finite_sentinel_counts_only_corrupt_active_slots():
     """``check_finite``: a NaN in one slot's residual stream is counted
     for that slot while it is active, and a retire clears it."""
-    from repro_torch.serving.engine import EngineOptions
     cfg = reduced(get_config("llama2-7b"))
     eng = build_engine_full(cfg, max_seq=16, batch_global=2, device="cpu",
-                            options=EngineOptions(check_finite=True))
+                            options=EngineOptions(backend="pallas",
+                                                  check_finite=True))
     tok, st = eng.prefill_fn(eng.params["train"], eng.state,
                              np.ones((2, 3), np.int32))
     _, st = eng.decode_fn(eng.params["serve"], st, tok)

@@ -14,6 +14,10 @@ B4 (MLA): 1e-5 against the Pallas kernel in both dtypes, the file's
 tolerances against ``ref.py``, which attends the new token unrounded
 (ROADMAP C4); its unnormalized ``o`` relative to each slot's largest
 element.  B7 (WKV scan): f32 only (the model path's dtype), 1e-5.
+B5 (flash decode): f32 to 2e-5 against the Pallas kernel and
+``ref.py`` (the reference's own ``test_flash_decode_sweep`` tolerance:
+the Pallas kernel's online softmax over blocks sums in another order),
+bf16 compared in f32 at 2e-2.
 """
 import functools
 
@@ -23,6 +27,9 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels.flash_decode.flash_decode import \
+    flash_decode_attention as jax_flash_decode
+from repro.kernels.flash_decode.ref import flash_decode_attention_ref
 from repro.kernels.fused_decode.fused_decode import \
     fused_decode_attention as jax_fused_decode
 from repro.kernels.fused_decode.ref import fused_decode_attention_ref
@@ -39,6 +46,7 @@ from repro.kernels.rwkv6_scan.rwkv6_scan import rwkv6_scan_kernel
 
 from repro_torch.core import tracecount
 from repro_torch.kernels import _build
+from repro_torch.kernels.flash_decode import flash_decode as b5
 from repro_torch.kernels.fused_decode import fused_decode as b1
 from repro_torch.kernels.fused_ffn import fused_ffn as b2
 from repro_torch.kernels.fused_head import fused_head as b3
@@ -342,6 +350,89 @@ def test_rwkv6_scan_unsupported_inputs_raise():
 
 
 # ---------------------------------------------------------------------------
+# B5 flash_decode (the unfused baseline's attention core)
+# ---------------------------------------------------------------------------
+def _b5_inputs(S, q_loc, kv_loc, hd, B=2, per_slot=False, seed=6):
+    """q ``[B, q_loc, hd]`` and a cache ``[S, kv_loc, hd]`` (or
+    ``[S, B, kv_loc, hd]`` per slot) at the scale of
+    ``tests/test_kernels.py::test_flash_decode_sweep`` (0.3)."""
+    rng = np.random.default_rng(seed)
+    cache = (S, B, kv_loc, hd) if per_slot else (S, kv_loc, hd)
+    f = lambda *shape: (rng.standard_normal(shape) * 0.3).astype(np.float32)
+    return f(B, q_loc, hd), f(*cache), f(*cache)
+
+
+@pytest.mark.parametrize("S,q_loc,kv_loc,hd,clen,cap,window", [
+    (512, 4, 2, 32, 77, 0.0, 0), (256, 8, 1, 64, 256, 0.0, 0),
+    (1024, 2, 2, 16, 1000, 0.0, 0),          # the reference's sweep
+    (512, 4, 2, 32, 77, 0.5, 0),             # softcap: |scores| ≤ 0.6,
+                                             # the cap bends the largest
+    (256, 8, 1, 64, 200, 0.0, 70),           # window, GQA 8:1
+    (1024, 2, 2, 16, 1000, 0.5, 300)])       # both
+def test_flash_decode_plain_vs_pallas_and_ref(S, q_loc, kv_loc, hd, clen,
+                                              cap, window):
+    """The Pallas signature (one cache, a scalar length) against the
+    interpret-mode kernel (``block_s=128``) and ``ref.py``, f32 to 2e-5."""
+    q, kc, vc = _b5_inputs(S, q_loc, kv_loc, hd)
+    kw = dict(attn_softcap=cap, window=window)
+    got = b5.flash_decode_attention(*(torch.from_numpy(a) for a in
+                                      (q, kc, vc)), clen, **kw)
+    j = [jnp.asarray(a) for a in (q, kc, vc)]
+    for want in (jax_flash_decode(*j, clen, block_s=128, interpret=True,
+                                  **kw),
+                 flash_decode_attention_ref(*j, clen, **kw)):
+        assert got.shape == want.shape and got.dtype == torch.float32
+        np.testing.assert_allclose(_np(got), _np(want), rtol=2e-5,
+                                   atol=2e-5)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("window", [0, 32])
+def test_flash_decode_per_slot_matches_vmapped_pallas(window, dt):
+    """The engine's per-slot form (cache ``[S, B, kv, hd]``, lengths
+    ``[B]``) against ``jax.vmap`` of the interpret-mode Pallas kernel
+    over slots, as ``tests/test_ragged_decode.py:94`` runs it, at lengths
+    0, 17, 40 and S: slot b sees only its own column and length, and a
+    length-0 slot gives exactly zeros.  f32 to 2e-5, bf16 to 2e-2."""
+    B, S, q_loc, kv_loc, hd = 4, 64, 4, 2, 16
+    q, kc, vc = _b5_inputs(S, q_loc, kv_loc, hd, B=B, per_slot=True)
+    lens = np.array([0, 17, 40, S], np.int32)
+    (jq, tq), (jk, tk), (jv, tv) = (_both(a, dt) for a in (q, kc, vc))
+    got = b5.flash_decode_attention(tq, tk, tv, torch.from_numpy(lens),
+                                    window=window)
+    want = jax.vmap(lambda qb, kb, vb, cl: jax_flash_decode(
+        qb[None], kb, vb, cl, window=window, block_s=16,
+        interpret=True)[0], in_axes=(0, 1, 1, 0))(jq, jk, jv,
+                                                  jnp.asarray(lens))
+    assert got.dtype == tq.dtype and got.shape == (B, q_loc, hd)
+    assert not got[0].any()                         # length 0: zeros
+    tol = _tol(dt) if dt == "bf16" else dict(rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(_np(got), _np(want), **tol)
+
+
+def test_flash_decode_unsupported_inputs_raise(monkeypatch):
+    """On the card: head dims 64/128/256, bf16 or f32 with q, k and v of
+    one dtype, at most 32 query rows per (cache, kv head); anything else
+    raises before a build, never falling back to the plain version."""
+    def no_library(*_a, **_k):
+        raise AssertionError("an unsupported input reached the library")
+
+    monkeypatch.setattr(_build, "function", no_library)
+    z = lambda *s, dt=torch.bfloat16: torch.zeros(s, dtype=dt)
+    lens = torch.zeros(2, dtype=torch.int32)
+    bad = [(z(2, 4, 32), z(8, 2, 2, 32), z(8, 2, 2, 32), lens),   # hd 32
+           (z(2, 4, 64), z(8, 2, 2, 64, dt=torch.float32),
+            z(8, 2, 2, 64, dt=torch.float32), lens),              # dtypes
+           (z(2, 4, 64, dt=torch.float16), z(8, 2, 2, 64, dt=torch.float16),
+            z(8, 2, 2, 64, dt=torch.float16), lens),              # fp16
+           (z(2, 66, 64), z(8, 2, 64), z(8, 2, 64), 3),           # 66 rows
+           (z(2, 4, 64), z(8, 2, 2, 64), z(8, 2, 2, 64), 3)]      # [B] lens
+    for args in bad:
+        with pytest.raises(NotImplementedError, match="flash_decode"):
+            b5.flash_decode_cuda(*args)
+
+
+# ---------------------------------------------------------------------------
 # B2 fused_ffn (gated SiLU)
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
@@ -471,6 +562,9 @@ def _cuda_calls():
             z(S, 1, dt=i32), z(1, dt=i32), z(1, dt=i32),
             z(1, 4, dt=torch.float32), z(1, 4, dt=torch.float32),
             q_heads=4, nope=16, rope_d=8, l_rank=32),
+        "flash_decode": lambda c: b5.flash_decode_attention(
+            c(z(2, 4, 64)), z(S, 2, 2, 64), z(S, 2, 2, 64),
+            z(2, dt=i32)),
         "rwkv6_scan": lambda c: b7.rwkv6_scan(
             c(z(1, 2, 1, 64, dt=torch.float32)), *(
                 z(1, 2, 1, 64, dt=torch.float32) for _ in range(3)),
@@ -479,7 +573,7 @@ def _cuda_calls():
 
 
 KERNEL_NAMES = ["fused_decode", "fused_ffn", "fused_head", "fused_mla_decode",
-                "rwkv6_scan"]
+                "rwkv6_scan", "flash_decode"]
 
 
 @pytest.mark.parametrize("name", KERNEL_NAMES)

@@ -43,7 +43,7 @@ from repro_torch.launch.serve import build_engine_full, generate
 from repro_torch.models import layers, rwkv6
 from repro_torch.models.transformer import (forward, from_reference_params,
                                             init_params)
-from repro_torch.serving.engine import KERNELS, decode_step
+from repro_torch.serving.engine import KERNELS, EngineOptions, decode_step
 from repro_torch.serving.sampling import head_candidates
 from repro_torch.serving.scheduler import Request, SlotScheduler
 
@@ -270,7 +270,8 @@ def engines():
     train = from_reference_params(
         port_cfg, jax_tree_to_numpy(ref.params["train"]), device="cpu")
     port = build_engine_full(port_cfg, max_seq=MAX_SEQ, batch_global=SLOTS,
-                             device="cpu", train_params=train)
+                             device="cpu", train_params=train,
+                             options=EngineOptions(backend="pallas"))
     return ref, port
 
 
@@ -305,7 +306,8 @@ def test_decode_step_makes_one_scan_per_layer_plus_head(engines):
     port.decode_fn(port.params["serve"], st, nxt)
     calls = tracecount.calls()
     assert calls == {"fused_decode": 0, "fused_ffn": 0, "fused_head": 1,
-                     "fused_mla_decode": 0, "rwkv6_scan": port.cfg.n_layers}
+                     "fused_mla_decode": 0, "rwkv6_scan": port.cfg.n_layers,
+                     "flash_decode": 0}
     assert sum(calls.values()) == port.cfg.n_layers + 1
     assert sum(tracecount.launches().values()) == 0     # CPU: no kernels
 
@@ -402,7 +404,8 @@ def test_two_generate_batches_match_reference(engines):
             [n_prompt + n_new - 1] * SLOTS
         batches.append((prompts, got))
     fresh = build_engine_full(port.cfg, max_seq=MAX_SEQ, batch_global=SLOTS,
-                              device="cpu", train_params=port.params["train"])
+                              device="cpu", train_params=port.params["train"],
+                              options=EngineOptions(backend="pallas"))
     prompts, toks = batches[-1]
     again, _ = generate(fresh.params, fresh.prefill_fn, fresh.decode_fn,
                         fresh.state, torch.from_numpy(prompts),
