@@ -5,7 +5,7 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py
 
-It drives four serving paths, each at full width and depth with seeded
+It drives five serving paths, each at full width and depth with seeded
 random bf16 weights and 8 slots.  Three run the fused ``backend="pallas"``
 kernels: Llama2-7B (32 layers; kernels B1 ``fused_decode``, B2
 ``fused_ffn``, B3 ``fused_head``) and the dense-MLA arm of
@@ -16,12 +16,16 @@ prefill and at every decode step, B3), served lockstep.  The fourth is
 Llama2-7B again, on the same weights, through the unfused
 ``backend="xla"`` dataflow (the paper's baseline: plain torch products,
 RoPE, append and head around B5 ``flash_decode``), so the fused and the
-unfused step are timed in one call.  It builds the hand-written kernels
-from ``src/repro_torch/csrc`` with ``nvcc`` and then, one line per
-phase:
+unfused step are timed in one call.  The fifth is RecurrentGemma-9B (38
+layers: 26 RG-LRU and 12 local-attention, tied embeddings) on its only
+backend, ``"xla"`` with the default ``EngineOptions()``, served lockstep
+with ``max_seq`` 4096: B6 ``rglru_scan`` runs every RG-LRU recurrence at
+prefill and at every decode step, B5 every local layer's decode over a
+2048-row ring cache.  It builds the hand-written kernels from
+``src/repro_torch/csrc`` with ``nvcc`` and then, one line per phase:
 
 1. prints the card (``nvidia-smi`` name and power limit);
-2. builds B1–B5 and B7, one ``nvcc`` per source, all at once;
+2. builds B1–B7, one ``nvcc`` per source, all at once;
 3. holds each kernel against its plain PyTorch version on the card at
    each path's shapes (8 slots, bf16, ragged cache lengths −1, 0, 1 …
    1023 with stale entries past each live prefix): bf16 outputs to 2e-2
@@ -34,7 +38,13 @@ phase:
    values within 4 f32 ulps; B5 per slot at the unfused path's shape
    (``q [8, 32, 128]``, cache ``[1024, 8, 32, 128]``, the lengths above
    clamped to 0) and at a GQA shape with a window and a softcap, bf16
-   to 2e-2 with the length-0 slots exactly zero;
+   to 2e-2 with the length-0 slots exactly zero; B6's f32 ``h_seq`` and
+   ``h_fin`` relative to each slot's largest element to
+   ``RGLRU_REL_TOL``, at the prefill shape ``[8, 2080, 4096]`` from a
+   zero and a random ``h0`` and at the decode shape ``[8, 1, 4096]``
+   (``log_a ≤ 0`` at the model's scale, the state updated in place as
+   the engine does); B5 at RecurrentGemma's shape, q ``[8, 16, 256]``
+   against a full 2048-row ring ``[2048, 8, 1, 256]``;
 4. per attention path, serves a staggered 12-request trace through
    ``SlotScheduler`` and checks that every decode step made exactly
    ``L`` launches of the attention kernel, ``L`` of B2 and one of B3
@@ -49,20 +59,27 @@ phase:
    none outside them, tokens in the vocabulary, every row finite, and
    that the second batch's first tokens equal a prefill's from a fresh
    state; it prints the 512-token prefill's time (time to first token);
+   RecurrentGemma-9B runs the same two-batch loop (prompts of 128 then
+   2080 tokens, 32 new tokens each: the 2048-row rings wrap during the
+   second prefill and stay wrapped) and checks 26 B6 launches and no B5
+   per prefill, 26 B6 and 12 B5 per decode step and nothing else, and
+   prints the 2080-token prefill's time;
 5. per path, runs teacher-forced decode steps once through the kernels
-   and once through their plain versions, and requires their greedy
-   tokens to agree on at least 90 % of (step, slot) — the unfused path's
-   tokens also against the fused Llama path's; then traces a few
-   decode steps with ``torch.profiler`` for the device time per kernel
-   and the device's idle share;
+   and once through their plain versions (RecurrentGemma after a
+   2080-token prefill), and requires their greedy tokens to agree on at
+   least 90 % of (step, slot) — the unfused path's tokens also against
+   the fused Llama path's; then traces a few decode steps with
+   ``torch.profiler`` for the device time per kernel and the device's
+   idle share;
 6. times each kernel and its plain version beside its bound at each
    path's shapes (device time per call: CUDA events around back-to-back
    calls queued behind a spin kernel, median after warm-up; ``call_ms``
    is one call with its host work), and prints them as one JSON
    ``kernels`` line with each kernel's launches per step as its path's
-   phase 4 counted them (``stage`` "prefill": per prefill); B5's row
-   carries ``library_ms``, one ``F.scaled_dot_product_attention`` call
-   with a per-slot mask on the same cache.
+   phase 4 counted them (``stage`` "prefill": per prefill); B5's rows
+   carry ``library_ms``, one ``F.scaled_dot_product_attention`` call
+   with a per-slot mask on the same cache (no PyTorch call computes B6's
+   recurrence: its ``library_ms`` is null).
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failure raises
 and the script exits nonzero; without a CUDA device it exits nonzero
@@ -85,7 +102,8 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
-from repro_torch.configs import RWKV6, get_config  # noqa: E402
+from repro_torch.configs import (  # noqa: E402
+    ATTN_LOCAL, RECURRENT, RWKV6, get_config)
 from repro_torch.core import tracecount  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_decode.flash_decode import (  # noqa: E402
@@ -98,23 +116,31 @@ from repro_torch.kernels.fused_head.fused_head import (  # noqa: E402
     fused_head_block, fused_head_plain)
 from repro_torch.kernels.fused_mla_decode.fused_mla_decode import (  # noqa: E402
     fused_mla_decode_attention, fused_mla_decode_plain)
+from repro_torch.kernels.rglru_scan.rglru_scan import (  # noqa: E402
+    rglru_scan, rglru_scan_plain)
 from repro_torch.kernels.rwkv6_scan.rwkv6_scan import (  # noqa: E402
     rwkv6_scan, rwkv6_scan_plain)
 from repro_torch.launch.serve import build_engine_full, generate  # noqa: E402
+from repro_torch.serving import engine as engine_mod  # noqa: E402
 from repro_torch.serving.engine import (  # noqa: E402
     KERNELS, PLAIN_KERNELS, EngineOptions, decode_step,
     init_decode_state)
+from repro_torch.serving.sampling import head_candidates  # noqa: E402
 from repro_torch.serving.scheduler import (  # noqa: E402
     Request, SlotScheduler, replay_trace)
 
 PATHS = (("llama2-7b", "pallas"),
          ("deepseek-v2-lite", "pallas"),   # its dense-MLA arm
          ("rwkv6-3b", "pallas"),
-         ("llama2-7b", "xla"))             # the unfused baseline
+         ("llama2-7b", "xla"),             # the unfused baseline
+         ("recurrentgemma-9b", "xla"))     # its one backend
 SLOTS = 8
 MAX_SEQ = 1024
 SEED = 0
-LOCKSTEP = ((128, 32), (512, 64))   # RWKV-6 batches: (prompt, new tokens)
+# lockstep paths: max_seq and the (prompt, new tokens) of each batch; the
+# second RecurrentGemma prompt wraps the 2048-row rings during prefill
+LOCKSTEP = {"rwkv6-3b": (MAX_SEQ, ((128, 32), (512, 64))),
+            "recurrentgemma-9b": (4096, ((128, 32), (2080, 32)))}
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor rate
 F32_FLOPS = 67e12              # H100 SXM f32 on the CUDA cores
@@ -130,6 +156,11 @@ WKV_REL_TOL = 1e-4             # B7's f32 o and s_fin from the same f32
                                # inputs: summation order (and fused
                                # multiply-adds) only, relative to each
                                # (slot, head)'s largest element
+RGLRU_REL_TOL = 1e-4           # B6's f32 h_seq and h_fin: the same order
+                               # of steps, but a fused multiply-add and
+                               # another exp, over up to 2080 dependent
+                               # steps, relative to each slot's largest
+                               # element
 SPIN_CYCLES = 50_000_000       # ≈ 25 ms at the H100's clock: longer than
                                # the host needs to queue a timed batch
 
@@ -353,6 +384,55 @@ def wkv_case(cfg, gen, S: int):
                 replaces="src/repro/kernels/rwkv6_scan/rwkv6_scan.py:58")
 
 
+def rglru_case(cfg, gen, S: int):
+    """B6 at ``[SLOTS, S, C]`` with the model path's scales: ``log_a =
+    −8·softplus(Λ)·r`` (Λ as the init lays it out over the channels, r
+    a sigmoid gate), ``b = √(1 − a²)·i·u`` (i a sigmoid gate, u ≈ N(0,
+    1)), and a random ``h0`` (a state after a prompt) beside the zero
+    one prefill starts from."""
+    B, C = SLOTS, cfg.rglru_d_state or cfg.d_model
+    f32 = torch.float32
+    lam = torch.log(torch.expm1(-torch.log(torch.linspace(
+        0.9, 0.999, C, device="cuda")) * 2.0 / 8.0))
+    log_a = -8.0 * F.softplus(lam) * torch.sigmoid(
+        randn(gen, (B, S, C), 1.0, f32))
+    b = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12)) \
+        * torch.sigmoid(randn(gen, (B, S, C), 1.0, f32)) \
+        * randn(gen, (B, S, C), 1.0, f32)
+    args = dict(log_a=log_a.contiguous(), b=b.contiguous(),
+                h0=randn(gen, (B, C), 1.0, f32))
+    h0s = [args["h0"]]
+    if S > 1:
+        h0s.insert(0, torch.zeros_like(args["h0"]))
+    n_bytes = 3 * B * S * C * 4 + 2 * B * C * 4
+    n_ops = 3 * B * S * C                  # exp, multiply, add
+    return dict(name="rglru_scan", fn=rglru_scan, plain=rglru_scan_plain,
+                args=args, kw={}, h0s=h0s, rate=F32_FLOPS,
+                stage="prefill" if S > 1 else "decode",
+                cost=(n_bytes, n_ops),
+                replaces="src/repro/kernels/rglru_scan/rglru_scan.py:50")
+
+
+def ring_flash_case(cfg, gen):
+    """B5 as RecurrentGemma's local layers call it once the rings have
+    wrapped: ``q [8, 16, 256]`` bf16 against a full ``[2048, 8, 1, 256]``
+    bf16 ring, every slot's length 2048, no window of its own."""
+    B, hd = SLOTS, cfg.resolved_head_dim
+    S = cfg.sliding_window
+    nq, nkv = cfg.n_heads, cfg.n_kv_heads
+    lens = torch.full((B,), S, dtype=torch.int32, device="cuda")
+    args = dict(q=randn(gen, (B, nq, hd), 1.0),
+                k_cache=randn(gen, (S, B, nkv, hd), 1.0),
+                v_cache=randn(gen, (S, B, nkv, hd), 1.0), cache_len=lens)
+    n_bytes = 2 * B * S * nkv * hd * 2 + 2 * B * nq * hd * 2 + B * 4
+    n_ops = 4 * B * S * nq * hd
+    return dict(name="flash_decode", fn=flash_decode_attention,
+                plain=flash_decode_plain, args=args,
+                kw=dict(window=0, attn_softcap=0.0),
+                cost=(n_bytes, n_ops),
+                replaces="src/repro/kernels/flash_decode/flash_decode.py:73")
+
+
 def flash_case(cfg, gen, *, q_heads=None, kv_heads=None, q_scale=1.0,
                window=0, cap=0.0):
     """B5 in the engine's per-slot form: ``q [8, q, hd]`` bf16 against a
@@ -386,16 +466,23 @@ def kernel_cases(cfg, backend):
     """The kernels of ``cfg``'s path at its widths: on ``"pallas"`` the
     attention kernel (B1, or B4 for MLA), B2 and B3 — or, on RWKV-6, B7
     at the prefill and the decode shape, and B3; on ``"xla"`` B5 at the
-    path's shape and at a GQA shape with a window and a softcap."""
+    path's shape and at a GQA shape with a window and a softcap — or, on
+    RecurrentGemma, B6 at the prefill and the decode shape and B5 on a
+    full ring."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED + 1)
     B, D, F, V = SLOTS, cfg.d_model, cfg.d_ff, cfg.vocab_size
-    if backend == "xla":
+    if RECURRENT in cfg.block_pattern:
+        n_prompt = LOCKSTEP[cfg.name][1][-1][0]
+        cases = [rglru_case(cfg, gen, n_prompt), rglru_case(cfg, gen, 1),
+                 ring_flash_case(cfg, gen)]
+    elif backend == "xla":
         cases = [flash_case(cfg, gen),
                  flash_case(cfg, gen, q_heads=32, kv_heads=8, q_scale=8.0,
                             window=256, cap=50.0)]
     elif cfg.block_pattern == (RWKV6,):
-        cases = [wkv_case(cfg, gen, LOCKSTEP[-1][0]), wkv_case(cfg, gen, 1),
+        cases = [wkv_case(cfg, gen, LOCKSTEP[cfg.name][1][-1][0]),
+                 wkv_case(cfg, gen, 1),
                  head_case(cfg, gen)]
     else:
         attn = (mla_case(cfg, gen) if cfg.mla is not None
@@ -458,9 +545,31 @@ def check_wkv(case) -> float:
     return max(errs)
 
 
+def check_rglru(case) -> float:
+    """B6 from each ``h0`` with the state updated in place (``h_out`` =
+    the state passed in, as the engine's decode step calls it) against
+    the plain version from a fresh copy: ``h_seq`` and ``h_fin`` per
+    slot."""
+    errs = []
+    for h0 in case["h0s"]:
+        args = dict(case["args"], h0=h0)
+        state = h0.clone()
+        h_seq, h_fin = case["fn"](**dict(args, h0=state), h_out=state)
+        want_seq, want_fin = case["plain"](*args.values())
+        torch.cuda.synchronize()
+        if h_fin.data_ptr() != state.data_ptr():
+            raise AssertionError("rglru_scan: h_fin not written in place")
+        errs.append(close_rel("rglru_scan[h_seq]", h_seq, want_seq,
+                              RGLRU_REL_TOL))
+        close_rel("rglru_scan[h_fin]", h_fin, want_fin, RGLRU_REL_TOL)
+    return max(errs)
+
+
 def check_kernel(case) -> float:
     if case["name"] == "rwkv6_scan":
         return check_wkv(case)
+    if case["name"] == "rglru_scan":
+        return check_rglru(case)
     got = case["fn"](**case["args"], **case["kw"])
     want = case["plain"](*case["args"].values(), **case["kw"])
     torch.cuda.synchronize()
@@ -566,11 +675,25 @@ def serve_trace(cfg, eng):
                 wall_s=round(wall, 2)), launches, per_kernel, results
 
 
+def lockstep_launches(cfg):
+    """Launches one prefill and one decode step must make on a lockstep
+    path: RWKV-6 ``L`` B7 per prefill, ``L`` B7 and one B3 per step;
+    RecurrentGemma one B6 per RG-LRU layer per prefill, and per step one
+    B6 per RG-LRU layer and one B5 per local-attention layer."""
+    if cfg.block_pattern == (RWKV6,):
+        return ({"rwkv6_scan": cfg.n_layers},
+                {"rwkv6_scan": cfg.n_layers, "fused_head": 1})
+    n_rec = cfg.layer_kinds.count(RECURRENT)
+    return ({"rglru_scan": n_rec},
+            {"rglru_scan": n_rec,
+             "flash_decode": cfg.layer_kinds.count(ATTN_LOCAL)})
+
+
 def serve_lockstep(cfg, eng):
-    """RWKV-6's serving loop: two ``generate`` batches of ``SLOTS``
-    requests on one engine (``LOCKSTEP``), every prefill and decode step
-    counted, timed (CUDA events; host clock for the enqueue) and checked
-    for non-finite rows."""
+    """A lockstep model's serving loop: two ``generate`` batches of
+    ``SLOTS`` requests on one engine (``LOCKSTEP``), every prefill and
+    decode step counted, timed (CUDA events; host clock for the enqueue)
+    and checked for non-finite rows."""
     rng = np.random.default_rng(SEED)
     calls = {"prefill": [], "decode": []}
 
@@ -595,10 +718,11 @@ def serve_lockstep(cfg, eng):
             return nxt, st
         return run
 
+    plan = LOCKSTEP[cfg.name][1]
     state, batches = eng.state, []
     tracecount.reset()
     t0 = time.perf_counter()
-    for n_prompt, n_new in LOCKSTEP:
+    for n_prompt, n_new in plan:
         prompts = rng.integers(0, cfg.vocab_size,
                                (SLOTS, n_prompt)).astype(np.int32)
         toks, state = generate(eng.params,
@@ -614,8 +738,8 @@ def serve_lockstep(cfg, eng):
     wall = time.perf_counter() - t0
     launches = tracecount.launches()
     want = {stage: {k: 0 for k in launches} for stage in calls}
-    want["prefill"]["rwkv6_scan"] = cfg.n_layers
-    want["decode"].update(rwkv6_scan=cfg.n_layers, fused_head=1)
+    for stage, need in zip(("prefill", "decode"), lockstep_launches(cfg)):
+        want[stage].update(need)
     for stage, log in calls.items():
         bad = [(i, c["launches"]) for i, c in enumerate(log)
                if c["launches"] != want[stage]]
@@ -637,7 +761,7 @@ def serve_lockstep(cfg, eng):
         raise AssertionError("the second prefill did not start afresh")
     dec = calls["decode"]
     serve = dict(
-        batches=len(LOCKSTEP), prefills=n_pre, decode_steps=n_dec,
+        batches=len(plan), prefills=n_pre, decode_steps=n_dec,
         tokens=sum(t.size for _, t in batches),
         launches_per_step=sum(want["decode"].values()),
         launches_per_prefill=sum(want["prefill"].values()),
@@ -645,9 +769,9 @@ def serve_lockstep(cfg, eng):
         median_host_ms=round(statistics.median(c["host_ms"] for c in dec),
                              3),
         prefill_ms={n: round(c["ms"], 3) for (n, _), c in
-                    zip(LOCKSTEP, calls["prefill"])},
+                    zip(plan, calls["prefill"])},
         prefill_host_ms={n: round(c["host_ms"], 3) for (n, _), c in
-                         zip(LOCKSTEP, calls["prefill"])},
+                         zip(plan, calls["prefill"])},
         wall_s=round(wall, 2))
     counts = {stage: ({k: n * len(calls[stage]) for k, n in w.items()}, w)
               for stage, w in want.items()}
@@ -657,14 +781,21 @@ def serve_lockstep(cfg, eng):
 # ---------------------------------------------------------------------------
 # Phase 5: kernels against their plain versions, end to end
 # ---------------------------------------------------------------------------
+# lockstep paths' forced-decode prompt: RWKV-6 its first batch's, and
+# RecurrentGemma its second's (past the ring)
+FORCED_PROMPT = {"rwkv6-3b": 128, "recurrentgemma-9b": 2080}
+
+
 def forced_decode(cfg, eng, steps: int = 8):
     rng = np.random.default_rng(SEED + 2)
     lens = rng.integers(32, 513, SLOTS).astype(np.int32)
-    toks = rng.integers(0, cfg.vocab_size, (SLOTS, 512)).astype(np.int32)
+    n_prompt = FORCED_PROMPT.get(cfg.name)
+    toks = rng.integers(0, cfg.vocab_size,
+                        (SLOTS, max(512, n_prompt or 0))).astype(np.int32)
     state = init_decode_state(cfg, eng.scfg, device="cuda")
-    if cfg.block_pattern == (RWKV6,):       # lockstep: one prompt length
+    if n_prompt:                            # lockstep: one prompt length
         _, state = eng.prefill_fn(eng.params["train"], state,
-                                  toks[:, :LOCKSTEP[0][0]])
+                                  toks[:, :n_prompt])
     else:
         _, state = eng.admit_fn(eng.params["train"], state, toks, lens)
     # decode updates the caches and recurrent states in place: the plain
@@ -678,27 +809,30 @@ def forced_decode(cfg, eng, steps: int = 8):
     def run(kernels, st):
         cands, toks = [], []
 
-        def head(*a, **k):
-            out = kernels.head(*a, **k)
+        def keep(out):
             cands.append(out)
             return out
 
-        ks = kernels._replace(head=head)
-        for t in range(steps):
-            nxt, st = decode_step(cfg, eng.scfg, eng.params["serve"], st,
-                                  torch.as_tensor(forced[t], device="cuda"),
-                                  kernels=ks)
-            toks.append(nxt.cpu().numpy())
+        # the head's candidates: B3's, or the loose head's top-k
+        ks = kernels._replace(head=lambda *a, **k: keep(kernels.head(*a,
+                                                                     **k)))
+        engine_mod.head_candidates = lambda *a: keep(head_candidates(*a))
+        try:
+            for t in range(steps):
+                nxt, st = decode_step(
+                    cfg, eng.scfg, eng.params["serve"], st,
+                    torch.as_tensor(forced[t], device="cuda"), kernels=ks)
+                toks.append(nxt.cpu().numpy())
+        finally:
+            engine_mod.head_candidates = head_candidates
         return np.stack(toks), cands, st
 
     (got, g_cands, state), (want, w_cands, _) = (run(KERNELS, state),
                                                  run(PLAIN_KERNELS, twin))
     agree = float(np.mean(got == want))
-    # the fused head's candidate values; the loose head keeps none
-    gap = "not measured (loose head)"
-    if g_cands:
-        gap = "{:.3e}".format(max(float((g[0][:, 0] - w[0][:, 0]).abs().max())
-                                  for g, w in zip(g_cands, w_cands)))
+    # the largest difference of the best candidate's value, f32 logits
+    gap = "{:.3e}".format(max(float((g[0][:, 0] - w[0][:, 0]).abs().max())
+                              for g, w in zip(g_cands, w_cands)))
     if agree < 0.9:
         raise AssertionError(f"kernel vs plain token agreement {agree}")
     return dict(steps=steps, slots=SLOTS, agreement=round(agree, 4),
@@ -715,7 +849,8 @@ GROUPS = (("fused_decode", ("fused_decode_kernel",)),
                                 "mla_attn_kernel", "mla_merge_kernel",
                                 "mla_out_kernel")),
           ("rwkv6_scan", ("wkv_scan_kernel",)),
-          ("flash_decode", ("flash_chunk_kernel", "flash_merge_kernel")))
+          ("flash_decode", ("flash_chunk_kernel", "flash_merge_kernel")),
+          ("rglru_scan", ("rglru_scan_kernel",)))
 MATMUL_NAMES = ("gemm", "gemv", "nvjet", "splitk", "cutlass", "xmma", "cublas")
 
 
@@ -773,13 +908,17 @@ def path_config(arch: str):
 
 def step_weights(cfg, eng):
     """The weights a decode step reads: every layer's attention and FFN
-    weights (or the RWKV-6 block's leaves) and the head table — on the
+    weights (or the RWKV-6 block's leaves, or every leaf of every
+    RecurrentGemma block, its tail included) and the head table — on the
     unfused path the train tree's ``wq``/``wk``/``wv``/``wo`` and the
-    ``lm_head`` the loose head reads."""
+    ``lm_head`` (tied: ``embed``) the loose head reads."""
     serve = eng.params["serve"]
     blk = serve["blocks"][0]
     table = (serve["head"].table if "head" in serve else
              serve["embed" if cfg.tie_embeddings else "lm_head"])
+    if RECURRENT in cfg.block_pattern:
+        return tree_bytes(serve["blocks"] + serve["tail"]) \
+            + table.numel() * table.element_size()
     if cfg.block_pattern == (RWKV6,):
         block_w = tuple(blk["rwkv"].values())
     elif isinstance(blk["attn"], dict):
@@ -801,21 +940,23 @@ def serve_path(cfg, backend, peers):
     its arch there.  Returns the path's launch counts per stage
     ("decode", and "prefill" where prefill runs a kernel): total and per
     call, and its median step time and forced tokens."""
-    rwkv = cfg.block_pattern == (RWKV6,)
+    lockstep = cfg.name in LOCKSTEP
+    max_seq = LOCKSTEP[cfg.name][0] if lockstep else MAX_SEQ
     t0 = time.perf_counter()
-    eng = build_engine_full(cfg, max_seq=MAX_SEQ, batch_global=SLOTS,
+    eng = build_engine_full(cfg, max_seq=max_seq, batch_global=SLOTS,
                             options=EngineOptions(backend=backend,
                                                   check_finite=True),
                             device="cuda", seed=SEED)
     torch.cuda.synchronize()
     tag = dict(path=cfg.name, backend=backend)
-    say("engine", **tag, layers=cfg.n_layers,
+    say("engine", **tag, layers=cfg.n_layers, max_seq=max_seq,
         build_s=round(time.perf_counter() - t0, 1),
         weights_gb=round(tree_bytes(eng.params) / 1e9, 3),
-        **{"state_gb" if rwkv else "kv_gb":
-           round(tree_bytes(eng.state["layers"]) / 1e9, 3)},
+        **{"state_gb" if lockstep else "kv_gb":
+           round(tree_bytes(eng.state["layers"] + eng.state["tail"])
+                 / 1e9, 3)},
         allocated_gb=round(torch.cuda.memory_allocated() / 1e9, 3))
-    if rwkv:
+    if lockstep:
         serve, counts, batches = serve_lockstep(cfg, eng)
         toks = batches[-1][1]
         first = {b: toks[b, :4].tolist() for b in range(3)}

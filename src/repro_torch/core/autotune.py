@@ -10,13 +10,15 @@
   B4, B2, B3);
 * ``"auto"``: ``"pallas"`` for models with attention layers, ``"xla"``
   for attention-free ones (the fusion scope the paper targets does not
-  apply, DESIGN.md §4).
+  apply, DESIGN.md §4) — so RecurrentGemma, which has local-attention
+  layers, resolves to ``"pallas"`` as in the reference, and raises: its
+  fused arm is not ported (ROADMAP item 10).
 """
 from __future__ import annotations
 
 from typing import Tuple
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ATTN_LOCAL, RECURRENT, ModelConfig
 
 BACKENDS = ("xla", "pallas")
 
@@ -47,10 +49,16 @@ def _prepack_for(backend_resolved: str, prepack) -> bool:
 
 def resolve_serving(cfg: ModelConfig, backend: str, prepack
                     ) -> Tuple[str, bool]:
-    """``(backend, prepack)`` for ``cfg``, raising on the two combinations
-    the port cannot serve yet."""
+    """``(backend, prepack)`` for ``cfg``, raising on the combinations the
+    port cannot serve yet (never falling back to another backend)."""
     b = _backend_for(cfg, backend)
     pp = _prepack_for(b, prepack)
+    if b == "pallas" and {RECURRENT, ATTN_LOCAL} & set(cfg.layer_kinds):
+        raise NotImplementedError(
+            f"backend='pallas' for {cfg.name}: the fused arm of RG-LRU and "
+            "local-attention models needs B1's MQA, head_dim 256, window "
+            "and ring-cache modes, B2's gelu_tanh and B3's tied table "
+            "(ROADMAP item 10); serve it on backend='xla'")
     if b == "pallas" and not pp and not cfg.is_attention_free:
         raise NotImplementedError(
             "backend='pallas' with prepack off needs B1's fuse_out=False "

@@ -8,8 +8,9 @@ attention kernel for all slots (B1 ``fused_decode``, or B4
 entry) into the cache, and the normalize + head sum of the per-head
 partials — the last two plain torch, as they are XLA ops in the
 reference.  On the unfused ``"xla"`` path (:func:`split_token_attention`,
-the paper's baseline) the q/k/v projections, RoPE, the append and the
-output projection are plain torch around B5 ``flash_decode``.
+the paper's baseline) the q/k/v projections, RoPE, the append (into a
+ring cache on sliding-window layers) and the output projection are
+plain torch around B5 ``flash_decode``.
 
 The port updates the KV cache in place (the reference rebuilt it).
 The reference's ``_fit_block_s`` has no counterpart: it fits Pallas
@@ -113,15 +114,21 @@ def _appends(S: int, cache_lens: torch.Tensor) -> torch.Tensor:
 
 
 def _insert_kv_ragged(cache: KVBlock, k_new: torch.Tensor,
-                      v_new: torch.Tensor, position: torch.Tensor) -> None:
+                      v_new: torch.Tensor, position: torch.Tensor, *,
+                      ring: bool = False) -> None:
     """Per-slot predicated append, IN PLACE: slot b writes its
-    ``k_new[b]``/``v_new[b]`` at row ``position[b]`` only when
-    :func:`_appends` holds for it.  No host sync: the other slots
-    rewrite a row with its own contents."""
+    ``k_new[b]``/``v_new[b]`` and ``pos = position[b]`` at row
+    ``position[b]`` when :func:`_appends` holds for it — or, on a ring
+    (a sliding-window layer, ``dataflow.py:_append_slot`` with ``window >
+    0``), at row ``position[b] mod S`` whenever ``position[b] ≥ 0``.  No
+    host sync: the other slots rewrite a row with its own contents."""
     S = cache.k.shape[0]
     B = position.shape[0]
-    own = _appends(S, position)
-    idx = torch.clamp(position, 0, S - 1).long()
+    if ring:
+        own, idx = position >= 0, torch.remainder(position, S).long()
+    else:
+        own = _appends(S, position)
+        idx = torch.clamp(position, 0, S - 1).long()
     b = torch.arange(B, device=position.device)
     for full, new in ((cache.k, k_new), (cache.v, v_new)):
         f3 = full.view(S, B, -1)
@@ -145,7 +152,7 @@ def _apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
 def split_token_attention(x: torch.Tensor, w: SplitTokenWeights,
                           cache: KVBlock, cache_lens: torch.Tensor,
                           cos: torch.Tensor, sin: torch.Tensor, *,
-                          attn_softcap: float = 0.0,
+                          window: int = 0, attn_softcap: float = 0.0,
                           scale: Optional[float] = None,
                           kernel=flash_decode_attention) -> torch.Tensor:
     """One attention layer of the unfused dataflow (the XLA branch of
@@ -154,13 +161,28 @@ def split_token_attention(x: torch.Tensor, w: SplitTokenWeights,
     is appended to ``cache`` in place.
 
     Stages: ``x·wq``, ``x·wk``, ``x·wv`` as torch products (+ bias); RoPE
-    at ``cache_lens`` (``cos``/``sin``); the append; B5 over each slot's
-    own cache column with length ``min(cache_len + 1, S)``, 0 for a free
-    slot; ``att·wo``.  On a linear cache rows below a slot's length hold
-    ``pos = row`` and a stale row past it holds ``row`` or −1, so that
-    length is exactly the reference's mask ``0 ≤ pos ≤ cache_len``.  The
-    flash combine and the heads reduce are the identity at cluster 1.
-    Sliding-window layers (ring caches) come with ROADMAP item 10.
+    at ``cache_lens`` (``cos``/``sin``, the absolute position); the
+    append; B5 over each slot's own cache column with length
+    ``min(cache_len + 1, S)``, 0 for a free slot, and no window of its
+    own; ``att·wo``.  The flash combine and the heads reduce are the
+    identity at cluster 1.
+
+    That length is exactly the reference's mask by stored ``pos``
+    (``0 ≤ pos ≤ cache_len``, and ``pos > cache_len − window`` on a
+    sliding-window layer, ``:553–556``):
+
+    * linear cache (``window = 0``): rows below a slot's length hold
+      ``pos = row``, and a stale row past it holds ``row`` or −1;
+    * ring cache (``window > 0``: ``S = min(window, max_seq)`` rows, the
+      append at row ``cache_len mod S`` storing ``pos = cache_len``):
+      prefill's ring fill rewrites all ``S`` rows of an admitted slot
+      (row ``r`` holds the largest prompt position ``≡ r mod S``, or −1
+      and zeros), and decode then appends in order, so the valid rows are
+      exactly the first ``min(cache_len + 1, S)`` ring rows — the newest
+      ``S`` positions ``cache_len − S + 1 … cache_len``, all inside the
+      window once the ring has wrapped, and nothing stale.  B5's own
+      window masks by row index, which is wrong on a wrapped ring, so it
+      gets ``window = 0``.
 
     B5 keeps ``p`` in f32 for ``p·v``, where the reference's XLA branch
     rounds q and p to the cache dtype (``dataflow.py:552``, ``:320``):
@@ -176,7 +198,7 @@ def split_token_attention(x: torch.Tensor, w: SplitTokenWeights,
     if w.bq is not None:
         q, k, v = q + w.bq, k + w.bk, v + w.bv
     q, k = _apply_rope(q, cos, sin), _apply_rope(k, cos, sin)
-    _insert_kv_ragged(cache, k, v, cache_lens)
+    _insert_kv_ragged(cache, k, v, cache_lens, ring=window > 0)
     S = cache.k.shape[0]
     lens = torch.clamp(cache_lens + 1, 0, S).to(torch.int32)
     att = kernel(q, cache.k.view(S, B, kv_loc, hd),

@@ -10,8 +10,9 @@ two numbers per kernel:
   calls (one attention kernel, ``fused_decode`` or ``fused_mla_decode``,
   and one ``fused_ffn`` per layer, one ``fused_head`` per step), ``L``
   on the unfused ``backend="xla"`` path (one ``flash_decode`` per
-  layer), or ``L + 1`` on RWKV-6 (one ``rwkv6_scan`` per layer, one
-  ``fused_head``);
+  layer), ``L + 1`` on RWKV-6 (one ``rwkv6_scan`` per layer, one
+  ``fused_head``), or ``L`` on RecurrentGemma (one ``rglru_scan`` per
+  recurrent layer, one ``flash_decode`` per local-attention layer);
 * ``launches``: bumped by each CUDA wrapper at the one place where it
   launches its kernel, and nowhere else (a plain-version call on a CPU
   tensor does not count) — ``chip_smoke.py`` reads it to prove the main
@@ -22,7 +23,7 @@ from __future__ import annotations
 from typing import Dict
 
 KERNELS = ("fused_decode", "fused_ffn", "fused_head", "fused_mla_decode",
-           "rwkv6_scan", "flash_decode")
+           "rwkv6_scan", "flash_decode", "rglru_scan")
 
 _calls: Dict[str, int] = {name: 0 for name in KERNELS}
 _launches: Dict[str, int] = {name: 0 for name in KERNELS}

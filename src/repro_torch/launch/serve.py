@@ -10,9 +10,10 @@ prepacked layout on ``"pallas"``, the train tree itself on ``"xla"``),
 allocates the decode state and returns the steps a serving loop
 drives: ``prefill_fn``/``decode_fn`` for lockstep batches
 (:func:`generate`) and ``admit_fn``/``retire_fn`` for continuous
-batching (``serving/scheduler.py``).  An RWKV-6 model is served lockstep
-only: its ``admit_fn`` raises, as the reference's does (a recurrent
-state cannot take a per-slot insert).
+batching (``serving/scheduler.py``).  Models with recurrent layers
+(RWKV-6, RecurrentGemma's RG-LRU) are served lockstep only: their
+``admit_fn`` raises, as the reference's does (a recurrent state cannot
+take a per-slot insert).
 """
 from __future__ import annotations
 
@@ -43,12 +44,12 @@ class EngineHandle(NamedTuple):
     * ``decode_fn(params["serve"], state, tokens [B])``;
     * ``admit_fn(params["train"], state, tokens [B, S_cap], lengths [B],
       samp=None)`` — targeted prefill-insert of the slots with
-      ``lengths[b] > 0`` (attention models; raises on RWKV-6);
+      ``lengths[b] > 0`` (attention models; raises on recurrent layers);
     * ``retire_fn(state, mask [B])`` — frees the masked slots.
 
-    Every step returns ``(tokens, new state)``; the KV caches and RWKV-6
-    states inside are shared with (and updated in place from) the state
-    passed in."""
+    Every step returns ``(tokens, new state)``; the KV caches and
+    recurrent states inside are shared with (and updated in place from)
+    the state passed in."""
     params: Any
     prefill_fn: Callable
     decode_fn: Callable
@@ -68,8 +69,9 @@ def build_engine_full(cfg: ModelConfig, *, max_seq: int, batch_global: int,
     raises when no card is present and the CPU was not asked for).
 
     ``options.backend``/``options.prepack`` resolve as in the reference
-    (``core/autotune.py``); ``"pallas"`` with prepack off and MLA on
-    ``"xla"`` raise ``NotImplementedError`` naming their ROADMAP items.
+    (``core/autotune.py``); ``"pallas"`` with prepack off, ``"pallas"``
+    (or ``"auto"``) for RecurrentGemma and MLA on ``"xla"`` raise
+    ``NotImplementedError`` naming their ROADMAP items.
     Prefill does not depend on the backend.  ``train_params``:
     train-layout weights to serve (e.g. from ``from_reference_params``);
     default: :func:`init_params` from ``seed``."""
@@ -116,8 +118,8 @@ def build_engine_full(cfg: ModelConfig, *, max_seq: int, batch_global: int,
 def generate(params, pf, dec, state, prompts, n_new: int):
     """prompts ``[B, S]`` → greedy tokens ``[B, n_new]`` and the state: a
     lockstep batch, one prefill of every slot and ``n_new − 1`` decode
-    steps (the reference's ``generate``; the one serving loop of
-    RWKV-6)."""
+    steps (the reference's ``generate``; the one serving loop of the
+    recurrent models)."""
     nxt, state = pf(params["train"], state, prompts)
     out = [nxt]
     for _ in range(n_new - 1):

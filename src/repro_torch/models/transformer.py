@@ -1,5 +1,6 @@
 """Model assembly — the port of ``repro/models/transformer.py`` for dense
-attention decoders and RWKV-6 on one device.
+attention decoders, RWKV-6 and the RG-LRU/local-attention hybrid
+(RecurrentGemma) on one device.
 
 The reference's ``ParallelCtx`` (``repro/models/ctx.py``) is dropped:
 on one GPU the model axis is 1 and every collective it wraps is the
@@ -7,19 +8,21 @@ identity, so the port's functions take no context argument.
 
 Parameter tree (the train layout; leaves are tensors):
 
-* ``embed [V, D]``, ``lm_head [V, D]`` (model dtype), ``final_norm [D]``
-  (f32);
+* ``embed [V, D]``, ``lm_head [V, D]`` (model dtype; absent with tied
+  embeddings, where the head reads ``embed``), ``final_norm [D]`` (f32);
 * ``blocks``: one dict per block-pattern position with the layer-group
   axis leading, as the reference's scanned groups: ``ln1``/``ln2
   [G, D]`` f32, ``attn`` = ``wq [G, D, q, hd]``, ``wk``/``wv
   [G, D, kv, hd]``, ``wo [G, q·hd, D]`` — or, for MLA, ``wq [G, D, q,
   nope+rope]``, ``wdkv [G, D, l+rope]``, ``wuk [G, q, nope, l]``, ``wuv
   [G, q, l, v]``, ``wo [G, q·v, D]``; ``ffn`` = ``w_in``/``w_gate
-  [G, D, F]``, ``w_out [G, F, D]``; an RWKV-6 block holds ``ln1``,
-  ``ln2`` and ``rwkv`` (the ``RWKV6Params`` fields, ``models/rwkv6.py``,
-  each with the group axis leading) and no ``attn`` or ``ffn``.  The
-  reference's ``tail`` list (layers past the last whole group) is always
-  empty for the one-kind patterns the port runs, so the port has none.
+  [G, D, F]``, ``w_out [G, F, D]``; an RG-LRU block holds ``rglru`` (the
+  ``RGLRUParams`` fields, ``models/rglru.py``) in place of ``attn``; an
+  RWKV-6 block holds ``ln1``, ``ln2`` and ``rwkv`` (the ``RWKV6Params``
+  fields, ``models/rwkv6.py``) and no ``attn`` or ``ffn``;
+* ``tail``: the layers past the last whole group (RecurrentGemma-9B's
+  38 = 12·3 + 2), one unstacked block dict each, as the reference's
+  ``tail`` list; empty for the other models.
 """
 from __future__ import annotations
 
@@ -29,29 +32,24 @@ from typing import Any, Dict, List
 import numpy as np
 import torch
 
-from repro_torch.configs.base import (ATTN_GLOBAL, ATTN_LOCAL, RECURRENT,
-                                      RWKV6, ModelConfig)
+from repro_torch.configs.base import (ATTN_GLOBAL, RECURRENT, RWKV6,
+                                      ModelConfig)
 from repro_torch.core.device import resolve_device
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import rwkv6 as rwkv_mod
 from repro_torch.models.layers import (embed_lookup, ffn_apply, rms_norm,
                                        seeded_normal)
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    """The port runs global-attention decoders with dense FFNs: GQA/MHA
-    (Llama-style) or MLA (the dense-MLA arm of DeepSeek-V2-Lite) — and
-    the all-RWKV-6 pattern (RWKV-6 3B).  RG-LRU and local-attention
-    blocks, MoE, encoders and frontends are later slices (ROADMAP.md)."""
+    """The port runs decoders with dense FFNs whose layers are global
+    attention — GQA/MHA (Llama-style) or MLA (the dense-MLA arm of
+    DeepSeek-V2-Lite) —, local (sliding-window) attention and RG-LRU
+    blocks (RecurrentGemma, tied embeddings included), and the all-RWKV-6
+    pattern (RWKV-6 3B).  MoE, post-norms, q/k/v biases, encoders and
+    frontends are later slices (ROADMAP.md)."""
     kinds = set(cfg.layer_kinds)
-    if RECURRENT in kinds:
-        raise NotImplementedError(
-            f"{cfg.name}: RG-LRU blocks are ROADMAP item 15b (after the "
-            "Gemma-2 features of item 10)")
-    if ATTN_LOCAL in kinds:
-        raise NotImplementedError(
-            f"{cfg.name}: local attention and ring caches are ROADMAP "
-            "item 10")
     if RWKV6 in kinds:
         if (cfg.block_pattern != (RWKV6,) or cfg.encoder or cfg.frontend
                 or cfg.tie_embeddings or cfg.use_post_norm or cfg.moe):
@@ -63,13 +61,15 @@ def _check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: MoE is ROADMAP item 13; serve the dense arm, "
             "dataclasses.replace(cfg, moe=None)")
-    if (any(k != ATTN_GLOBAL for k in cfg.layer_kinds) or cfg.encoder
-            or cfg.frontend or cfg.use_post_norm or cfg.tie_embeddings
-            or cfg.qkv_bias):
+    if cfg.use_post_norm:
         raise NotImplementedError(
-            f"{cfg.name}: the port runs global-attention decoders only "
-            "(window/ring, softcap, post-norm, tied embeddings, bias, "
-            "encoders and recurrent blocks are later slices)")
+            f"{cfg.name}: post-attention and post-FFN norms are ROADMAP "
+            "item 10 (the Gemma-2 features)")
+    if (cfg.encoder or cfg.frontend or cfg.qkv_bias
+            or (cfg.mla is not None and kinds != {ATTN_GLOBAL})):
+        raise NotImplementedError(
+            f"{cfg.name}: encoders, frontends, q/k/v biases and MLA beside "
+            "other block kinds are later slices (ROADMAP.md)")
 
 
 # ---------------------------------------------------------------------------
@@ -84,8 +84,10 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda",
     the down projection, 0.02 for the embedding, 1/√D for the LM head,
     zero norm scales — so many random layers stay finite.  MLA: 1/√D
     for ``wq`` and ``wdkv``, 0.05 for ``wuk`` and ``wuv``, 1/√(q·v) for
-    ``wo`` (``transformer.py:94–107``).  RWKV-6: ``rwkv6_init``'s scales
-    per layer, zero ``ln1``/``ln2``, an untied ``lm_head``."""
+    ``wo`` (``transformer.py:94–107``).  RG-LRU: ``rglru_init``'s scales
+    with the model's heads as gate blocks.  RWKV-6: ``rwkv6_init``'s
+    scales per layer, zero ``ln1``/``ln2``, an untied ``lm_head``.  With
+    tied embeddings there is no ``lm_head``."""
     _check_supported(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
@@ -106,40 +108,69 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda",
         return {"embed": dense((cfg.vocab_size, d), 0.02),
                 "lm_head": dense((cfg.vocab_size, d), s_in),
                 "final_norm": torch.zeros((d,), device=dev),
-                "blocks": [blk]}
-    if cfg.mla is not None:
-        m = cfg.mla
-        attn = {
-            "wq": dense((L, d, nq, m.nope_head_dim + m.rope_head_dim), s_in),
-            "wdkv": dense((L, d, m.kv_lora_rank + m.rope_head_dim), s_in),
-            "wuk": dense((L, nq, m.nope_head_dim, m.kv_lora_rank), 0.05),
-            "wuv": dense((L, nq, m.kv_lora_rank, m.v_head_dim), 0.05),
-            "wo": dense((L, nq * m.v_head_dim, d),
-                        1.0 / math.sqrt(nq * m.v_head_dim)),
+                "blocks": [blk], "tail": []}
+
+    def block(kind, lead):
+        def lin(shape, scale):
+            return dense(lead + shape, scale)
+
+        blk = {"ln1": torch.zeros(lead + (d,), device=dev),
+               "ln2": torch.zeros(lead + (d,), device=dev)}
+        if kind == RECURRENT:
+            blk["rglru"] = rglru_mod.rglru_init(
+                gen, d, cfg.rglru_d_state or d, nq, cfg.conv1d_width,
+                lead=lead, dtype=dtype)
+        elif cfg.mla is not None:
+            m = cfg.mla
+            blk["attn"] = {
+                "wq": lin((d, nq, m.nope_head_dim + m.rope_head_dim), s_in),
+                "wdkv": lin((d, m.kv_lora_rank + m.rope_head_dim), s_in),
+                "wuk": lin((nq, m.nope_head_dim, m.kv_lora_rank), 0.05),
+                "wuv": lin((nq, m.kv_lora_rank, m.v_head_dim), 0.05),
+                "wo": lin((nq * m.v_head_dim, d),
+                          1.0 / math.sqrt(nq * m.v_head_dim)),
+            }
+        else:
+            blk["attn"] = {
+                "wq": lin((d, nq, hd), s_in),
+                "wk": lin((d, nkv, hd), s_in),
+                "wv": lin((d, nkv, hd), s_in),
+                "wo": lin((nq * hd, d), 1.0 / math.sqrt(nq * hd)),
+            }
+        blk["ffn"] = {
+            "w_in": lin((d, F), s_in),
+            "w_gate": lin((d, F), s_in),
+            "w_out": lin((F, d), 1.0 / math.sqrt(F)),
         }
-    else:
-        attn = {
-            "wq": dense((L, d, nq, hd), s_in),
-            "wk": dense((L, d, nkv, hd), s_in),
-            "wv": dense((L, d, nkv, hd), s_in),
-            "wo": dense((L, nq * hd, d), 1.0 / math.sqrt(nq * hd)),
-        }
-    blk = {
-        "ln1": torch.zeros((L, d), device=dev),
-        "ln2": torch.zeros((L, d), device=dev),
-        "attn": attn,
-        "ffn": {
-            "w_in": dense((L, d, F), s_in),
-            "w_gate": dense((L, d, F), s_in),
-            "w_out": dense((L, F, d), 1.0 / math.sqrt(F)),
-        },
-    }
-    return {
-        "embed": dense((cfg.vocab_size, d), 0.02),
-        "lm_head": dense((cfg.vocab_size, d), s_in),
-        "final_norm": torch.zeros((d,), device=dev),
-        "blocks": [blk],
-    }
+        return blk
+
+    period = len(cfg.block_pattern)
+    G = L // period
+    blocks = [block(kind, (G,)) for kind in cfg.block_pattern]
+    tail = [block(kind, ()) for kind in cfg.layer_kinds[G * period:]]
+    params = {"embed": dense((cfg.vocab_size, d), 0.02)}
+    if not cfg.tie_embeddings:
+        params["lm_head"] = dense((cfg.vocab_size, d), s_in)
+    params.update(final_norm=torch.zeros((d,), device=dev), blocks=blocks,
+                  tail=tail)
+    return params
+
+
+def head_table(cfg: ModelConfig, params: Dict[str, Any]) -> torch.Tensor:
+    """The LM head's ``[V, D]`` table: ``embed`` when tied."""
+    return params["embed" if cfg.tie_embeddings else "lm_head"]
+
+
+def embed_tokens(cfg: ModelConfig, table: torch.Tensor,
+                 tokens: torch.Tensor) -> torch.Tensor:
+    """The embedding, times ``√d_model`` rounded to the model dtype first
+    when the embeddings are tied (``transformer.py:594–595``): bf16
+    11.3125 at ``d_model`` 128, exactly 64 at 4096."""
+    x = embed_lookup(table, tokens)
+    if cfg.tie_embeddings:
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
+                             device=x.device)
+    return x
 
 
 # ---------------------------------------------------------------------------
@@ -159,9 +190,10 @@ def from_reference_params(cfg: ModelConfig, tree: Dict[str, Any], *,
                           device="cuda") -> Dict[str, Any]:
     """The JAX package's device-major train params at model size 1 —
     as nested dicts / lists of numpy arrays, NamedTuple fields
-    (``AttnParams``, ``MLAAttnParams``, …) turned into dict keys and the
-    leading device axis (size 1) kept — → the
-    port's train params (same tree, device axis stripped)."""
+    (``AttnParams``, ``MLAAttnParams``, ``RGLRUParams``, …) turned into
+    dict keys and the leading device axis (size 1) kept — → the port's
+    train params (same tree, device axis stripped, vocabulary padding
+    cut)."""
     _check_supported(cfg)
     dev = resolve_device(device)
 
@@ -175,12 +207,12 @@ def from_reference_params(cfg: ModelConfig, tree: Dict[str, Any], *,
                 f"expected a leading model axis of size 1, got {node.shape}")
         return _leaf_to_torch(node[0], dev)
 
-    if tree.get("tail"):
-        raise NotImplementedError("reference params with tail layers")
-    out = conv({k: tree[k] for k in ("embed", "lm_head", "final_norm",
-                                     "blocks")})
-    out["embed"] = out["embed"][:cfg.vocab_size]
-    out["lm_head"] = out["lm_head"][:cfg.vocab_size]
+    keys = ("embed", "final_norm", "blocks", "tail") + (
+        () if cfg.tie_embeddings else ("lm_head",))
+    out = conv({k: tree[k] for k in keys})
+    for k in ("embed", "lm_head"):
+        if k in out:
+            out[k] = out[k][:cfg.vocab_size]
     return out
 
 
@@ -189,7 +221,8 @@ def from_reference_params(cfg: ModelConfig, tree: Dict[str, Any], *,
 # ---------------------------------------------------------------------------
 def layer_params(params: Dict[str, Any], cfg: ModelConfig
                  ) -> List[Dict[str, Any]]:
-    """Per-layer views of the stacked block tree, in layer order."""
+    """Per-layer views of the stacked block tree, in layer order (the
+    groups, then the tail), parallel to ``cfg.layer_kinds``."""
     period = len(cfg.block_pattern)
     n_groups = cfg.n_layers // period
     out: List[Dict[str, Any]] = []
@@ -202,25 +235,28 @@ def layer_params(params: Dict[str, Any], cfg: ModelConfig
     for g in range(n_groups):
         for p in range(period):
             out.append(pick(params["blocks"][p], g))
-    return out
+    return out + list(params["tail"])
 
 
 def apply_block(cfg: ModelConfig, blk: Dict[str, Any], x: torch.Tensor, *,
-                return_kv: bool = False):
+                kind: str = ATTN_GLOBAL, return_kv: bool = False):
     """One layer of the train-path forward.  With ``return_kv`` the
     second result is what prefill caches: ``(k, v)`` of GQA attention,
-    or MLA's latent entries ``[B, S, l + rope]`` (None for RWKV-6, whose
-    prefill state comes from ``serving/prefill.py``)."""
+    or MLA's latent entries ``[B, S, l + rope]`` (None for RWKV-6 and
+    RG-LRU, whose prefill states come from ``serving/prefill.py``)."""
     eps = cfg.norm_eps
     if "rwkv" in blk:                  # transformer.py:473–479
         return rwkv_mod.rwkv6_block(blk["rwkv"], x, cfg.rwkv_head_dim,
                                     blk["ln1"], blk["ln2"], eps), None
     h = rms_norm(x, blk["ln1"], eps)
-    if cfg.mla is not None:
+    kv = None
+    if kind == RECURRENT:              # transformer.py:480–482
+        a = rglru_mod.rglru_block(blk["rglru"], h)
+    elif cfg.mla is not None:
         a, kv = attn_mod.mla_attention_train(blk["attn"], h, cfg,
                                              return_kv=return_kv)
     else:
-        a, kv = attn_mod.attention_train(blk["attn"], h, cfg, ATTN_GLOBAL,
+        a, kv = attn_mod.attention_train(blk["attn"], h, cfg, kind,
                                          return_kv=return_kv)
     x = x + a
     h = rms_norm(x, blk["ln2"], eps)
@@ -230,7 +266,7 @@ def apply_block(cfg: ModelConfig, blk: Dict[str, Any], x: torch.Tensor, *,
 def forward(cfg: ModelConfig, params: Dict[str, Any], tokens: torch.Tensor
             ) -> torch.Tensor:
     """Tokens [B, S] → final normed hidden states [B, S, D]."""
-    x = embed_lookup(params["embed"], tokens)
-    for blk in layer_params(params, cfg):
-        x, _ = apply_block(cfg, blk, x)
+    x = embed_tokens(cfg, params["embed"], tokens)
+    for kind, blk in zip(cfg.layer_kinds, layer_params(params, cfg)):
+        x, _ = apply_block(cfg, blk, x, kind=kind)
     return rms_norm(x, params["final_norm"], cfg.norm_eps)

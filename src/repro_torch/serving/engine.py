@@ -31,6 +31,16 @@ every layer, not a KV cache; it is served lockstep
 (``launch/serve.py:generate``) and does not mask free slots, as the
 reference does not.
 
+RecurrentGemma serves on ``"xla"`` only (``"pallas"`` raises, ROADMAP
+item 10): the embedding times ``√d_model`` (tied embeddings), then per
+RG-LRU layer the reference's ``rglru_block_step`` in plain torch around
+one B6 launch (``rglru_scan`` at ``S = 1``) and the FFN, per local
+attention layer the unfused layer above on a ring cache of
+``min(window, max_seq)`` rows, the ``tail`` layers after the groups,
+and the loose head on the embedding table: ``L`` kernel calls.  Its
+RG-LRU state is ``h`` and the conv tail of every recurrent layer; it is
+served lockstep like RWKV-6.
+
 Decode is ragged on attention models: ``state["cache_lens"] [B]`` lets
 every slot advance on its own, and ``−1`` marks a free slot (no KV
 write, no attention work, frozen position).  The KV caches and the
@@ -45,7 +55,7 @@ from typing import Any, Callable, Dict, NamedTuple, Tuple
 
 import torch
 
-from repro_torch.configs.base import RWKV6, ModelConfig
+from repro_torch.configs.base import ATTN_LOCAL, RECURRENT, RWKV6, ModelConfig
 from repro_torch.core.dataflow import (KVBlock, PackedFFNWeights,
                                        PackedHeadWeights, PackedMLAWeights,
                                        PackedSplitTokenWeights,
@@ -64,12 +74,16 @@ from repro_torch.kernels.fused_head.fused_head import (fused_head_block,
                                                        fused_head_plain)
 from repro_torch.kernels.fused_mla_decode.fused_mla_decode import (
     fused_mla_decode_attention, fused_mla_decode_plain)
+from repro_torch.kernels.rglru_scan.rglru_scan import (rglru_scan,
+                                                       rglru_scan_plain)
 from repro_torch.kernels.rwkv6_scan.rwkv6_scan import (rwkv6_scan,
                                                        rwkv6_scan_plain)
-from repro_torch.models.layers import (embed_lookup, ffn_apply,
-                                       lm_head_logits, rms_norm, softcap)
+from repro_torch.models.layers import (ffn_apply, lm_head_logits, rms_norm,
+                                       softcap)
+from repro_torch.models.rglru import rglru_block_step, rglru_state_init
 from repro_torch.models.rwkv6 import (rwkv6_channel_step, rwkv6_state_init,
                                       rwkv6_step)
+from repro_torch.models.transformer import embed_tokens, head_table
 from repro_torch.serving.sampling import (CAND_K, advance_sampling_step,
                                           finalize_candidates,
                                           head_candidates,
@@ -105,9 +119,10 @@ class EngineOptions:
 
 
 class Kernels(NamedTuple):
-    """The B1–B5 and B7 entry points a decode step calls (``decode`` for
-    GQA attention, ``mla`` for MLA, ``wkv`` for RWKV-6's recurrence,
-    ``flash`` for the unfused path's attention core).  ``PLAIN_KERNELS``
+    """The B1–B7 entry points a decode step calls (``decode`` for GQA
+    attention, ``mla`` for MLA, ``wkv`` for RWKV-6's recurrence,
+    ``flash`` for the unfused path's attention core, ``rglru`` for the
+    RG-LRU recurrence).  ``PLAIN_KERNELS``
     holds the kernels against their plain versions end to end on the
     card (``chip_smoke.py``); the wrappers take the plain versions on the
     CPU anyway."""
@@ -117,49 +132,60 @@ class Kernels(NamedTuple):
     mla: Callable
     wkv: Callable
     flash: Callable
+    rglru: Callable
 
 
 KERNELS = Kernels(fused_decode_attention, fused_ffn_block, fused_head_block,
                   fused_mla_decode_attention, rwkv6_scan,
-                  flash_decode_attention)
+                  flash_decode_attention, rglru_scan)
 PLAIN_KERNELS = Kernels(fused_decode_plain, fused_ffn_plain, fused_head_plain,
                         fused_mla_decode_plain, rwkv6_scan_plain,
-                        flash_decode_plain)
+                        flash_decode_plain, rglru_scan_plain)
 
 
 def init_decode_state(cfg: ModelConfig, scfg: ServeConfig, *,
                       device="cuda") -> Dict[str, Any]:
     """``cache_lens [B]`` (0: a fresh lockstep batch), the sampling leaves,
-    and per block-pattern position one :class:`KVBlock` stacked over the
-    layer groups: ``k``/``v [G, S, B·kv, hd]`` bf16, ``pos [G, S, B]`` —
-    for MLA the latent cache ``k [G, S, B, l+rope]``, ``v [G, S, B, 1]``
-    (``engine.py:153–157``); for RWKV-6 an ``RWKV6State``, ``s [G, B, H,
-    hd, hd]`` f32 and ``x_prev_t``/``x_prev_c [G, B, D]`` bf16
-    (``engine.py:206–210``)."""
+    and per block-pattern position one state stacked over the layer
+    groups (``engine.py:143–220``): a :class:`KVBlock` ``k``/``v [G, S,
+    B·kv, hd]`` bf16, ``pos [G, S, B]`` with ``S = max_seq``, or ``S =
+    min(window, max_seq)`` ring rows on a local-attention layer — for MLA
+    the latent cache ``k [G, S, B, l+rope]``, ``v [G, S, B, 1]``; for
+    RWKV-6 an ``RWKV6State``, ``s [G, B, H, hd, hd]`` f32 and
+    ``x_prev_t``/``x_prev_c [G, B, D]`` bf16; for RG-LRU an
+    ``RGLRUState``, ``h [G, B, C]`` and ``conv [G, B, width − 1, C]`` f32.
+    ``tail``: one unstacked state per tail layer."""
     dev = resolve_device(device)
     B, S = scfg.batch_local, scfg.max_seq
-    G = cfg.n_layers // len(cfg.block_pattern)
-    if cfg.mla is not None:
-        k_shape = (G, S, B, cfg.mla.kv_lora_rank + cfg.mla.rope_head_dim)
-        v_shape = (G, S, B, 1)
-    else:
-        k_shape = v_shape = (G, S, B * cfg.n_kv_heads, cfg.resolved_head_dim)
+    period = len(cfg.block_pattern)
+    G = cfg.n_layers // period
 
-    def cache():
+    def state_for(kind, lead):
+        if kind == RWKV6:
+            hd = cfg.rwkv_head_dim
+            return rwkv6_state_init(B, cfg.d_model // hd, hd, cfg.d_model,
+                                    lead=lead, device=dev)
+        if kind == RECURRENT:
+            return rglru_state_init(B, cfg.rglru_d_state or cfg.d_model,
+                                    cfg.conv1d_width, lead=lead, device=dev)
+        if cfg.mla is not None:
+            k_shape = (S, B, cfg.mla.kv_lora_rank + cfg.mla.rope_head_dim)
+            v_shape = (S, B, 1)
+        else:
+            span = min(cfg.sliding_window, S) if kind == ATTN_LOCAL else S
+            k_shape = v_shape = (span, B * cfg.n_kv_heads,
+                                 cfg.resolved_head_dim)
         return KVBlock(
-            k=torch.zeros(k_shape, dtype=torch.bfloat16, device=dev),
-            v=torch.zeros(v_shape, dtype=torch.bfloat16, device=dev),
-            pos=torch.full((G, S, B), -1, dtype=torch.int32, device=dev))
-
-    def rwkv():
-        hd = cfg.rwkv_head_dim
-        return rwkv6_state_init(B, cfg.d_model // hd, hd, cfg.d_model,
-                                lead=(G,), device=dev)
+            k=torch.zeros(lead + k_shape, dtype=torch.bfloat16, device=dev),
+            v=torch.zeros(lead + v_shape, dtype=torch.bfloat16, device=dev),
+            pos=torch.full(lead + k_shape[:1] + (B,), -1, dtype=torch.int32,
+                           device=dev))
 
     state = {"cache_lens": torch.zeros((B,), dtype=torch.int32, device=dev),
              "sampling": init_sampling_state(B, dev),
-             "layers": [rwkv() if kind == RWKV6 else cache()
-                        for kind in cfg.block_pattern]}
+             "layers": [state_for(kind, (G,)) for kind in cfg.block_pattern],
+             "tail": [state_for(kind, ())
+                      for kind in cfg.layer_kinds[G * period:]]}
     if scfg.check_finite:
         state["nonfinite"] = torch.zeros((B,), dtype=torch.int32, device=dev)
     return state
@@ -197,8 +223,8 @@ def _loose_head_tail(cfg: ModelConfig, params: Dict[str, Any],
     """The unfused head (``engine.py:664–672``): final norm, full f32
     logits, softcap, then the top-``CAND_K`` candidates."""
     xh = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    table = params["embed"] if cfg.tie_embeddings else params["lm_head"]
-    logits = softcap(lm_head_logits(table, xh), cfg.logit_softcap)
+    logits = softcap(lm_head_logits(head_table(cfg, params), xh),
+                     cfg.logit_softcap)
     return head_candidates(logits, CAND_K)
 
 
@@ -214,15 +240,17 @@ def _split_token_weights(a: Dict[str, torch.Tensor]) -> SplitTokenWeights:
 def hoist_serve_weights(params: Dict[str, Any]) -> Dict[str, Any]:
     """The per-step weight adapters, once per step outside the layer loop
     (``engine.py:303``): every train-layout attention block's ``attn``
-    becomes :class:`SplitTokenWeights` (the identity at cluster 1);
-    packed blocks, MLA blocks and RWKV-6 blocks pass through."""
+    becomes :class:`SplitTokenWeights` (the identity at cluster 1), in
+    the groups and the tail; packed blocks, MLA blocks, RG-LRU blocks and
+    RWKV-6 blocks pass through."""
     def adapt(blk):
         a = blk.get("attn")
         if isinstance(a, dict) and "wk" in a:
             return dict(blk, attn=_split_token_weights(a))
         return blk
 
-    return dict(params, blocks=[adapt(b) for b in params["blocks"]])
+    return dict(params, blocks=[adapt(b) for b in params["blocks"]],
+                tail=[adapt(b) for b in params["tail"]])
 
 
 def decode_block(cfg: ModelConfig, kind: str, blk: Dict[str, Any],
@@ -237,10 +265,15 @@ def decode_block(cfg: ModelConfig, kind: str, blk: Dict[str, Any],
     (the unfused ``"xla"`` path, ``engine.py:377–478``, after
     :func:`hoist_serve_weights`):
     ``rms_norm(ln1)``, :func:`split_token_attention` around B5,
-    ``x + a``, ``rms_norm(ln2)``, ``ffn_apply``, ``x + f``.  RWKV-6
-    (``engine.py:382–389``): the time mix with its recurrence in one B7
-    launch, then the channel mix; the layer's ``RWKV6State`` ``cache`` is
-    updated in place (``s`` by the kernel, the shift rows by a copy)."""
+    ``x + a``, ``rms_norm(ln2)``, ``ffn_apply``, ``x + f`` — on a ring
+    cache for a local-attention layer.  RG-LRU (``engine.py:390–392``):
+    ``rglru_block_step`` with its recurrence in one B6 launch in place of
+    the attention, the same FFN tail; the layer's ``RGLRUState`` is
+    updated in place (``h`` by the kernel, the conv tail by a copy).
+    RWKV-6 (``engine.py:382–389``): the time mix with its recurrence in
+    one B7 launch, then the channel mix; the layer's ``RWKV6State``
+    ``cache`` is updated in place (``s`` by the kernel, the shift rows by
+    a copy)."""
     eps = cfg.norm_eps
     if kind == RWKV6:
         p = blk["rwkv"]
@@ -252,6 +285,13 @@ def decode_block(cfg: ModelConfig, kind: str, blk: Dict[str, Any],
         cache.x_prev_t.copy_(st.x_prev_t)
         cache.x_prev_c.copy_(st.x_prev_c)
         return x + c
+    if kind == RECURRENT:
+        a, st = rglru_block_step(blk["rglru"], rms_norm(x, blk["ln1"], eps),
+                                 cache, scan=kernels.rglru, h_out=cache.h)
+        cache.conv.copy_(st.conv)
+        x = x + a
+        return x + ffn_apply(blk["ffn"], rms_norm(x, blk["ln2"], eps),
+                             cfg.ffn_act)
     w = blk["attn"]
     if isinstance(w, PackedMLAWeights):
         a = mla_attention_packed(x, w, cache, cache_lens, cos, sin,
@@ -267,10 +307,10 @@ def decode_block(cfg: ModelConfig, kind: str, blk: Dict[str, Any],
         raise NotImplementedError(
             "the XLA-backend MLA path (train-layout MLA weights) is ROADMAP "
             "item 4b")
-    a = split_token_attention(rms_norm(x, blk["ln1"], eps), w, cache,
-                              cache_lens, cos, sin,
-                              attn_softcap=cfg.attn_softcap,
-                              kernel=kernels.flash)
+    a = split_token_attention(
+        rms_norm(x, blk["ln1"], eps), w, cache, cache_lens, cos, sin,
+        window=cfg.sliding_window if kind == ATTN_LOCAL else 0,
+        attn_softcap=cfg.attn_softcap, kernel=kernels.flash)
     x = x + a
     return x + ffn_apply(blk["ffn"], rms_norm(x, blk["ln2"], eps),
                          cfg.ffn_act)
@@ -299,27 +339,34 @@ def decode_step(cfg: ModelConfig, scfg: ServeConfig, params: Dict[str, Any],
                 *, kernels: Kernels = KERNELS
                 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """One ragged decode step: tokens ``[B]`` → ``(next tokens [B] int32,
-    new state)``.  The KV caches and RWKV-6 states are updated in place;
-    ``cache_lens`` and the sampling leaves are new tensors in the
-    returned dict."""
+    new state)``: the layer groups, then the tail layers
+    (``engine.py:643–650``).  The KV caches and recurrent states are
+    updated in place; ``cache_lens`` and the sampling leaves are new
+    tensors in the returned dict."""
     _check_not_param_pair(params, "serve")
     params = hoist_serve_weights(params)
     cache_lens = state["cache_lens"]
     dev = cache_lens.device
     tokens = torch.as_tensor(tokens, device=dev)
-    x = embed_lookup(params["embed"], tokens)
+    x = embed_tokens(cfg, params["embed"], tokens)
     cos = sin = None
-    if any(kind != RWKV6 for kind in cfg.block_pattern):
+    if not cfg.is_attention_free:
         # RoPE spans the head dim, or only MLA's rope part (64, not 128)
         rope_dim = (cfg.mla.rope_head_dim if cfg.mla is not None
                     else cfg.resolved_head_dim)
         cos, sin = rope_at(cache_lens, rope_dim, cfg.rope_theta)
-    for g in range(cfg.n_layers // len(cfg.block_pattern)):
+    period = len(cfg.block_pattern)
+    G = cfg.n_layers // period
+    for g in range(G):
         for kind, blk, caches in zip(cfg.block_pattern, params["blocks"],
                                      state["layers"]):
             x = decode_block(cfg, kind, _layer(blk, g), x,
                              _layer(caches, g), cache_lens, cos, sin,
                              kernels)
+    for kind, blk, cache in zip(cfg.layer_kinds[G * period:],
+                                params["tail"], state["tail"]):
+        x = decode_block(cfg, kind, blk, x, cache, cache_lens, cos, sin,
+                         kernels)
     samp = state["sampling"]
     if isinstance(params.get("head"), PackedHeadWeights):
         cand_v, cand_i = _fused_head_tail(cfg, params["head"], x, kernels)

@@ -81,9 +81,16 @@ def prepack_for_serving(cfg: ModelConfig, params: Dict[str, Any], *,
     """Serve tree.  ``"pallas"``: every attention block's ``attn`` packed,
     ``ffn`` bundled, every other block (RWKV-6) aliased as it is, plus
     the ``head`` bundle (B3's table); ``embed`` aliases the train tensor.
-    ``"xla"``: ``params`` itself."""
+    ``"xla"``: ``params`` itself — its RG-LRU, local- and global-attention
+    blocks and its ``tail`` ride through as the train tree, and the
+    engine names the attention weights per step
+    (``engine.py:hoist_serve_weights``)."""
     if backend != "pallas":
         return params
+    if params.get("tail"):
+        raise NotImplementedError(
+            "the fused serve layout of tail layers (past the last whole "
+            "layer group) comes with the fused arm of ROADMAP item 10")
     pack_attn = _pack_mla if cfg.mla is not None else _pack_attn
 
     def pack_block(blk):
@@ -93,5 +100,5 @@ def prepack_for_serving(cfg: ModelConfig, params: Dict[str, Any], *,
                 "ffn": bundle_ffn(blk)}
 
     return {"embed": params["embed"],
-            "blocks": [pack_block(b) for b in params["blocks"]],
+            "blocks": [pack_block(b) for b in params["blocks"]], "tail": [],
             "head": bundle_head(cfg, params)}

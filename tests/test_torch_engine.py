@@ -97,8 +97,8 @@ def test_decode_step_makes_two_calls_per_layer_plus_head(engines):
     attn, other = (("fused_mla_decode", "fused_decode") if cfg.mla
                    else ("fused_decode", "fused_mla_decode"))
     assert calls == {attn: cfg.n_layers, other: 0, "rwkv6_scan": 0,
-                     "flash_decode": 0, "fused_ffn": cfg.n_layers,
-                     "fused_head": 1}
+                     "flash_decode": 0, "rglru_scan": 0,
+                     "fused_ffn": cfg.n_layers, "fused_head": 1}
     assert sum(calls.values()) == 2 * cfg.n_layers + 1
     assert sum(tracecount.launches().values()) == 0     # CPU: no kernels
 

@@ -38,7 +38,9 @@ def test_every_module_imports_without_jax():
     assert {"repro_torch.configs.rwkv6_3b", "repro_torch.models.rwkv6",
             "repro_torch.kernels.rwkv6_scan.rwkv6_scan",
             "repro_torch.kernels.flash_decode.flash_decode",
-            "repro_torch.core.autotune"} <= set(_modules())
+            "repro_torch.core.autotune", "repro_torch.models.rglru",
+            "repro_torch.kernels.rglru_scan.rglru_scan",
+            "repro_torch.configs.recurrentgemma_9b"} <= set(_modules())
 
 
 def test_no_source_names_jax_or_the_reference_package():
@@ -56,6 +58,7 @@ def test_entry_points_default_to_the_card():
         pytest.skip("a CUDA device is present: the default is valid here")
     from repro_torch.configs import get_config, reduced
     from repro_torch.launch.serve import build_engine_full
+    from repro_torch.models.rglru import rglru_state_init
     from repro_torch.models.rwkv6 import rwkv6_state_init
     from repro_torch.models.transformer import init_params
     from repro_torch.serving.engine import ServeConfig, init_decode_state
@@ -68,3 +71,8 @@ def test_entry_points_default_to_the_card():
         init_decode_state(cfg, ServeConfig(max_seq=16, batch_local=2))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         rwkv6_state_init(2, 2, 16, 32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        rglru_state_init(2, 32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_engine_full(reduced(get_config("recurrentgemma-9b")),
+                          max_seq=16, batch_global=2)

@@ -66,7 +66,8 @@ def dense_mla(cfg):
     return dataclasses.replace(cfg, moe=None)
 
 
-@pytest.mark.parametrize("arch", ["llama2-7b", "deepseek-v2-lite"])
+@pytest.mark.parametrize("arch", ["llama2-7b", "deepseek-v2-lite",
+                                  "recurrentgemma-9b"])
 def test_config_mirrors_reference(arch):
     for port, ref in ((get_config(arch), ref_get_config(arch)),
                       (reduced(get_config(arch)),

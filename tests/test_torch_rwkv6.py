@@ -37,7 +37,8 @@ from repro.serving.engine import EngineOptions as RefOptions
 
 from test_torch_layers import jax_tree_to_numpy
 
-from repro_torch.configs import ATTN_LOCAL, RECURRENT, get_config, reduced
+from repro_torch.configs import (ATTN_LOCAL, RECURRENT, RWKV6, get_config,
+                                 reduced)
 from repro_torch.core import tracecount
 from repro_torch.launch.serve import build_engine_full, generate
 from repro_torch.models import layers, rwkv6
@@ -237,7 +238,9 @@ def test_prefill_logits_match_reference(reduced_model, bf16):
 
 def test_init_params_layout_and_unported_kinds():
     """Seeded init: the reference's leaves and dtypes with the group
-    axis leading; RG-LRU and local attention raise naming ROADMAP."""
+    axis leading; RWKV-6 beside other kinds, and the Gemma-2 post-norms,
+    raise naming ROADMAP (RG-LRU and local attention are ported:
+    ``tests/test_torch_rglru.py``)."""
     cfg = reduced(get_config(ARCH))
     p = init_params(cfg, seed=1, device="cpu")
     ref = init_device_major(ref_reduced(ref_get_config(ARCH)), Layout(1),
@@ -248,10 +251,13 @@ def test_init_params_layout_and_unported_kinds():
         assert str(leaf.dtype).split(".")[-1] == str(want.dtype), name
     assert torch.all(p["blocks"][0]["rwkv"]["w_base"] == -0.5)
     assert "lm_head" in p and "attn" not in p["blocks"][0]
-    for kinds, item in (((RECURRENT, RECURRENT, ATTN_LOCAL), "15b"),
-                        ((ATTN_LOCAL,), "item 10")):
-        bad = dataclasses.replace(reduced(get_config("llama2-7b")),
-                                  block_pattern=kinds)
+    llama = reduced(get_config("llama2-7b"))
+    for bad, item in (
+            (dataclasses.replace(cfg, block_pattern=(RWKV6, ATTN_LOCAL)),
+             "item 15a"),
+            (dataclasses.replace(llama, block_pattern=(RECURRENT,
+                                                       ATTN_LOCAL),
+                                 use_post_norm=True), "item 10")):
         with pytest.raises(NotImplementedError, match=item):
             init_params(bad, device="cpu")
 
@@ -307,7 +313,7 @@ def test_decode_step_makes_one_scan_per_layer_plus_head(engines):
     calls = tracecount.calls()
     assert calls == {"fused_decode": 0, "fused_ffn": 0, "fused_head": 1,
                      "fused_mla_decode": 0, "rwkv6_scan": port.cfg.n_layers,
-                     "flash_decode": 0}
+                     "flash_decode": 0, "rglru_scan": 0}
     assert sum(calls.values()) == port.cfg.n_layers + 1
     assert sum(tracecount.launches().values()) == 0     # CPU: no kernels
 

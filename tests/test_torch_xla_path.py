@@ -171,7 +171,7 @@ def test_xla_decode_step_makes_one_flash_decode_call_per_layer(engines):
     calls = tracecount.calls()
     assert calls == {"flash_decode": port.cfg.n_layers, "fused_decode": 0,
                      "fused_ffn": 0, "fused_head": 0, "fused_mla_decode": 0,
-                     "rwkv6_scan": 0}
+                     "rwkv6_scan": 0, "rglru_scan": 0}
     assert sum(tracecount.launches().values()) == 0     # CPU: no kernels
 
 
@@ -324,7 +324,7 @@ def test_rwkv6_auto_resolves_to_xla_and_matches_reference(monkeypatch):
 # Backend and prepack resolution
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("arch", ["llama2-7b", "rwkv6-3b",
-                                  "deepseek-v2-lite"])
+                                  "deepseek-v2-lite", "recurrentgemma-9b"])
 def test_backend_and_prepack_resolve_as_the_reference(arch):
     cfg, ref_cfg = reduced(get_config(arch)), ref_reduced(ref_get_config(
         arch))
