@@ -38,13 +38,20 @@ prefill and at every decode step, B5 every local layer's decode over a
    values within 4 f32 ulps; B5 per slot at the unfused path's shape
    (``q [8, 32, 128]``, cache ``[1024, 8, 32, 128]``, the lengths above
    clamped to 0) and at a GQA shape with a window and a softcap, bf16
-   to 2e-2 with the length-0 slots exactly zero; B6's f32 ``h_seq`` and
-   ``h_fin`` relative to each slot's largest element to
+   to 2e-2 with the length-0 slots exactly zero, and check-only on its
+   block-wide CUDA-core path (GQA 32/4 with a window in bf16; f32, to
+   ``FLASH_F32_REL_TOL`` of each slot's largest element); B6's f32
+   ``h_seq`` and ``h_fin`` relative to each slot's largest element to
    ``RGLRU_REL_TOL``, at the prefill shape ``[8, 2080, 4096]`` from a
    zero and a random ``h0`` and at the decode shape ``[8, 1, 4096]``
    (``log_a ≤ 0`` at the model's scale, the state updated in place as
    the engine does); B5 at RecurrentGemma's shape, q ``[8, 16, 256]``
-   against a full 2048-row ring ``[2048, 8, 1, 256]``;
+   against a full 2048-row ring ``[2048, 8, 1, 256]``, and check-only
+   at ragged lengths on that ring (0, 1, the first batch's 128–160, the
+   edges of 64-row tiles and of the 8 ranks' runs, 2047, 2048); B1
+   check-only at lengths on its 4 ranks' split edges; the two cluster
+   kernels (B1, B5) launched twice on the same inputs give the same bits
+   (their ranks' partials merge in a fixed order);
 4. per attention path, serves a staggered 12-request trace through
    ``SlotScheduler`` and checks that every decode step made exactly
    ``L`` launches of the attention kernel, ``L`` of B2 and one of B3
@@ -70,7 +77,8 @@ prefill and at every decode step, B5 every local layer's decode over a
    least 90 % of (step, slot) — the unfused path's tokens also against
    the fused Llama path's; then traces a few decode steps with
    ``torch.profiler`` for the device time per kernel and the device's
-   idle share;
+   idle share, and requires every port kernel the step launches to show
+   device time under its own name (``GROUPS``);
 6. times each kernel and its plain version beside its bound at each
    path's shapes (device time per call: CUDA events around back-to-back
    calls queued behind a spin kernel, median after warm-up; ``call_ms``
@@ -90,6 +98,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -161,6 +170,8 @@ RGLRU_REL_TOL = 1e-4           # B6's f32 h_seq and h_fin: the same order
                                # another exp, over up to 2080 dependent
                                # steps, relative to each slot's largest
                                # element
+FLASH_F32_REL_TOL = 1e-4       # B5 on f32 inputs: summation order only,
+                               # relative to each slot's largest element
 SPIN_CYCLES = 50_000_000       # ≈ 25 ms at the H100's clock: longer than
                                # the host needs to queue a timed batch
 
@@ -284,22 +295,31 @@ def bound(n_bytes: float, n_ops: float, rate: float = BF16_FLOPS):
 # ---------------------------------------------------------------------------
 # Phase 3 inputs: one layer's operands at each path's shapes
 # ---------------------------------------------------------------------------
-def decode_lens(S: int):
-    """Ragged cache lengths (−1 = free slot … S − 1) and per-slot
-    positions with stale entries past each live prefix, which the
-    kernels must skip."""
-    lens = torch.tensor([-1, 0, 1, 127, 300, 513, 777, S - 1],
+def decode_lens(S: int, lens=None):
+    """Ragged cache lengths (by default −1 = free slot … S − 1) and
+    per-slot positions with stale entries past each live prefix, which
+    the kernels must skip."""
+    lens = torch.tensor(lens or [-1, 0, 1, 127, 300, 513, 777, S - 1],
                         dtype=torch.int32, device="cuda")
     s_idx = torch.arange(S, dtype=torch.int32, device="cuda")[:, None]
     pos = torch.where(s_idx < lens[None, :] + 40, s_idx, -1).to(torch.int32)
     return lens, pos, int(lens.clamp(min=0).sum())
 
 
-def gqa_case(cfg, gen):
+# B1 at lengths on 64-row tile edges ± 1: its 4 ranks (Llama2-7B) cut the
+# slots' live rows, laid end to end, into equal runs of tiles that stop
+# at a slot's edge, so runs start and end inside slots and tiles
+B1_EDGE_LENS = [63, 64, 65, 255, 256, 257, 513, MAX_SEQ - 1]
+
+
+def gqa_case(cfg, gen, lens=None):
+    """B1 at ``cfg``'s widths; with ``lens`` a check-only case (no path
+    runs those lengths, so it has no phase 6 row)."""
     B, D, S = SLOTS, cfg.d_model, MAX_SEQ
     nq, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     P = (nq + 2 * nkv) * hd
-    lens, pos, live = decode_lens(S)
+    edge = lens is not None
+    lens, pos, live = decode_lens(S, lens)
     cos, sin = rope_at(lens, hd, cfg.rope_theta)
     dec = dict(
         x=randn(gen, (B, D), 1.0),
@@ -315,12 +335,16 @@ def gqa_case(cfg, gen):
                  + B * nq * D * 4 + 2 * B * nkv * hd * 2 + 2 * B * nq * 4)
     dec_ops = 2 * B * D * P + 4 * live * nq * hd + 4 * B * nq * hd \
         + 2 * B * nq * hd * D
-    return dict(name="fused_decode", fn=fused_decode_attention,
+    case = dict(name="fused_decode", fn=fused_decode_attention,
                 plain=fused_decode_plain, args=dec,
                 kw=dict(q_heads=nq, kv_heads=nkv, scale=hd ** -0.5,
                         norm_eps=cfg.norm_eps),
                 cost=(dec_bytes, dec_ops),
                 replaces="src/repro/kernels/fused_decode/fused_decode.py:276")
+    if edge:
+        case.update(check_only=True,
+                    stage=f"rank-split edge lengths {lens.tolist()}")
+    return case
 
 
 def mla_case(cfg, gen):
@@ -413,40 +437,58 @@ def rglru_case(cfg, gen, S: int):
                 replaces="src/repro/kernels/rglru_scan/rglru_scan.py:50")
 
 
-def ring_flash_case(cfg, gen):
+# B5 at RecurrentGemma's shape, ragged: the first batch's lengths
+# (128-160), tile edges (64 rows) and the edges of the 8 ranks' runs of
+# ⌈L/8⌉ rows (one 64-row tile a rank up to 512 rows, two up to 1024,
+# three up to 1536)
+RING_EDGE_LENS = ([0, 1, 63, 64, 65, 127, 128, 129],
+                  [159, 160, 255, 256, 257, 511, 512, 513],
+                  [1023, 1024, 1025, 1535, 1537, 1791, 2047, 2048])
+
+
+def ring_flash_case(cfg, gen, lens=None):
     """B5 as RecurrentGemma's local layers call it once the rings have
     wrapped: ``q [8, 16, 256]`` bf16 against a full ``[2048, 8, 1, 256]``
-    bf16 ring, every slot's length 2048, no window of its own."""
+    bf16 ring, every slot's length 2048, no window of its own; with
+    ``lens`` a check-only case at those lengths."""
     B, hd = SLOTS, cfg.resolved_head_dim
     S = cfg.sliding_window
     nq, nkv = cfg.n_heads, cfg.n_kv_heads
-    lens = torch.full((B,), S, dtype=torch.int32, device="cuda")
+    edge = lens is not None
+    lens = (torch.tensor(lens, dtype=torch.int32, device="cuda") if edge
+            else torch.full((B,), S, dtype=torch.int32, device="cuda"))
     args = dict(q=randn(gen, (B, nq, hd), 1.0),
                 k_cache=randn(gen, (S, B, nkv, hd), 1.0),
                 v_cache=randn(gen, (S, B, nkv, hd), 1.0), cache_len=lens)
     n_bytes = 2 * B * S * nkv * hd * 2 + 2 * B * nq * hd * 2 + B * 4
     n_ops = 4 * B * S * nq * hd
-    return dict(name="flash_decode", fn=flash_decode_attention,
+    case = dict(name="flash_decode", fn=flash_decode_attention,
                 plain=flash_decode_plain, args=args,
                 kw=dict(window=0, attn_softcap=0.0),
                 cost=(n_bytes, n_ops),
                 replaces="src/repro/kernels/flash_decode/flash_decode.py:73")
+    if edge:
+        case.update(check_only=True, stage=f"ring lengths {lens.tolist()}")
+    return case
 
 
 def flash_case(cfg, gen, *, q_heads=None, kv_heads=None, q_scale=1.0,
-               window=0, cap=0.0):
-    """B5 in the engine's per-slot form: ``q [8, q, hd]`` bf16 against a
-    bf16 cache ``[1024, 8, kv, hd]`` at the phase 3 lengths clamped to 0
-    (each slot's rows past its length are stale and must be masked).
-    Default: the unfused Llama path's shape; with ``window``/``cap`` a
-    check-only shape (no path runs it, so it has no phase 6 row)."""
+               window=0, cap=0.0, dtype=torch.bfloat16):
+    """B5 in the engine's per-slot form: ``q [8, q, hd]`` against a cache
+    ``[1024, 8, kv, hd]`` at the phase 3 lengths clamped to 0 (each
+    slot's rows past its length are stale and must be masked).  Default:
+    the unfused Llama path's shape in bf16; with other heads, a window,
+    a softcap or f32 a check-only shape (no path runs it, so it has no
+    phase 6 row): B5's block-wide CUDA-core path (5-15 query rows a kv
+    head, or f32) runs only there."""
     B, S, hd = SLOTS, MAX_SEQ, cfg.resolved_head_dim
     nq, nkv = q_heads or cfg.n_heads, kv_heads or cfg.n_kv_heads
     lens, _, _ = decode_lens(S)
     lens = lens.clamp(min=0)
-    args = dict(q=randn(gen, (B, nq, hd), q_scale),
-                k_cache=randn(gen, (S, B, nkv, hd), 1.0),
-                v_cache=randn(gen, (S, B, nkv, hd), 1.0), cache_len=lens)
+    args = dict(q=randn(gen, (B, nq, hd), q_scale, dtype),
+                k_cache=randn(gen, (S, B, nkv, hd), 1.0, dtype),
+                v_cache=randn(gen, (S, B, nkv, hd), 1.0, dtype),
+                cache_len=lens)
     lo = (lens - window + 1).clamp(min=0) if window else 0 * lens
     live = int((lens - lo).sum())
     n_bytes = 2 * live * nkv * hd * 2 + 2 * B * nq * hd * 2 + B * 4
@@ -456,9 +498,9 @@ def flash_case(cfg, gen, *, q_heads=None, kv_heads=None, q_scale=1.0,
                 kw=dict(window=window, attn_softcap=cap),
                 cost=(n_bytes, n_ops),
                 replaces="src/repro/kernels/flash_decode/flash_decode.py:73")
-    if window or cap:
+    if window or cap or q_heads or dtype != torch.bfloat16:
         case.update(check_only=True, stage=f"gqa {nq}/{nkv} window "
-                                            f"{window} softcap {cap:g}")
+                    f"{window} softcap {cap:g} {str(dtype)[6:]}")
     return case
 
 
@@ -475,11 +517,15 @@ def kernel_cases(cfg, backend):
     if RECURRENT in cfg.block_pattern:
         n_prompt = LOCKSTEP[cfg.name][1][-1][0]
         cases = [rglru_case(cfg, gen, n_prompt), rglru_case(cfg, gen, 1),
-                 ring_flash_case(cfg, gen)]
+                 ring_flash_case(cfg, gen)] + [
+            ring_flash_case(cfg, gen, lens) for lens in RING_EDGE_LENS]
     elif backend == "xla":
         cases = [flash_case(cfg, gen),
                  flash_case(cfg, gen, q_heads=32, kv_heads=8, q_scale=8.0,
-                            window=256, cap=50.0)]
+                            window=256, cap=50.0),
+                 flash_case(cfg, gen, q_heads=32, kv_heads=4, window=300),
+                 flash_case(cfg, gen, q_heads=32, kv_heads=32,
+                            dtype=torch.float32)]
     elif cfg.block_pattern == (RWKV6,):
         cases = [wkv_case(cfg, gen, LOCKSTEP[cfg.name][1][-1][0]),
                  wkv_case(cfg, gen, 1),
@@ -487,6 +533,8 @@ def kernel_cases(cfg, backend):
     else:
         attn = (mla_case(cfg, gen) if cfg.mla is not None
                 else gqa_case(cfg, gen))
+        edges = ([] if cfg.mla is not None
+                 else [gqa_case(cfg, gen, B1_EDGE_LENS)])
         ffn = dict(x=randn(gen, (B, D), 1.0), a=randn(gen, (B, D), 1.0),
                    w_in=randn(gen, (D, F), D ** -0.5),
                    w_gate=randn(gen, (D, F), D ** -0.5),
@@ -501,7 +549,7 @@ def kernel_cases(cfg, backend):
                  cost=(ffn_bytes, ffn_ops),
                  replaces="src/repro/kernels/fused_ffn/fused_ffn.py:105"),
             head_case(cfg, gen),
-        ]
+        ] + edges
     for case in cases:
         case["path"], case["backend"] = cfg.name, backend
     return cases
@@ -565,6 +613,11 @@ def check_rglru(case) -> float:
     return max(errs)
 
 
+# the cluster kernels merge their ranks' partials in a fixed order: a
+# second launch on the same inputs gives the same bits
+REPEATABLE = ("fused_decode", "flash_decode")
+
+
 def check_kernel(case) -> float:
     if case["name"] == "rwkv6_scan":
         return check_wkv(case)
@@ -572,14 +625,24 @@ def check_kernel(case) -> float:
         return check_rglru(case)
     got = case["fn"](**case["args"], **case["kw"])
     want = case["plain"](*case["args"].values(), **case["kw"])
-    torch.cuda.synchronize()
     name = case["name"]
+    if name in REPEATABLE:
+        again = case["fn"](**case["args"], **case["kw"])
+        torch.cuda.synchronize()
+        pairs = (zip(got, again) if isinstance(got, tuple)
+                 else [(got, again)])
+        if not all(torch.equal(a, b) for a, b in pairs):
+            raise AssertionError(f"{name}: a second launch on the same "
+                                 "inputs gave other bits")
+    torch.cuda.synchronize()
     if name == "fused_head":
         return close_head(name, got, want)
     if name == "flash_decode":
         empty = case["args"]["cache_len"] <= 0
         if got[empty].any():
             raise AssertionError("flash_decode: a length-0 slot is not zero")
+        if got.dtype == torch.float32:
+            return close_rel(name, got, want, FLASH_F32_REL_TOL)
         return close_bf16(name, got, want)
     if name == "fused_mla_decode":
         (o, c_new, m, l), (wo, wc, wm, wl) = got, want
@@ -849,18 +912,20 @@ GROUPS = (("fused_decode", ("fused_decode_kernel",)),
                                 "mla_attn_kernel", "mla_merge_kernel",
                                 "mla_out_kernel")),
           ("rwkv6_scan", ("wkv_scan_kernel",)),
-          ("flash_decode", ("flash_chunk_kernel", "flash_merge_kernel")),
+          ("flash_decode", ("flash_cluster_kernel",)),
           ("rglru_scan", ("rglru_scan_kernel",)))
 MATMUL_NAMES = ("gemm", "gemv", "nvjet", "splitk", "cutlass", "xmma", "cublas")
 
 
-def profile_steps(cfg, eng, state, steps: int = 4):
+def profile_steps(cfg, eng, state, launched, steps: int = 4):
     """Device time per decode step by kernel — the port's kernels by
     name, cuBLAS/CUTLASS products as ``matmul``, everything else (the
     small PyTorch ops) as ``other`` — the device launches per step, and
     the share of the traced window in which no kernel or copy ran.  The
     profiler's own host cost inflates that idle share; the untraced step
-    time is phase 4's."""
+    time is phase 4's.  Every port kernel in ``launched`` (those a decode
+    step launches) must show device time in its group, so that a renamed
+    kernel cannot slip into ``other``."""
     from torch.profiler import ProfilerActivity, profile
     tok = torch.zeros(SLOTS, dtype=torch.int32, device="cuda")
     torch.cuda.synchronize()
@@ -873,7 +938,7 @@ def profile_steps(cfg, eng, state, steps: int = 4):
                    for e in prof.events()
                    if e.device_type == torch.autograd.DeviceType.CUDA)
     if not spans:
-        return dict(device_time="not measured (no device events traced)")
+        raise AssertionError("the profiler traced no device event")
     busy, end = 0.0, spans[0][0]
     per = {name: 0.0 for name, _ in GROUPS}
     per["matmul"] = per["other"] = 0.0
@@ -889,6 +954,10 @@ def profile_steps(cfg, eng, state, steps: int = 4):
         if key is not None and len(dict(GROUPS)[group]) > 1:
             stages[key] = stages.get(key, 0.0) + t1 - t0
     window = end - spans[0][0]
+    missing = [k for k in launched if per[k] <= 0.0]
+    if missing:
+        raise AssertionError(f"no device time traced under {missing}: "
+                             "GROUPS does not name their kernels")
     out = {f"{g}_ms_per_step": round(v / steps / 1e3, 3)
            for g, v in per.items()}
     out["stage_ms_per_step"] = {k: round(v / steps / 1e3, 3)
@@ -985,7 +1054,8 @@ def serve_path(cfg, backend, peers):
             raise AssertionError(f"unfused vs fused token agreement {agree}")
         forced["agreement_with_fused"] = round(agree, 4)
     say("forced", **tag, **forced)
-    say("profile", **tag, **profile_steps(cfg, eng, state))
+    launched = [k for k, n in counts["decode"][1].items() if n]
+    say("profile", **tag, **profile_steps(cfg, eng, state, launched))
     del eng, state
     torch.cuda.empty_cache()
     return counts, dict(step_ms=serve["median_step_ms"], forced=forced_toks)
@@ -1032,9 +1102,13 @@ def main() -> int:
     say("build", seconds=round(time.perf_counter() - t0, 1),
         built=",".join(logs) or "none")
     for name, log in logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
+        # per source: the most registers an instance uses, and any spill
+        regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
+        spills = sorted({ln.strip() for ln in log.splitlines()
+                         if "spill" in ln and "0 bytes spill stores" not in ln})
+        print(f"  {name}: {len(regs)} kernel instances, at most "
+              f"{max(regs, default=0)} registers; spills: "
+              f"{'; '.join(spills) or 'none'}")
 
     # 3. each kernel against its plain version at each path's shapes
     cases = [case for cfg, backend in paths

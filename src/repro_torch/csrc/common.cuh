@@ -35,6 +35,13 @@ DEVI void load_bf16x8(const bf16* p, float out[8]) {
   out[6] = lo_bf(u.w); out[7] = hi_bf(u.w);
 }
 
+// 4 consecutive bf16 from an 8-byte aligned shared-memory address.
+DEVI void load_bf16x4_smem(const bf16* p, float out[4]) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  out[0] = lo_bf(u.x); out[1] = hi_bf(u.x);
+  out[2] = lo_bf(u.y); out[3] = hi_bf(u.y);
+}
+
 // 8 consecutive bf16 from a 16-byte aligned shared-memory address.
 DEVI void smem_bf16x8(const bf16* p, float out[8]) {
   uint4 u = *reinterpret_cast<const uint4*>(p);
@@ -42,6 +49,45 @@ DEVI void smem_bf16x8(const bf16* p, float out[8]) {
   out[2] = lo_bf(u.y); out[3] = hi_bf(u.y);
   out[4] = lo_bf(u.z); out[5] = hi_bf(u.z);
   out[6] = lo_bf(u.w); out[7] = hi_bf(u.w);
+}
+
+// ---------------------------------------------------------------------------
+// Tensor cores: mma.sync m16n8k16, bf16 in, f32 accumulate (exact products
+// summed in f32), and the fragments it takes.
+// ---------------------------------------------------------------------------
+DEVI void mma_bf16(float c[4], const uint32_t a[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+DEVI uint32_t lds32(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// Two f32 as packed bf16 hi terms and lo terms: x = hi + lo to ~2^-17.
+DEVI void split_bf16(float2 x, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x.x, x.y);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(x.x - __low2float(h),
+                                                 x.y - __high2float(h));
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// ldmatrix .trans of 8x8 bf16 blocks of a row-major [k][n] tile: the B
+// fragments (k-pairs) of mma m16n8k16.
+DEVI void ldsm_x4_t(const bf16* p, uint32_t r[4]) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+}
+DEVI void ldsm_x2_t(const bf16* p, uint32_t r[2]) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1]) : "r"(a));
 }
 
 DEVI float warp_sum(float v) {

@@ -48,13 +48,15 @@ def _nvcc_version(nvcc: str) -> str:
 
 
 def lib_path(name: str, nvcc: str) -> Path:
-    """``lib<name>-<key>.so``: the key hashes the sources, the flags, this
-    file and the compiler's version, so a library built from anything
-    else is never loaded."""
+    """``lib<name>-<key>.so``: the key hashes the source, every header in
+    ``csrc/`` (``*.cuh``), the flags, this file and the compiler's
+    version, so a library built from anything else is never loaded."""
     h = hashlib.sha256()
     for part in (" ".join(NVCC_FLAGS), _nvcc_version(nvcc)):
         h.update(part.encode())
-    for f in (CSRC / f"{name}.cu", CSRC / "common.cuh", Path(__file__)):
+    headers = sorted(CSRC.glob("*.cuh"))
+    for f in (CSRC / f"{name}.cu", *headers, Path(__file__)):
+        h.update(f.name.encode())
         h.update(f.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 

@@ -25,12 +25,17 @@ chunk.
 
 CUDA kernel: ``csrc/flash_decode.cu``.  What bounds it on an H100: the
 bytes of the valid K/V rows, each read once for all query heads of its
-group.  The live span is split into 64-row chunks, one block each (a
-dead chunk reads nothing), and a second launch merges the chunks in
-order.  It takes ``hd`` in {64, 128, 256}, bf16 or f32 (q, k and v of
-one dtype) and at most 32 query rows per (cache, kv head); anything
-else raises ``NotImplementedError`` and never falls back to the plain
-version.
+group.  One thread-block cluster of ``C`` CTAs per kv head and block of
+``GB`` groups (:func:`cluster_plan`, from the shapes alone) lays the
+groups' live spans end to end and gives each rank an equal run of it,
+streamed in tiles through a ``cp.async`` ring (bf16 with 16 or more
+query rows a kv head on the tensor cores; up to 4 rows warp-split on
+the CUDA cores; otherwise block-wide on the CUDA cores), and merges the
+ranks' (m, l, acc) over distributed shared memory in rank order: one
+device launch, no workspace.  It takes ``hd`` in
+{64, 128, 256}, bf16 or f32 (q, k and v of one dtype) and at most 32
+query rows per (cache, kv head); anything else raises
+``NotImplementedError`` and never falls back to the plain version.
 """
 from __future__ import annotations
 
@@ -45,7 +50,10 @@ from repro_torch.kernels import _build
 
 _HEAD_DIMS = (64, 128, 256)   # the kernel's template instances
 _MAX_ROWS = 32                # query rows per (cache, kv head)
-_CHUNK = 64                   # cache rows per block (csrc CH)
+_MAX_CLUSTER = 8              # the portable thread-block cluster size
+_TILE_ROWS = 64               # cache rows a tile (csrc TR)
+_TARGET_CLUSTERS = 64
+_TARGET_CTAS = 256            # two CTAs an SM of an H100 (132)
 
 
 def flash_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -102,14 +110,40 @@ def flash_decode_plain(q, k_cache, v_cache, cache_len, *, scale=None,
     return o.reshape(B, q_loc, hd).to(q.dtype)
 
 
-_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 \
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 \
     + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p]
+
+
+def _pow2_at_least(n: int) -> int:
+    return 1 << max(0, n - 1).bit_length()
+
+
+def cluster_plan(S: int, G: int, kv: int, rows: int):
+    """``(GB, C)``: each cluster takes ``GB`` groups of one kv head (their
+    live spans laid end to end) on ``C`` CTAs, from the shape only.
+    ``GB`` is the largest power of two dividing ``G`` (with ``GB·rows``
+    query rows within ``_MAX_ROWS``) that leaves ``_TARGET_CLUSTERS``
+    clusters; ``C`` brings the grid to ``_TARGET_CTAS`` (two CTAs an SM),
+    at most 8 and at most one a 64-row tile of the ``GB·S`` rows.
+    Clusters of 4 pack the card's GPCs better than clusters of 8, hence
+    the many clusters.  Llama2-7B's per-slot decode (S 1024, G 8, kv 32,
+    1 row): (4, 4); RecurrentGemma's ring (S 2048, G 8, kv 1, 16 rows):
+    (1, 8)."""
+    gb = 1
+    while (G % (2 * gb) == 0 and 2 * gb * rows <= _MAX_ROWS
+           and (G // (2 * gb)) * kv >= _TARGET_CLUSTERS):
+        gb *= 2
+    clusters = (G // gb) * kv
+    C = min(_MAX_CLUSTER, _pow2_at_least(-(-_TARGET_CTAS // clusters)),
+            _pow2_at_least(-(-gb * S // _TILE_ROWS)))
+    return gb, C
 
 
 def flash_decode_cuda(q, k_cache, v_cache, cache_len, *, scale=None,
                       attn_softcap=0.0, window=0):
-    """Launch ``csrc/flash_decode.cu`` on the current stream (one call,
-    two device launches: the chunks, then their in-order merge)."""
+    """Launch ``csrc/flash_decode.cu`` on the current stream: one device
+    launch of ``C``-CTA clusters, one per kv head and block of ``GB``
+    groups (:func:`cluster_plan`)."""
     B, q_loc, hd = q.shape
     per_slot = k_cache.dim() == 4
     S, kv_loc = k_cache.shape[0], k_cache.shape[-2]
@@ -120,7 +154,8 @@ def flash_decode_cuda(q, k_cache, v_cache, cache_len, *, scale=None,
     if (hd not in _HEAD_DIMS or q.dtype not in (torch.bfloat16, torch.float32)
             or k_cache.shape != want_cache or v_cache.shape != want_cache
             or q_loc != qpk * kv_loc or NB * qpk > _MAX_ROWS
-            or lens.shape != (G,) or window < 0 or attn_softcap < 0):
+            or lens.shape != (G,) or window < 0 or attn_softcap < 0
+            or kv_loc * G > 65535):
         raise NotImplementedError(
             f"flash_decode CUDA kernel: head dim in {_HEAD_DIMS}, bf16 or "
             f"f32, q [B, q_loc, hd] with q_loc a multiple of kv_loc, cache "
@@ -131,20 +166,18 @@ def flash_decode_cuda(q, k_cache, v_cache, cache_len, *, scale=None,
     tensors = dict(q=q, k_cache=k_cache, v_cache=v_cache, cache_len=lens)
     _build.require("flash_decode", tensors, dict(
         q=q.dtype, k_cache=q.dtype, v_cache=q.dtype, cache_len=torch.int32))
-    if k_cache.data_ptr() % 16 or v_cache.data_ptr() % 16:
+    if q.data_ptr() % 16 or k_cache.data_ptr() % 16 or v_cache.data_ptr() % 16:
         raise NotImplementedError(
-            "flash_decode CUDA kernel: the caches must start on a 16-byte "
-            "boundary")
+            "flash_decode CUDA kernel: q and the caches must start on a "
+            "16-byte boundary")
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
-    n_chunks = -(-S // _CHUNK)
-    ws = torch.empty((G * n_chunks * kv_loc * NB * qpk * (hd + 2),),
-                     dtype=torch.float32, device=q.device)
     o = torch.empty_like(q)
+    GB, C = cluster_plan(S, G, kv_loc, NB * qpk)
     fn = _build.function("flash_decode", "flash_decode_launch", _ARGTYPES)
     err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-             lens.data_ptr(), ws.data_ptr(), o.data_ptr(), G, NB, S, kv_loc,
-             qpk, hd, int(q.dtype == torch.float32), scale, attn_softcap,
-             window, _build.stream_ptr(q))
+             lens.data_ptr(), o.data_ptr(), G, GB, NB, S, kv_loc, qpk, hd,
+             int(q.dtype == torch.float32), C, scale, attn_softcap, window,
+             _build.stream_ptr(q))
     _build.check(err, "flash_decode")
     tracecount.launch("flash_decode")
     return o

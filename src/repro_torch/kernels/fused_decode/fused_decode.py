@@ -10,10 +10,15 @@ CUDA kernel: ``csrc/fused_decode.cu``.  What bounds it on an H100: bytes.
 At Llama2-7B widths one layer streams ``wqkv`` (100.7 MB) and ``wo``
 (33.6 MB) plus each slot's live KV, against ~2·B·(D·P + q·hd·D) FLOPs —
 a few FLOPs per byte, far under the ~295 FLOP/byte ridge.  The design
-reads every weight byte ONCE per launch for the whole batch: the JAX
+reads every weight byte ONCE per launch for the whole batch (the JAX
 path vmaps the Pallas kernel per slot, so on the TPU each slot re-reads
-``wqkv``/``wo``; here one block per kv head holds all B slots' normed
-inputs in shared memory and keeps B accumulators per weight column.
+``wqkv``/``wo``), and is the paper's: one thread-block cluster of ``C``
+CTAs per kv head (:func:`cluster_size`, 4 at Llama2-7B: 128 CTAs).  Each
+rank projects its ``D/C`` rows of the head's ``wqkv`` columns, the
+partials are summed over distributed shared memory in rank order, each
+rank attends its share of every slot's live rows, the ``(m, l, acc)``
+partials merge on chip in rank order, and each rank projects through
+its ``D/C`` columns of ``wo``.
 Attention covers only each slot's live prefix (``cache_len`` ragged,
 ``−1`` = free slot: no KV read at all).
 
@@ -37,6 +42,30 @@ from repro_torch.models.layers import rope_freqs
 
 _MAX_B = 8           # slots per launch (the kernel's template range)
 _HEAD_DIMS = (128,)  # head dims the CUDA kernel is instantiated for
+_MAX_CLUSTER = 8     # the portable thread-block cluster size
+_TARGET_CTAS = 128   # about one CTA per SM of an H100 (132)
+_MAX_ROWS = 1024     # wqkv rows a rank may hold (csrc MAX_NTO · 64)
+
+
+def _rows_ok(rows: int) -> bool:
+    """Rows of ``wqkv`` a rank may hold (csrc ``rows_ok``): a multiple of
+    64 (eight warps' 8-column tiles of ``wo``), 64 … 1024."""
+    return 64 <= rows <= _MAX_ROWS and rows % 64 == 0
+
+
+def cluster_size(kv_heads: int, d_model: int) -> int:
+    """CTAs in the cluster of one kv head: the power of two ≤ 8 that
+    brings the grid to about ``_TARGET_CTAS`` (Llama2-7B's 32 heads: 4),
+    halved until each rank's ``d_model / C`` rows are ones the kernel
+    takes; 0 if none is."""
+    c = 1
+    while c < _MAX_CLUSTER and kv_heads * c < _TARGET_CTAS:
+        c *= 2
+    while c >= 1:
+        if d_model % c == 0 and _rows_ok(d_model // c):
+            return c
+        c //= 2
+    return 0
 
 
 def _check_mode(fuse_out, bqkv, window, ring, attn_softcap, norm_scale):
@@ -138,7 +167,7 @@ def fused_decode_plain(x, wqkv, wo, norm_scale, k_cache, v_cache, pos,
             m.reshape(B, q_loc), l.reshape(B, q_loc))
 
 
-_ARGTYPES = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 6 \
+_ARGTYPES = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 7 \
     + [ctypes.c_float] * 2 + [ctypes.c_void_p]
 
 
@@ -146,16 +175,18 @@ def fused_decode_cuda(x, wqkv, wo, norm_scale, k_cache, v_cache, pos,
                       cache_lens, include_new, cos, sin, *, q_heads,
                       kv_heads, scale, norm_eps):
     """Launch ``csrc/fused_decode.cu`` on the current stream (one launch
-    for the whole batch)."""
+    for the whole batch, in clusters of ``cluster_size`` CTAs)."""
     B, D = x.shape
     S, rows, hd = k_cache.shape
+    C = cluster_size(kv_heads, D)
     if (q_heads != kv_heads or hd not in _HEAD_DIMS or B > _MAX_B
-            or rows != B * kv_heads or D % 4
+            or rows != B * kv_heads or not C
             or wqkv.shape != (D, (q_heads + 2 * kv_heads) * hd)
             or wo.shape != (q_heads, hd, D) or pos.shape != (S, B)):
         raise NotImplementedError(
             f"fused_decode CUDA kernel: MHA, head_dim in {_HEAD_DIMS}, "
-            f"B ≤ {_MAX_B}; got x {tuple(x.shape)}, cache "
+            f"B ≤ {_MAX_B}, d_model split into 64–{_MAX_ROWS} rows a rank "
+            f"(a multiple of 64); got x {tuple(x.shape)}, cache "
             f"{tuple(k_cache.shape)}, wqkv {tuple(wqkv.shape)}, heads "
             f"{q_heads}/{kv_heads}")
     bf, f32, i32 = torch.bfloat16, torch.float32, torch.int32
@@ -173,7 +204,7 @@ def fused_decode_cuda(x, wqkv, wo, norm_scale, k_cache, v_cache, pos,
     l = torch.empty_like(m)
     err = fn(*(t.data_ptr() for t in tensors.values()),
              o.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
-             m.data_ptr(), l.data_ptr(), B, D, S, q_heads, kv_heads, hd,
+             m.data_ptr(), l.data_ptr(), B, D, S, q_heads, kv_heads, hd, C,
              scale, norm_eps, _build.stream_ptr(x))
     _build.check(err, "fused_decode")
     tracecount.launch("fused_decode")

@@ -91,10 +91,10 @@ def _close_ulps(got, want, n=4):
 B1_SHAPE = dict(B=4, D=64, S=32, nq=4, nkv=4, hd=16)
 
 
-def _b1_inputs(lens, include, dt, seed=0):
+def _b1_inputs(lens, include, dt, seed=0, S=None):
     rng = np.random.default_rng(seed)
-    B, D, S, nq, nkv, hd = (B1_SHAPE[k] for k in
-                            ("B", "D", "S", "nq", "nkv", "hd"))
+    B, D, nq, nkv, hd = (B1_SHAPE[k] for k in ("B", "D", "nq", "nkv", "hd"))
+    S = S or B1_SHAPE["S"]
     P = (nq + 2 * nkv) * hd
     lens = np.asarray(lens, np.int32)
     s = np.arange(S, dtype=np.int32)[:, None]
@@ -117,7 +117,8 @@ def _b1_inputs(lens, include, dt, seed=0):
 
 
 def _jax_b1(j, *, use_ref):
-    B, S, nq, nkv, hd = (B1_SHAPE[k] for k in ("B", "S", "nq", "nkv", "hd"))
+    B, nq, nkv, hd = (B1_SHAPE[k] for k in ("B", "nq", "nkv", "hd"))
+    S = j["kc"].shape[0]
     kc = j["kc"].reshape(S, B, nkv, hd)
     vc = j["vc"].reshape(S, B, nkv, hd)
 
@@ -160,6 +161,24 @@ def test_fused_decode_plain_vs_pallas_and_ref(lens, include, dt):
     assert torch.isfinite(o).all()
     if lens[0] == -1:
         assert torch.all(l[0] == 1.0)
+
+
+@pytest.mark.parametrize("lens", [(63, 64, 65, 128), (-1, 127, 129, 192)])
+def test_fused_decode_plain_at_rank_split_edges(lens):
+    """The CUDA kernel cuts the live rows of all slots, laid end to end,
+    into equal runs of 64-row tiles that stop at a slot's edge: lengths
+    on tile edges ± 1 and slots that end where a run does (4 slots of
+    128 rows over 4 ranks), bf16 against the Pallas kernel and ref.py."""
+    j, t = _b1_inputs(lens, "owner", "bf16", S=192)
+    got = b1.fused_decode_attention(
+        t["x"], t["wqkv"], t["wo"], t["ln1"], t["kc"], t["vc"], t["pos"],
+        t["lens"], t["inc"], t["cos"], t["sin"], q_heads=B1_SHAPE["nq"],
+        kv_heads=B1_SHAPE["nkv"], norm_eps=1e-6)
+    for use_ref in (False, True):
+        want = _jax_b1(j, use_ref=use_ref)
+        for name, g, w in zip(("o", "k_new", "v_new", "m", "l"), got, want):
+            np.testing.assert_allclose(_np(g), _np(w), **_tol("bf16"),
+                                       err_msg=f"{name} ref={use_ref}")
 
 
 def test_fused_decode_unported_modes_raise():
@@ -410,6 +429,33 @@ def test_flash_decode_per_slot_matches_vmapped_pallas(window, dt):
     np.testing.assert_allclose(_np(got), _np(want), **tol)
 
 
+@pytest.mark.parametrize("lens", [(512, 512, 512, 512),       # full rings
+                                  (0, 1, 63, 64), (65, 255, 256, 257),
+                                  (127, 128, 384, 511)])
+def test_flash_decode_hd256_sixteen_rows_on_one_kv_head(lens):
+    """RecurrentGemma's shape class: 16 query heads on one kv head of
+    256, per slot, against ``jax.vmap`` of the interpret-mode Pallas
+    kernel and ``ref.py``, on full caches and at the edges of the CUDA
+    kernel's 64-row tiles and of its ranks' runs (a 512-row cache over 8
+    ranks: one tile each).  f32 to 2e-5."""
+    B, S, q_loc, hd = 4, 512, 16, 256
+    q, kc, vc = _b5_inputs(S, q_loc, 1, hd, B=B, per_slot=True, seed=7)
+    lens = np.asarray(lens, np.int32)
+    got = b5.flash_decode_attention(*(torch.from_numpy(a) for a in
+                                      (q, kc, vc)), torch.from_numpy(lens))
+    jq, jk, jv, jl = (jnp.asarray(a) for a in (q, kc, vc, lens))
+    want = jax.vmap(lambda qb, kb, vb, cl: jax_flash_decode(
+        qb[None], kb, vb, cl, block_s=128, interpret=True)[0],
+        in_axes=(0, 1, 1, 0))(jq, jk, jv, jl)
+    ref = jax.vmap(lambda qb, kb, vb, cl: flash_decode_attention_ref(
+        qb[None], kb, vb, cl)[0], in_axes=(0, 1, 1, 0))(jq, jk, jv, jl)
+    live = lens > 0               # ref.py's softmax of no row is NaN
+    assert not got[~torch.from_numpy(live)].any()
+    for w in (want, ref):
+        np.testing.assert_allclose(_np(got)[live], _np(w)[live], rtol=2e-5,
+                                   atol=2e-5)
+
+
 def test_flash_decode_unsupported_inputs_raise(monkeypatch):
     """On the card: head dims 64/128/256, bf16 or f32 with q, k and v of
     one dtype, at most 32 query rows per (cache, kv head); anything else
@@ -603,3 +649,111 @@ def test_plain_path_only_for_cpu_tensors(name, monkeypatch):
     assert tracecount.launches()[name] == 0
     with pytest.raises(ValueError, match="unsupported device"):
         _cuda_calls()[name](lambda t: t.to("meta"))
+
+
+# ---------------------------------------------------------------------------
+# The cluster kernels' wrappers: what reaches the library
+# ---------------------------------------------------------------------------
+def _record_launch(monkeypatch):
+    """Replace the library with a recorder of each call's arguments."""
+    calls = []
+
+    def fake_function(name, symbol, argtypes):
+        def fn(*args):
+            assert len(args) == len(argtypes), (name, len(args))
+            calls.append(args)
+            return 0
+        return fn
+
+    monkeypatch.setattr(_build, "function", fake_function)
+    monkeypatch.setattr(_build, "stream_ptr", lambda t: 0)
+    return calls
+
+
+@pytest.mark.parametrize("shape,plan", [
+    ((8, 16, 256, 2048, 1), (1, 8)),     # RecurrentGemma's ring
+    ((8, 32, 128, 1024, 32), (4, 4)),    # Llama2-7B's per-slot decode
+    ((8, 32, 128, 1024, 8), (1, 4))])    # GQA 32/8
+def test_flash_decode_wrapper_passes_no_workspace(monkeypatch, shape, plan):
+    """One launch, five pointers (q, k, v, lengths, o — no f32
+    workspace) and the cluster plan (GB groups a cluster, C CTAs) that
+    the shape alone decides."""
+    calls = _record_launch(monkeypatch)
+    B, q_loc, hd, S, kv = shape
+    bf = torch.bfloat16
+    q = torch.zeros(B, q_loc, hd, dtype=bf)
+    kc = torch.zeros(S, B, kv, hd, dtype=bf)
+    lens = torch.zeros(B, dtype=torch.int32)
+    o = b5.flash_decode_cuda(q, kc, kc.clone(), lens)
+    (args,) = calls
+    ptrs, ints = args[:5], args[5:14]
+    assert ptrs[:4] == (q.data_ptr(), kc.data_ptr(), ptrs[2],
+                        lens.data_ptr()) and ptrs[4] == o.data_ptr()
+    G, GB, NB, S_, kv_, qpk, hd_, is_f32, C = ints
+    assert (G, NB, S_, kv_, qpk, hd_, is_f32) == (B, 1, S, kv, q_loc // kv,
+                                                  hd, 0)
+    assert (GB, C) == plan == b5.cluster_plan(S, B, kv, q_loc // kv)
+    assert C in (1, 2, 4, 8) and G % GB == 0
+
+
+@pytest.mark.parametrize("heads,D,C", [(32, 256, 4), (4, 512, 8),
+                                       (32, 4096, 4)])
+def test_fused_decode_wrapper_cluster_size(monkeypatch, heads, D, C):
+    """The cluster size follows the kv heads and d_model alone: about 128
+    CTAs (Llama2-7B's 32 heads: 4), each rank 64–1024 rows of wqkv."""
+    assert b1.cluster_size(heads, D) == C
+    if D > 512:
+        return                              # no 100 MB weights here
+    calls = _record_launch(monkeypatch)
+    bf, f32, i32 = torch.bfloat16, torch.float32, torch.int32
+    B, S, hd = 2, 8, 128
+    b1.fused_decode_cuda(
+        torch.zeros(B, D, dtype=bf), torch.zeros(D, 3 * heads * hd, dtype=bf),
+        torch.zeros(heads, hd, D, dtype=bf), torch.zeros(D, dtype=f32),
+        torch.zeros(S, B * heads, hd, dtype=bf),
+        torch.zeros(S, B * heads, hd, dtype=bf), torch.zeros(S, B, dtype=i32),
+        torch.zeros(B, dtype=i32), torch.zeros(B, dtype=i32),
+        torch.zeros(B, hd // 2, dtype=f32), torch.zeros(B, hd // 2, dtype=f32),
+        q_heads=heads, kv_heads=heads, scale=hd ** -0.5, norm_eps=1e-6)
+    (args,) = calls
+    assert args[16:23] == (B, D, S, heads, heads, hd, C)
+
+
+def test_cluster_kernels_refuse_unported_shapes(monkeypatch):
+    """GQA, and a d_model no cluster size splits into 64-row multiples,
+    raise before the library is reached."""
+    def no_library(*_a, **_k):
+        raise AssertionError("an unsupported input reached the library")
+
+    monkeypatch.setattr(_build, "function", no_library)
+    bf, f32, i32 = torch.bfloat16, torch.float32, torch.int32
+    for heads, kv, D in ((8, 2, 256), (4, 4, 72)):
+        B, S, hd = 1, 4, 128
+        with pytest.raises(NotImplementedError, match="fused_decode"):
+            b1.fused_decode_cuda(
+                torch.zeros(B, D, dtype=bf),
+                torch.zeros(D, (heads + 2 * kv) * hd, dtype=bf),
+                torch.zeros(heads, hd, D, dtype=bf), torch.zeros(D, dtype=f32),
+                torch.zeros(S, B * kv, hd, dtype=bf),
+                torch.zeros(S, B * kv, hd, dtype=bf),
+                torch.zeros(S, B, dtype=i32), torch.zeros(B, dtype=i32),
+                torch.zeros(B, dtype=i32), torch.zeros(B, hd // 2, dtype=f32),
+                torch.zeros(B, hd // 2, dtype=f32), q_heads=heads,
+                kv_heads=kv, scale=hd ** -0.5, norm_eps=1e-6)
+
+
+@pytest.mark.parametrize("name", ["flash_decode", "fused_decode"])
+@pytest.mark.parametrize("header", ["cluster.cuh", "common.cuh"])
+def test_lib_path_hashes_every_header(name, header, monkeypatch, tmp_path):
+    """A changed header names another library, so a stale one built from
+    the old header is never loaded (no nvcc needed: its version is
+    stubbed)."""
+    for f in _build.CSRC.iterdir():
+        (tmp_path / f.name).write_bytes(f.read_bytes())
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    monkeypatch.setattr(_build, "_nvcc_version", lambda nvcc: "nvcc 12.x")
+    before = _build.lib_path(name, "nvcc")
+    assert before == _build.lib_path(name, "nvcc")
+    with open(tmp_path / header, "a") as fh:
+        fh.write("\n// changed\n")
+    assert _build.lib_path(name, "nvcc") != before
