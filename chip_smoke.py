@@ -49,9 +49,11 @@ prefill and at every decode step, B5 every local layer's decode over a
    against a full 2048-row ring ``[2048, 8, 1, 256]``, and check-only
    at ragged lengths on that ring (0, 1, the first batch's 128–160, the
    edges of 64-row tiles and of the 8 ranks' runs, 2047, 2048); B1
-   check-only at lengths on its 4 ranks' split edges; the two cluster
-   kernels (B1, B5) launched twice on the same inputs give the same bits
-   (their ranks' partials merge in a fixed order);
+   check-only at lengths on its 4 ranks' split edges, B4 on its 8 ranks'
+   run edges; B2 at both ``d_ff`` widths (11008 and 10944: their
+   clusters' last slices differ); the four cluster kernels (B1, B2, B4,
+   B5) launched twice on the same inputs give the same bits (their
+   ranks' and clusters' partials merge in a fixed order);
 4. per attention path, serves a staggered 12-request trace through
    ``SlotScheduler`` and checks that every decode step made exactly
    ``L`` launches of the attention kernel, ``L`` of B2 and one of B3
@@ -87,7 +89,9 @@ prefill and at every decode step, B5 every local layer's decode over a
    phase 4 counted them (``stage`` "prefill": per prefill); B5's rows
    carry ``library_ms``, one ``F.scaled_dot_product_attention`` call
    with a per-slot mask on the same cache (no PyTorch call computes B6's
-   recurrence: its ``library_ms`` is null).
+   recurrence: its ``library_ms`` is null); B2's rows carry
+   ``products_ms``, its three products as ``torch.matmul`` calls of the
+   same shapes (not one call of B2's function: ``library_ms`` null).
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failure raises
 and the script exits nonzero; without a CUDA device it exits nonzero
@@ -347,13 +351,22 @@ def gqa_case(cfg, gen, lens=None):
     return case
 
 
-def mla_case(cfg, gen):
+# B4 at lengths whose live rows, laid end to end (768), cut into the 8
+# ranks' runs of 96 rows at a slot's edge, one row inside a slot, or in
+# the middle of a long slot, with 32-row tiles that stop at slot edges
+B4_EDGE_LENS = [95, 97, 96, 96, 24, 168, 1, 191]
+
+
+def mla_case(cfg, gen, lens=None):
+    """B4 at ``cfg``'s widths; with ``lens`` a check-only case (no path
+    runs those lengths, so it has no phase 6 row)."""
     B, D, S = SLOTS, cfg.d_model, MAX_SEQ
     m = cfg.mla
     nq, nope, rope, lat = (cfg.n_heads, m.nope_head_dim, m.rope_head_dim,
                            m.kv_lora_rank)
     lr, Pq = lat + rope, cfg.n_heads * (nope + rope)
-    lens, pos, live = decode_lens(S)
+    edge = lens is not None
+    lens, pos, live = decode_lens(S, lens)
     cos, sin = rope_at(lens, rope, cfg.rope_theta)
     args = dict(
         x=randn(gen, (B, D), 1.0),
@@ -374,13 +387,17 @@ def mla_case(cfg, gen):
     n_ops = (2 * B * D * (Pq + lr) + 2 * B * nq * nope * lat
              + 2 * live * nq * (lr + lat) + 2 * B * nq * (lr + lat)
              + 2 * B * nq * lat * D)
-    return dict(name="fused_mla_decode", fn=fused_mla_decode_attention,
+    case = dict(name="fused_mla_decode", fn=fused_mla_decode_attention,
                 plain=fused_mla_decode_plain, args=args,
                 kw=dict(q_heads=nq, nope=nope, rope_d=rope, l_rank=lat,
                         norm_eps=cfg.norm_eps),
                 cost=(n_bytes, n_ops),
                 replaces="src/repro/kernels/fused_mla_decode/"
                          "fused_mla_decode.py:180")
+    if edge:
+        case.update(check_only=True,
+                    stage=f"rank-run edge lengths {lens.tolist()}")
+    return case
 
 
 def wkv_case(cfg, gen, S: int):
@@ -533,7 +550,7 @@ def kernel_cases(cfg, backend):
     else:
         attn = (mla_case(cfg, gen) if cfg.mla is not None
                 else gqa_case(cfg, gen))
-        edges = ([] if cfg.mla is not None
+        edges = ([mla_case(cfg, gen, B4_EDGE_LENS)] if cfg.mla is not None
                  else [gqa_case(cfg, gen, B1_EDGE_LENS)])
         ffn = dict(x=randn(gen, (B, D), 1.0), a=randn(gen, (B, D), 1.0),
                    w_in=randn(gen, (D, F), D ** -0.5),
@@ -613,9 +630,9 @@ def check_rglru(case) -> float:
     return max(errs)
 
 
-# the cluster kernels merge their ranks' partials in a fixed order: a
-# second launch on the same inputs gives the same bits
-REPEATABLE = ("fused_decode", "flash_decode")
+# the cluster kernels merge their ranks' (and B2 its clusters') partials
+# in a fixed order: a second launch on the same inputs gives the same bits
+REPEATABLE = ("fused_decode", "flash_decode", "fused_ffn", "fused_mla_decode")
 
 
 def check_kernel(case) -> float:
@@ -906,11 +923,10 @@ def forced_decode(cfg, eng, steps: int = 8):
 # Where a decode step's device time goes (a separate, traced run)
 # ---------------------------------------------------------------------------
 GROUPS = (("fused_decode", ("fused_decode_kernel",)),
-          ("fused_ffn", ("ffn_tile_kernel", "ffn_reduce_kernel")),
+          ("fused_ffn", ("fused_ffn_kernel",)),
           ("fused_head", ("head_tile_kernel", "head_merge_kernel")),
-          ("fused_mla_decode", ("mla_proj_kernel", "mla_qlat_kernel",
-                                "mla_attn_kernel", "mla_merge_kernel",
-                                "mla_out_kernel")),
+          ("fused_mla_decode", ("fused_mla_decode_kernel",
+                                "mla_ckv_kernel")),
           ("rwkv6_scan", ("wkv_scan_kernel",)),
           ("flash_decode", ("flash_cluster_kernel",)),
           ("rglru_scan", ("rglru_scan_kernel",)))
@@ -1061,6 +1077,24 @@ def serve_path(cfg, backend, peers):
     return counts, dict(step_ms=serve["median_step_ms"], forced=forced_toks)
 
 
+def ffn_products(case):
+    """B2's three products as plain ``torch.matmul`` calls on the same
+    weights — ``h·w_in``, ``h·w_gate``, ``hm·w_out`` in bf16 (cuBLAS), the
+    unfused path's way of reading them — for ``products_ms`` beside B2's
+    time.  Not one call computing B2's function, so ``library_ms`` stays
+    null."""
+    a = case["args"]
+    h = a["x"]
+    hm = torch.empty((h.shape[0], a["w_in"].shape[1]), dtype=h.dtype,
+                     device=h.device).normal_()
+
+    def run():
+        torch.matmul(h, a["w_in"])
+        torch.matmul(h, a["w_gate"])
+        torch.matmul(hm, a["w_out"])
+    return run
+
+
 def library_call(case):
     """One PyTorch call computing B5's per-slot function on the same
     inputs, for ``library_ms``: ``F.scaled_dot_product_attention`` with
@@ -1146,6 +1180,9 @@ def main() -> int:
             extra = dict(library="F.scaled_dot_product_attention on the "
                          "cache as permuted views, no copy outside the "
                          "call")
+        if case["name"] == "fused_ffn":
+            extra = dict(products_ms=round(cuda_ms(ffn_products(case),
+                                                   20)[0], 4))
         ms, covered = cuda_ms(lambda: case["fn"](**args, **kw), 20)
         # the plain versions may sync with the host: their time is
         # whatever the device waits, host gaps included

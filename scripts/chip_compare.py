@@ -51,7 +51,8 @@ def summarize(log: str) -> dict:
                 d["idle_share"] = kv.get("idle_share")
         if line.startswith('{"kernels"'):
             kernels = [(r["name"], r["path"], r["stage"], r["ms"],
-                        r["library_ms"]) for r in json.loads(line)["kernels"]]
+                        r["library_ms"], r.get("products_ms"))
+                       for r in json.loads(line)["kernels"]]
     return dict(paths=paths, kernels=kernels)
 
 

@@ -137,7 +137,9 @@ DEVI void flash_merge(const float* part, int R, int W, int begin, int end,
 // Launch `kernel` on `grid` in clusters of `csize` CTAs along x
 // (cudaLaunchKernelEx with cudaLaunchAttributeClusterDimension).  The
 // first launch of a (kernel, shared memory, cluster size) raises the
-// kernel's dynamic shared-memory limit and asks
+// kernel's dynamic shared-memory limit, if it is below, to that size (the
+// limit stays at the largest size launched, so a kernel launched at two
+// sizes in turn stays valid at both) and asks
 // cudaOccupancyMaxActiveClusters whether one cluster fits on the card; a
 // cluster that cannot be scheduled returns cudaErrorInvalidConfiguration
 // instead of launching.  Only power-of-two sizes up to the portable 8.
@@ -164,12 +166,17 @@ cudaError_t launch(void (*kernel)(KArgs...), dim3 grid, int threads,
   static Seen seen[64];
   static int n_seen = 0;
   bool known = false;
-  for (int i = 0; i < n_seen; ++i)
-    known |= seen[i].k == (const void*)kernel && seen[i].smem == smem &&
-             seen[i].csize == csize;
+  size_t limit = 0;               // the kernel's limit as set so far
+  for (int i = 0; i < n_seen; ++i) {
+    if (seen[i].k != (const void*)kernel) continue;
+    known |= seen[i].smem == smem && seen[i].csize == csize;
+    limit = seen[i].smem > limit ? seen[i].smem : limit;
+  }
   if (!known) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    cudaError_t e = cudaSuccess;
+    if (smem > limit)
+      e = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
     int fits = 0;
     e = cudaOccupancyMaxActiveClusters(&fits, kernel, &cfg);

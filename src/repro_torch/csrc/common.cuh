@@ -76,6 +76,15 @@ DEVI void split_bf16(float2 x, uint32_t& hi, uint32_t& lo) {
   lo = *reinterpret_cast<const uint32_t*>(&l);
 }
 
+// ldmatrix of 8x8 bf16 blocks of a row-major [m][k] tile: the A fragments
+// of mma m16n8k16 (lanes 0-15 give rows 0-15 at k 0, 16-31 at k 8).
+DEVI void ldsm_x4(const bf16* p, uint32_t r[4]) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+}
+
 // ldmatrix .trans of 8x8 bf16 blocks of a row-major [k][n] tile: the B
 // fragments (k-pairs) of mma m16n8k16.
 DEVI void ldsm_x4_t(const bf16* p, uint32_t r[4]) {

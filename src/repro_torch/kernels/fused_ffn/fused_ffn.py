@@ -7,13 +7,18 @@ Replaces ``repro/kernels/fused_ffn/fused_ffn.py:fused_ffn_block``
 
 CUDA kernel: ``csrc/fused_ffn.cu``.  What bounds it on an H100: bytes —
 the three FFN matrices (270.5 MB at Llama2-7B) are read once per step
-for all slots, at 2·B FLOPs per weight element.  Design: one block per
-128 columns of d_ff (86 blocks, about one wave on 132 SMs), each
-writing an f32 ``[B, D]`` partial of the down projection to a
-workspace; a second launch from the same source sums the partials in
-tile order — fixed, so token streams do not change from run to run (no
-float atomics) — and adds the residual.  Both launches are one wrapper
-call and one count.
+for all slots, at 2·B FLOPs per weight element.  Design: one launch of
+``G`` thread-block clusters of ``C`` CTAs (:func:`cluster_plan`: 15 of 8
+at Llama2-7B and DeepSeek-V2-Lite).  Cluster ``g`` owns a slice of
+d_ff and each of its ranks ``D/C`` rows of ``w_in``/``w_gate`` (the
+matching columns of ``w_out``); the ranks' ``u``/``g`` partials are
+summed on chip over distributed shared memory in rank order, and the
+down projection goes to an f32 ``[G, B, D]`` workspace.  The last
+cluster to finish a column slice (an arrival counter, reset by the
+kernel itself) sums the ``G`` partials in cluster order and adds the
+residual — a fixed order, so token streams do not change from run to
+run (no float atomics).  Tensor cores (``mma.sync``) do the products;
+the slots are the MMA's n dimension.
 
 Rounding points follow the reference exactly: ``r`` (``fused_ffn.py:75``),
 the norm output (``:66``), ``u``, ``g`` and ``act(g)·u`` (``:84-94``) round
@@ -23,6 +28,7 @@ to the model dtype; accumulation is f32; the output rounds once
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -32,6 +38,45 @@ from repro_torch.kernels import _build
 from repro_torch.models.layers import activation
 
 _MAX_B = 8
+_MAX_CLUSTER = 8      # the portable thread-block cluster size
+_TARGET_CTAS = 120    # CTAs in one wave of clusters of 8 at one CTA an
+                      # SM on an H100 (cudaOccupancyMaxActiveClusters: 15)
+_MAX_ROWS = 512       # d_model rows a rank may hold (csrc MAX_DT · 128)
+_MAX_UNITS = 46       # 16-column units of d_ff a cluster may hold
+_ARRIVALS = {}        # device -> int32 arrival counters (zero between calls)
+
+
+@functools.lru_cache(maxsize=None)
+def cluster_plan(d_model: int, d_ff: int) -> Tuple[int, int]:
+    """``(G, C)``: ``G`` clusters of ``C`` CTAs for the shapes alone.
+    ``C`` is the largest power of two ≤ 8 that leaves each rank a
+    multiple of 16 rows of d_model, at most 512; ``G`` brings the grid to
+    about ``_TARGET_CTAS``, enough that no cluster holds more than 46
+    16-column units of d_ff, and no more than there are units.
+    ``(0, 0)`` where no plan fits (d_ff not a multiple of 16, or d_model
+    not split so)."""
+    if d_ff % 16 or d_ff <= 0:
+        return 0, 0
+    c = _MAX_CLUSTER
+    while c >= 1 and (d_model % (16 * c) or d_model // c > _MAX_ROWS):
+        c //= 2
+    if c < 1:
+        return 0, 0
+    units = d_ff // 16
+    g = max(_TARGET_CTAS // c, -(-units // _MAX_UNITS))
+    return min(g, units), c
+
+
+def _arrivals(device: torch.device) -> torch.Tensor:
+    """The kernel's per-column-slice arrival counters on ``device``:
+    zeroed once here, left at zero by every launch (the last CTA of a
+    slice resets its counter), so no call writes them from the host.
+    Calls that share them run in stream order, as the port's one stream
+    does."""
+    if device not in _ARRIVALS:
+        _ARRIVALS[device] = torch.zeros(_MAX_CLUSTER, dtype=torch.int32,
+                                        device=device)
+    return _ARRIVALS[device]
 
 
 def fused_ffn_block(
@@ -85,34 +130,35 @@ def fused_ffn_plain(x, a, w_in, w_gate, w_out, ln2, *, add_r, act="silu",
     return o.to(x.dtype), r.to(x.dtype)
 
 
-_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 \
+_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 \
     + [ctypes.c_float] * 2 + [ctypes.c_void_p]
 
 
 def fused_ffn_cuda(x, a, w_in, w_gate, w_out, ln2, *, add_r, eps=1e-6):
-    """Launch ``csrc/fused_ffn.cu`` on the current stream."""
+    """Launch ``csrc/fused_ffn.cu`` on the current stream: one launch of
+    ``cluster_plan`` clusters for the whole batch."""
     B, D = x.shape
     F = w_in.shape[1]
-    if (B > _MAX_B or D % 8 or F % 4 or a.shape != x.shape
+    G, C = cluster_plan(D, F)
+    if (B > _MAX_B or not C or a.shape != x.shape
             or w_in.shape != (D, F) or w_gate.shape != (D, F)
             or w_out.shape != (F, D)):
         raise NotImplementedError(
-            f"fused_ffn CUDA kernel: B ≤ {_MAX_B}, D % 8 == 0, F % 4 == 0; "
+            f"fused_ffn CUDA kernel: B ≤ {_MAX_B}, d_ff a multiple of 16, "
+            f"d_model split into multiples of 16 rows, ≤ {_MAX_ROWS} a rank; "
             f"got x {tuple(x.shape)}, w_in {tuple(w_in.shape)}")
     bf = torch.bfloat16
     tensors = dict(x=x, a=a, w_in=w_in, w_gate=w_gate, w_out=w_out, ln2=ln2)
     _build.require("fused_ffn", tensors, dict(
         x=bf, a=bf, w_in=bf, w_gate=bf, w_out=bf, ln2=torch.float32))
     fn = _build.function("fused_ffn", "fused_ffn_launch", _ARGTYPES)
-    # the workspace is sized by the kernel's own tile count
-    tiles = _build.function("fused_ffn", "fused_ffn_tiles", [ctypes.c_int])
-    n_tiles = tiles(F)
-    ws = torch.empty((n_tiles, B, D), dtype=torch.float32, device=x.device)
+    # each cluster's f32 partial of the down projection
+    ws = torch.empty((G, B, D), dtype=torch.float32, device=x.device)
     o = torch.empty_like(x)
     r = torch.empty_like(x)
     err = fn(*(t.data_ptr() for t in tensors.values()), ws.data_ptr(),
-             o.data_ptr(), r.data_ptr(), B, D, F, eps, float(add_r),
-             _build.stream_ptr(x))
+             _arrivals(x.device).data_ptr(), o.data_ptr(), r.data_ptr(), B,
+             D, F, G, C, eps, float(add_r), _build.stream_ptr(x))
     _build.check(err, "fused_ffn")
     tracecount.launch("fused_ffn")
     return o, r

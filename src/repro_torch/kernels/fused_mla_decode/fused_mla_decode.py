@@ -16,8 +16,19 @@ CUDA kernel: ``csrc/fused_mla_decode.cu``.  What bounds it on an H100:
 bytes.  At DeepSeek-V2-Lite widths one layer reads ``wq`` (12.6 MB),
 ``wdkv`` (2.4 MB), ``wuk`` (2.1 MB) and ``wproj`` (33.6 MB, 61 % of the
 layer) plus each slot's live latent rows (1152 bytes a position, shared
-by all 16 heads), at a few FLOPs per byte.  Every weight byte is read
-once per launch for all slots (the JAX path vmaps the kernel per slot).
+by all 16 heads), at a few FLOPs per byte.  Design, the paper's Alg. 4
+on thread-block clusters of 8 CTAs, in two launches: the first computes
+the new latent entry ``c_new`` (``x·wdkv``, RoPE, rounded) once for all
+heads, 9 clusters of 64 columns; the second runs one cluster per head
+(:func:`cluster_plan`).  Its ranks split ``d_model`` for ``x·wq``
+(tensor cores) and sum their partials over distributed shared memory in
+rank order, split the 512 latent columns for ``q_lat``, attend equal
+runs of all slots' live latent rows, merge their ``(m, l, acc)`` over
+distributed shared memory in rank order, and split the output columns
+of ``acc·wproj[h]``.  No f32 workspace; every weight byte is read once
+from HBM per call for all slots (the JAX path vmaps the kernel per
+slot).  The kernel is built for MLA's geometry of DeepSeek-V2/V3:
+``nope`` 128, ``rope`` 64 and a 512-wide latent.
 
 Numerics follow the Pallas kernel: x rounds to the model dtype after the
 norm (``fused_mla_decode.py:69``); q, ``q_lat`` and the rotated
@@ -32,6 +43,7 @@ projected accumulator in f32.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -41,7 +53,21 @@ from repro_torch.core import tracecount
 from repro_torch.kernels import _build
 
 _MAX_B = 8           # slots per launch (the kernel's template range)
-_MAX_Q = 16          # heads the kernel's register tiles hold
+_GEOMETRY = (128, 64, 512)   # (nope, rope, latent) the kernel is built for
+_CLUSTER = 8         # CTAs a head: a rank's q_lat block is a warp's columns
+_MAX_ROWS = 512      # d_model rows a rank may hold (csrc MAX_NTO · 64)
+
+
+@functools.lru_cache(maxsize=None)
+def cluster_plan(q_heads: int, d_model: int) -> Tuple[int, int]:
+    """``(G, C)``: one cluster of ``C = 8`` CTAs per head (``G`` =
+    ``q_heads``), each rank ``d_model / 8`` rows, a multiple of 64 up to
+    512 (DeepSeek-V2-Lite: 16 clusters, 128 CTAs, 256 rows a rank);
+    ``(0, 0)`` where ``d_model`` does not split so."""
+    rows, rem = divmod(d_model, _CLUSTER)
+    if q_heads < 1 or rem or rows % 64 or not 64 <= rows <= _MAX_ROWS:
+        return 0, 0
+    return q_heads, _CLUSTER
 
 
 def _check_mode(fuse_out, norm_scale, pos_base):
@@ -148,30 +174,32 @@ def fused_mla_decode_plain(x, wq, wdkv, wuk, wproj, norm_scale, c_cache, pos,
     return o, c_new, m, l
 
 
-_ARGTYPES = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 7 \
+_ARGTYPES = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 8 \
     + [ctypes.c_float] * 2 + [ctypes.c_void_p]
 
 
 def fused_mla_decode_cuda(x, wq, wdkv, wuk, wproj, norm_scale, c_cache, pos,
                           cache_lens, include_new, cos, sin, *, q_heads,
                           nope, rope_d, l_rank, norm_eps):
-    """Launch ``csrc/fused_mla_decode.cu`` on the current stream (one C
-    entry, five device launches for the whole batch)."""
+    """Launch ``csrc/fused_mla_decode.cu`` on the current stream: one C
+    entry, two device launches (``c_new``, then one cluster per head as
+    ``cluster_plan`` says) for the whole batch."""
     B, D = x.shape
     S, slots, lr = c_cache.shape
     nq = q_heads
-    if (B > _MAX_B or slots != B or nq > _MAX_Q or nq % 4
-            or lr != l_rank + rope_d or lr % 8 or l_rank % 8 or nope % 4
-            or rope_d % 2 or D % 8
+    _, C = cluster_plan(nq, D)
+    if (B > _MAX_B or slots != B or not C
+            or (nope, rope_d, l_rank) != _GEOMETRY or lr != l_rank + rope_d
             or wq.shape != (D, nq * (nope + rope_d))
             or wdkv.shape != (D, lr) or wuk.shape != (nq, nope, l_rank)
             or wproj.shape != (nq, l_rank, D) or pos.shape != (S, B)
             or cos.shape != (B, rope_d // 2)):
         raise NotImplementedError(
-            f"fused_mla_decode CUDA kernel: B ≤ {_MAX_B}, heads a multiple "
-            f"of 4 up to {_MAX_Q}, l and l + rope multiples of 8; got x "
-            f"{tuple(x.shape)}, cache {tuple(c_cache.shape)}, wq "
-            f"{tuple(wq.shape)}, wuk {tuple(wuk.shape)}")
+            f"fused_mla_decode CUDA kernel: B ≤ {_MAX_B}, (nope, rope, "
+            f"latent) = {_GEOMETRY}, d_model / {_CLUSTER} a multiple of 64 "
+            f"up to {_MAX_ROWS}; got x {tuple(x.shape)}, cache "
+            f"{tuple(c_cache.shape)}, wq {tuple(wq.shape)}, wuk "
+            f"{tuple(wuk.shape)}")
     bf, f32, i32 = torch.bfloat16, torch.float32, torch.int32
     tensors = dict(x=x, wq=wq, wdkv=wdkv, wuk=wuk, wproj=wproj,
                    ln1=norm_scale, c_cache=c_cache, pos=pos,
@@ -182,20 +210,13 @@ def fused_mla_decode_cuda(x, wq, wdkv, wuk, wproj, norm_scale, c_cache, pos,
         pos=i32, cache_lens=i32, include_new=i32, cos=f32, sin=f32))
     fn = _build.function("fused_mla_decode", "fused_mla_decode_launch",
                          _ARGTYPES)
-    # f32 scratch for the stages (sized by the kernel's own chunking)
-    ws_floats = _build.function(
-        "fused_mla_decode", "fused_mla_decode_workspace",
-        [ctypes.c_int] * 6)
-    ws = torch.empty((ws_floats(B, S, nq, nope, rope_d, l_rank),),
-                     dtype=f32, device=x.device)
     o = torch.empty((B, nq, D), dtype=f32, device=x.device)
     c_new = torch.empty((B, lr), dtype=bf, device=x.device)
     m = torch.empty((B, nq), dtype=f32, device=x.device)
     l = torch.empty_like(m)
-    err = fn(*(t.data_ptr() for t in tensors.values()), ws.data_ptr(),
-             o.data_ptr(), c_new.data_ptr(), m.data_ptr(), l.data_ptr(),
-             B, D, S, nq, nope, rope_d, l_rank,
-             1.0 / math.sqrt(nope + rope_d), norm_eps,
+    err = fn(*(t.data_ptr() for t in tensors.values()), o.data_ptr(),
+             c_new.data_ptr(), m.data_ptr(), l.data_ptr(), B, D, S, nq, nope,
+             rope_d, l_rank, C, 1.0 / math.sqrt(nope + rope_d), norm_eps,
              _build.stream_ptr(x))
     _build.check(err, "fused_mla_decode")
     tracecount.launch("fused_mla_decode")

@@ -598,16 +598,13 @@ def _cuda_calls():
             z(1, dt=i32), z(1, hd // 2, dt=torch.float32),
             z(1, hd // 2, dt=torch.float32), q_heads=1, kv_heads=1),
         "fused_ffn": lambda c: b2.fused_ffn_block(
-            c(z(1, 8)), z(1, 8), z(8, 4), z(8, 4), z(4, 8),
-            z(8, dt=torch.float32)),
+            c(z(1, 16)), z(1, 16), z(16, 16), z(16, 16), z(16, 16),
+            z(16, dt=torch.float32)),
         "fused_head": lambda c: b3.fused_head_block(
             c(z(1, 8)), z(4, 8), z(8, dt=torch.float32)),
-        "fused_mla_decode": lambda c: b4.fused_mla_decode_attention(
-            c(z(1, 16)), z(16, 4 * 24), z(16, 40), z(4, 16, 32),
-            z(4, 32, 16), z(16, dt=torch.float32), z(S, 1, 40),
-            z(S, 1, dt=i32), z(1, dt=i32), z(1, dt=i32),
-            z(1, 4, dt=torch.float32), z(1, 4, dt=torch.float32),
-            q_heads=4, nope=16, rope_d=8, l_rank=32),
+        # MLA's geometry (nope 128, rope 64, latent 512), one head
+        "fused_mla_decode": lambda c: _mla_call(
+            b4.fused_mla_decode_attention, c, 1, 512, S, 1)[1],
         "flash_decode": lambda c: b5.flash_decode_attention(
             c(z(2, 4, 64)), z(S, 2, 2, 64), z(S, 2, 2, 64),
             z(2, dt=i32)),
@@ -616,6 +613,20 @@ def _cuda_calls():
                 z(1, 2, 1, 64, dt=torch.float32) for _ in range(3)),
             z(1, 64, dt=torch.float32), z(1, 1, 64, 64, dt=torch.float32)),
     }
+
+
+def _mla_call(fn, c, B, D, S, heads, nope=128, rope=64, lat=512):
+    """``fn`` (a B4 entry) on zeros of ``B`` slots, ``d_model`` ``D``, a
+    cache of ``S`` rows and ``heads`` heads, ``x`` passed through ``c``;
+    returns the arguments and the result."""
+    bf, f32, i32 = torch.bfloat16, torch.float32, torch.int32
+    z = lambda *s, dt=bf: torch.zeros(s, dtype=dt)
+    args = (c(z(B, D)), z(D, heads * (nope + rope)), z(D, lat + rope),
+            z(heads, nope, lat), z(heads, lat, D), z(D, dt=f32),
+            z(S, B, lat + rope), z(S, B, dt=i32), z(B, dt=i32), z(B, dt=i32),
+            z(B, rope // 2, dt=f32), z(B, rope // 2, dt=f32))
+    return args, fn(*args, q_heads=heads, nope=nope, rope_d=rope,
+                    l_rank=lat, norm_eps=1e-6)
 
 
 KERNEL_NAMES = ["fused_decode", "fused_ffn", "fused_head", "fused_mla_decode",
@@ -719,9 +730,94 @@ def test_fused_decode_wrapper_cluster_size(monkeypatch, heads, D, C):
     assert args[16:23] == (B, D, S, heads, heads, hd, C)
 
 
+def _record_empty(monkeypatch):
+    """Record the shape and dtype of every ``torch.empty`` a wrapper
+    makes (its outputs and any workspace)."""
+    made = []
+    real = torch.empty
+
+    def empty(*shape, **kw):
+        t = real(*shape, **kw)
+        made.append((tuple(t.shape), t.dtype))
+        return t
+
+    monkeypatch.setattr(torch, "empty", empty)
+    return made
+
+
+@pytest.mark.parametrize("D,F,plan", [(4096, 11008, (15, 8)),   # Llama2-7B
+                                      (2048, 10944, (15, 8)),   # DeepSeek
+                                      (64, 96, (6, 4)),
+                                      (256, 1024, (15, 8))])
+def test_fused_ffn_wrapper_one_launch_with_cluster_workspace(
+        monkeypatch, D, F, plan):
+    """B2's plan follows (d_model, d_ff) alone: 15 clusters of 8 at both
+    paths' widths (no weights allocated there).  At a small width the
+    wrapper makes one library call with the ten pointers (x, a, w_in,
+    w_gate, w_out, ln2, the f32 ``[G, B, D]`` cluster partials, the
+    arrival counters, o, r) and that plan, and allocates no other
+    workspace: no per-tile ``[n_tiles, B, D]`` partials."""
+    assert b2.cluster_plan(D, F) == plan
+    if D > 256:
+        return                              # no 270 MB weights here
+    calls = _record_launch(monkeypatch)
+    made = _record_empty(monkeypatch)
+    bf = torch.bfloat16
+    B = 3
+    x, a = torch.zeros(B, D, dtype=bf), torch.zeros(B, D, dtype=bf)
+    w_in, w_gate = torch.zeros(D, F, dtype=bf), torch.zeros(D, F, dtype=bf)
+    w_out, ln2 = torch.zeros(F, D, dtype=bf), torch.zeros(D)
+    o, r = b2.fused_ffn_cuda(x, a, w_in, w_gate, w_out, ln2, add_r=1.0)
+    (args,) = calls
+    G, C = plan
+    ptrs, ints = args[:10], args[10:15]
+    assert ptrs[:6] == tuple(t.data_ptr() for t in (x, a, w_in, w_gate,
+                                                    w_out, ln2))
+    assert ptrs[7] == b2._arrivals(x.device).data_ptr()
+    assert ptrs[8:] == (o.data_ptr(), r.data_ptr())
+    assert ints == (B, D, F, G, C)
+    assert made == [((G, B, D), torch.float32)]    # o, r: empty_like
+    arrivals = b2._arrivals(x.device)
+    assert arrivals.dtype == torch.int32 and arrivals.numel() >= C
+    assert not arrivals.any()               # the kernel leaves them at 0
+
+
+@pytest.mark.parametrize("heads,D,plan", [(16, 2048, (16, 8)),  # DeepSeek
+                                          (2, 512, (2, 8)),
+                                          (1, 4096, (1, 8))])
+def test_fused_mla_decode_wrapper_one_launch_no_workspace(
+        monkeypatch, heads, D, plan):
+    """B4's plan follows the heads and d_model alone: a cluster of 8 CTAs
+    per head (DeepSeek-V2-Lite: 16 clusters, no weights allocated
+    there).  At a small width the wrapper makes one library call with
+    its twelve inputs and four outputs (o, c_new, m, l) and no f32
+    workspace: it allocates the outputs alone.  The library's two device
+    launches (c_new, then the head clusters) hand c_new over in the
+    output itself; the five launches' f32 stage workspace is gone."""
+    assert b4.cluster_plan(heads, D) == plan
+    if D > 512:
+        return
+    calls = _record_launch(monkeypatch)
+    made = _record_empty(monkeypatch)
+    B, S = 3, 8
+    args, (o, c_new, m, l) = _mla_call(b4.fused_mla_decode_cuda,
+                                       lambda t: t, B, D, S, heads)
+    (rec,) = calls
+    assert rec[:12] == tuple(t.data_ptr() for t in args)
+    assert rec[12:16] == tuple(t.data_ptr() for t in (o, c_new, m, l))
+    assert rec[16:24] == (B, D, S, heads, 128, 64, 512, plan[1])
+    f32 = torch.float32
+    # o, c_new, m (l: empty_like of m)
+    assert made == [((B, heads, D), f32), ((B, 576), torch.bfloat16),
+                    ((B, heads), f32)]
+
+
 def test_cluster_kernels_refuse_unported_shapes(monkeypatch):
     """GQA, and a d_model no cluster size splits into 64-row multiples,
-    raise before the library is reached."""
+    raise before the library is reached; so do B2 shapes its plan cannot
+    split (d_ff not a multiple of 16, d_model not a multiple of 16 or
+    over 512 rows a rank) and B4 shapes outside MLA's geometry or with a
+    d_model whose eighth is not a multiple of 64 up to 512."""
     def no_library(*_a, **_k):
         raise AssertionError("an unsupported input reached the library")
 
@@ -740,9 +836,22 @@ def test_cluster_kernels_refuse_unported_shapes(monkeypatch):
                 torch.zeros(B, dtype=i32), torch.zeros(B, hd // 2, dtype=f32),
                 torch.zeros(B, hd // 2, dtype=f32), q_heads=heads,
                 kv_heads=kv, scale=hd ** -0.5, norm_eps=1e-6)
+    for D, F in ((64, 100), (8, 16), (5120, 13824)):
+        assert b2.cluster_plan(D, F) == (0, 0)
+        z = lambda *s: torch.zeros(s, dtype=bf)
+        with pytest.raises(NotImplementedError, match="fused_ffn"):
+            b2.fused_ffn_cuda(z(1, D), z(1, D), z(D, F), z(D, F), z(F, D),
+                              torch.zeros(D, dtype=f32), add_r=1.0)
+    for D, geometry in ((512, dict(nope=64)), (512, dict(lat=256)),
+                        (256, {}), (4608, {})):
+        with pytest.raises(NotImplementedError, match="fused_mla_decode"):
+            _mla_call(b4.fused_mla_decode_cuda, lambda t: t, 1, D, 4, 1,
+                      **geometry)
+    assert b4.cluster_plan(1, 256) == b4.cluster_plan(1, 4608) == (0, 0)
 
 
-@pytest.mark.parametrize("name", ["flash_decode", "fused_decode"])
+@pytest.mark.parametrize("name", ["flash_decode", "fused_decode",
+                                  "fused_ffn", "fused_mla_decode"])
 @pytest.mark.parametrize("header", ["cluster.cuh", "common.cuh"])
 def test_lib_path_hashes_every_header(name, header, monkeypatch, tmp_path):
     """A changed header names another library, so a stale one built from
