@@ -34,8 +34,11 @@ prefill and at every decode step, B5 every local layer's decode over a
    relative to each (slot, head)'s largest element to ``WKV_REL_TOL``,
    at the prefill shape ``[8, 512, 40, 64]`` from a zero and a random
    ``s0`` and at the decode shape ``[8, 1, 40, 64]``, the state updated
-   in place as the engine does; head candidates to exact indices and
-   values within 4 f32 ulps; B5 per slot at the unfused path's shape
+   in place as the engine does, and check-only at ``S`` = 130 and 17
+   (the last chunk of its ring partial); head candidates to exact
+   indices and values within 4 f32 ulps, and check-only at a ragged
+   vocabulary of 32011 rows at Llama2-7B's width, where slot 1's eight
+   best rows lie in one CTA's run; B5 per slot at the unfused path's shape
    (``q [8, 32, 128]``, cache ``[1024, 8, 32, 128]``, the lengths above
    clamped to 0) and at a GQA shape with a window and a softcap, bf16
    to 2e-2 with the length-0 slots exactly zero, and check-only on its
@@ -51,9 +54,10 @@ prefill and at every decode step, B5 every local layer's decode over a
    edges of 64-row tiles and of the 8 ranks' runs, 2047, 2048); B1
    check-only at lengths on its 4 ranks' split edges, B4 on its 8 ranks'
    run edges; B2 at both ``d_ff`` widths (11008 and 10944: their
-   clusters' last slices differ); the four cluster kernels (B1, B2, B4,
-   B5) launched twice on the same inputs give the same bits (their
-   ranks' and clusters' partials merge in a fixed order);
+   clusters' last slices differ); the cluster kernels (B1, B2, B3, B4,
+   B5) and B7 launched twice on the same inputs give the same bits (their
+   ranks' and clusters' partials merge in a fixed order; B3's merges
+   select without arithmetic);
 4. per attention path, serves a staggered 12-request trace through
    ``SlotScheduler`` and checks that every decode step made exactly
    ``L`` launches of the attention kernel, ``L`` of B2 and one of B3
@@ -91,7 +95,11 @@ prefill and at every decode step, B5 every local layer's decode over a
    with a per-slot mask on the same cache (no PyTorch call computes B6's
    recurrence: its ``library_ms`` is null); B2's rows carry
    ``products_ms``, its three products as ``torch.matmul`` calls of the
-   same shapes (not one call of B2's function: ``library_ms`` null).
+   same shapes (not one call of B2's function: ``library_ms`` null);
+   B3's rows carry ``products_ms``, one ``torch.matmul(h, table.T)`` in
+   bf16 on the same table — a yardstick of the rate at which the table
+   can be read, not B3's function (no norm, no f32 logits, no top-k:
+   ``library_ms`` null).
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failure raises
 and the script exits nonzero; without a CUDA device it exits nonzero
@@ -400,11 +408,12 @@ def mla_case(cfg, gen, lens=None):
     return case
 
 
-def wkv_case(cfg, gen, S: int):
+def wkv_case(cfg, gen, S: int, check_only: bool = False):
     """B7 at ``[SLOTS, S, H, hd]`` with the model path's scales: r, k, v
     the projections of a normed row (≈ N(0, 1)), w the decay
     exp(−exp(−0.5 + δ)), u ≈ 0.1, and a random ``s0`` (a state after a
-    prompt) beside the zero one prefill starts from."""
+    prompt) beside the zero one prefill starts from; ``check_only`` at a
+    length no path runs (no phase 6 row)."""
     B, H, hd = SLOTS, cfg.d_model // cfg.rwkv_head_dim, cfg.rwkv_head_dim
     f32 = torch.float32
     shape = (B, S, H, hd)
@@ -418,11 +427,18 @@ def wkv_case(cfg, gen, S: int):
         s0s.insert(0, torch.zeros_like(args["s0"]))
     n_bytes = 5 * B * S * H * hd * 4 + H * hd * 4 + 2 * B * H * hd * hd * 4
     n_ops = 6 * B * S * H * hd * hd
-    return dict(name="rwkv6_scan", fn=rwkv6_scan, plain=rwkv6_scan_plain,
+    case = dict(name="rwkv6_scan", fn=rwkv6_scan, plain=rwkv6_scan_plain,
                 args=args, kw={}, s0s=s0s, rate=F32_FLOPS,
                 stage="prefill" if S > 1 else "decode",
                 cost=(n_bytes, n_ops),
                 replaces="src/repro/kernels/rwkv6_scan/rwkv6_scan.py:58")
+    if check_only:
+        case.update(check_only=True, stage=f"prefill S {S}")
+    return case
+
+
+# B7 at lengths whose last 8-step chunk of its ring is partial
+WKV_EDGE_LENS = (130, 17)
 
 
 def rglru_case(cfg, gen, S: int):
@@ -546,12 +562,14 @@ def kernel_cases(cfg, backend):
     elif cfg.block_pattern == (RWKV6,):
         cases = [wkv_case(cfg, gen, LOCKSTEP[cfg.name][1][-1][0]),
                  wkv_case(cfg, gen, 1),
-                 head_case(cfg, gen)]
+                 head_case(cfg, gen)] + [
+            wkv_case(cfg, gen, S, check_only=True) for S in WKV_EDGE_LENS]
     else:
         attn = (mla_case(cfg, gen) if cfg.mla is not None
                 else gqa_case(cfg, gen))
         edges = ([mla_case(cfg, gen, B4_EDGE_LENS)] if cfg.mla is not None
-                 else [gqa_case(cfg, gen, B1_EDGE_LENS)])
+                 else [gqa_case(cfg, gen, B1_EDGE_LENS),
+                       head_case(cfg, gen, RAGGED_VOCAB)])
         ffn = dict(x=randn(gen, (B, D), 1.0), a=randn(gen, (B, D), 1.0),
                    w_in=randn(gen, (D, F), D ** -0.5),
                    w_gate=randn(gen, (D, F), D ** -0.5),
@@ -572,23 +590,38 @@ def kernel_cases(cfg, backend):
     return cases
 
 
-def head_case(cfg, gen):
-    """B3 at ``cfg``'s width and vocabulary."""
-    B, D, V = SLOTS, cfg.d_model, cfg.vocab_size
+# B3 at a vocabulary that is no multiple of 16 rows (a ragged last unit)
+RAGGED_VOCAB = 32011
+
+
+def head_case(cfg, gen, vocab=None):
+    """B3 at ``cfg``'s width and vocabulary; with ``vocab`` a check-only
+    case at that vocabulary, where slot 1's eight best rows (5000–5007)
+    all lie in one CTA's run (``fused_head.cluster_plan``: a run is
+    ≈ 267 rows), so seven of that CTA's neighbours and the other clusters
+    bring no candidate of slot 1 to the merges."""
+    B, D, V = SLOTS, cfg.d_model, vocab or cfg.vocab_size
     table = randn(gen, (V, D), D ** -0.5)
     x_head = randn(gen, (B, D), 1.0)
     # a tie across the first and the last vocab tile, at the top of
     # slot 0's candidates: the lower index must come first
     table[100] = torch.sign(x_head[0]).to(torch.bfloat16) * 0.05
     table[V - 1] = table[100]
+    if vocab:
+        for i in range(8):
+            table[5000 + i] = (torch.sign(x_head[1]) * (0.04 - 0.002 * i)
+                               ).to(torch.bfloat16)
     head = dict(x=x_head, table=table,
                 ln=torch.zeros((D,), dtype=torch.float32, device="cuda"))
     head_bytes = B * D * 2 + V * D * 2 + D * 4 + B * 8 * 8
     head_ops = 2 * B * D * V
-    return dict(name="fused_head", fn=fused_head_block, plain=fused_head_plain,
+    case = dict(name="fused_head", fn=fused_head_block, plain=fused_head_plain,
                 args=head, kw=dict(eps=cfg.norm_eps, k=8),
                 cost=(head_bytes, head_ops),
                 replaces="src/repro/kernels/fused_head/fused_head.py:97")
+    if vocab:
+        case.update(check_only=True, stage=f"vocab {V}")
+    return case
 
 
 def check_wkv(case) -> float:
@@ -600,10 +633,15 @@ def check_wkv(case) -> float:
         args = dict(case["args"], s0=s0)
         state = s0.clone()
         o, s_fin = case["fn"](**dict(args, s0=state), s_out=state)
+        again = s0.clone()
+        o2, _ = case["fn"](**dict(args, s0=again), s_out=again)
         want_o, want_s = case["plain"](*args.values())
         torch.cuda.synchronize()
         if s_fin.data_ptr() != state.data_ptr():
             raise AssertionError("rwkv6_scan: s_fin not written in place")
+        if not (torch.equal(o, o2) and torch.equal(state, again)):
+            raise AssertionError("rwkv6_scan: a second launch on the same "
+                                 "inputs gave other bits")
         errs.append(close_rel("rwkv6_scan[o]", o.transpose(1, 2),
                               want_o.transpose(1, 2), WKV_REL_TOL, lead=2))
         close_rel("rwkv6_scan[s_fin]", s_fin, want_s, WKV_REL_TOL, lead=2)
@@ -631,8 +669,11 @@ def check_rglru(case) -> float:
 
 
 # the cluster kernels merge their ranks' (and B2 its clusters') partials
-# in a fixed order: a second launch on the same inputs gives the same bits
-REPEATABLE = ("fused_decode", "flash_decode", "fused_ffn", "fused_mla_decode")
+# in a fixed order, B3 selects without arithmetic and B7 sums in a fixed
+# order: a second launch on the same inputs gives the same bits (B7's
+# check runs in check_wkv, from a fresh copy of the state)
+REPEATABLE = ("fused_decode", "flash_decode", "fused_ffn", "fused_mla_decode",
+              "fused_head", "rwkv6_scan")
 
 
 def check_kernel(case) -> float:
@@ -924,10 +965,10 @@ def forced_decode(cfg, eng, steps: int = 8):
 # ---------------------------------------------------------------------------
 GROUPS = (("fused_decode", ("fused_decode_kernel",)),
           ("fused_ffn", ("fused_ffn_kernel",)),
-          ("fused_head", ("head_tile_kernel", "head_merge_kernel")),
+          ("fused_head", ("fused_head_kernel",)),
           ("fused_mla_decode", ("fused_mla_decode_kernel",
                                 "mla_ckv_kernel")),
-          ("rwkv6_scan", ("wkv_scan_kernel",)),
+          ("rwkv6_scan", ("wkv_scan_kernel", "wkv_step_kernel")),
           ("flash_decode", ("flash_cluster_kernel",)),
           ("rglru_scan", ("rglru_scan_kernel",)))
 MATMUL_NAMES = ("gemm", "gemv", "nvjet", "splitk", "cutlass", "xmma", "cublas")
@@ -1095,6 +1136,16 @@ def ffn_products(case):
     return run
 
 
+def head_products(case):
+    """B3's logits as one plain ``torch.matmul(h, table.T)`` in bf16
+    (cuBLAS) on the same table — a yardstick of the rate at which the
+    table can be read, for ``products_ms`` beside B3's time.  Not B3's
+    function (no norm, no f32 logits, no top-k), so ``library_ms`` stays
+    null."""
+    h, table = case["args"]["x"], case["args"]["table"]
+    return lambda: torch.matmul(h, table.T)
+
+
 def library_call(case):
     """One PyTorch call computing B5's per-slot function on the same
     inputs, for ``library_ms``: ``F.scaled_dot_product_attention`` with
@@ -1180,9 +1231,10 @@ def main() -> int:
             extra = dict(library="F.scaled_dot_product_attention on the "
                          "cache as permuted views, no copy outside the "
                          "call")
-        if case["name"] == "fused_ffn":
-            extra = dict(products_ms=round(cuda_ms(ffn_products(case),
-                                                   20)[0], 4))
+        if case["name"] in ("fused_ffn", "fused_head"):
+            products = (ffn_products if case["name"] == "fused_ffn"
+                        else head_products)(case)
+            extra = dict(products_ms=round(cuda_ms(products, 20)[0], 4))
         ms, covered = cuda_ms(lambda: case["fn"](**args, **kw), 20)
         # the plain versions may sync with the host: their time is
         # whatever the device waits, host gaps included

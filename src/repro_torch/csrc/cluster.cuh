@@ -1,6 +1,9 @@
 // The paper's cluster-level collectives (Alg. 1 and 2) over distributed
 // shared memory, for the kernels that run one thread-block cluster per
-// unit of work, and the launch that sizes the cluster.
+// unit of work, and the launch that sizes the cluster: ClusterReduce
+// with the sum, the flash-merge and (B3's) the top-k operator,
+// ClusterGather, and the last-arrival merge of several clusters'
+// partials (B2, B3).
 //
 // Every primitive is called by every thread of every CTA of the cluster,
 // on a buffer at the same shared-memory offset in each CTA.  It starts
@@ -134,6 +137,62 @@ DEVI void flash_merge(const float* part, int R, int W, int begin, int end,
   else cl.sync();
 }
 
+// ClusterReduce with the top-k operator (repro/kernels/fused_head/
+// topk.py:52 topk_pair_merge): each rank holds, per slot s in
+// [0, n_slots), a sorted list of K (value, index) candidates at
+// pv[s·stride], pi[s·stride]; the C ranks' lists of slot s are merged by
+// rank s % C, one warp a slot, into the K best under (value descending,
+// ties to the lowest index), which out(s, v, i) receives as two pointers
+// and warp_topk_write fills (lane 0 writes).  The operator selects and
+// does no arithmetic, so the result is the same in any merge order; ranks
+// are read in rank order all the same.  Indices must be unique across
+// ranks (they are vocabulary rows of disjoint runs).
+template <typename Out>
+DEVI void topk(const float* pv, const int* pi, int n_slots, int K,
+               int stride, Out out) {
+  cg::cluster_group cl = cg::this_cluster();
+  const int C = (int)cl.num_blocks(), me = (int)cl.block_rank();
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = (int)blockDim.x >> 5;
+  cl.sync();
+  for (int s = me + C * warp; s < n_slots; s += C * nw) {
+    LaneTopK t;
+    t.init();
+    for (int j = lane; j < C * K; j += 32) {
+      const int c = j / K, k = j % K;
+      const float* rv = cl.map_shared_rank(const_cast<float*>(pv), c);
+      const int* ri = cl.map_shared_rank(const_cast<int*>(pi), c);
+      t.insert(rv[s * stride + k], ri[s * stride + k]);
+    }
+    float* ov;
+    int* oi;
+    out(s, ov, oi);
+    warp_topk_write(t, K, ov, oi);
+  }
+  cl.sync();
+}
+
+// Across clusters: the last of G clusters to arrive at `counter` (an int
+// in global memory, 0 between launches) runs merge(), which reads every
+// cluster's partials from global memory (with __ldcg), and resets the
+// counter to 0 for the next launch.  Every thread of the CTA calls it
+// after writing its share of the partials; `flag` is an int in this
+// CTA's shared memory.  A __threadfence before the count releases this
+// CTA's partials, one after it (in the last CTA) acquires the others'.
+// No float atomics: merge() combines the partials in whatever fixed
+// order it chooses.
+template <typename Merge>
+DEVI void last_arrival(int* counter, int G, int* flag, Merge merge) {
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) *flag = atomicAdd(counter, 1) == G - 1;
+  __syncthreads();
+  if (!*flag) return;
+  __threadfence();
+  merge();
+  if (threadIdx.x == 0) *counter = 0;
+}
+
 // Launch `kernel` on `grid` in clusters of `csize` CTAs along x
 // (cudaLaunchKernelEx with cudaLaunchAttributeClusterDimension).  The
 // first launch of a (kernel, shared memory, cluster size) raises the
@@ -211,4 +270,36 @@ DEVI void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 template <int N>
 DEVI void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// TMA copies global → shared, completing on an mbarrier in the same CTA:
+// one thread arms the barrier with the bytes a phase brings
+// (mbar_expect_tx, which is also its one arrival) and issues the copies,
+// and every reader waits for the phase's parity.
+DEVI unsigned smem_u32(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+DEVI void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(count) : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+DEVI void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+DEVI void mbar_wait(uint64_t* bar, int parity) {
+  asm volatile(
+      "{\n.reg .pred P1;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@!P1 bra WAIT;\n}\n" ::"r"(smem_u32(bar)), "r"(parity) : "memory");
+}
+// The box of a 2-D tensor map (a __grid_constant__ kernel parameter) at
+// coordinates (c0 inner, c1 outer) into shared memory (128-byte
+// aligned), completing on the mbarrier.
+DEVI void tma_2d(void* dst, const void* tmap, int c0, int c1, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
+      "l"(tmap), "r"(c0), "r"(c1), "r"(smem_u32(bar)) : "memory");
 }

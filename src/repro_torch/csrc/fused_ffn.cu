@@ -32,7 +32,7 @@
 //      partial of the down projection, each rank its own columns, with no
 //      further reduction on chip;
 //   5. writes that partial to ws[g] (f32 [G, B, D]) and bumps the arrival
-//      counter of its column slice after a __threadfence; the LAST of the
+//      counter of its column slice (cluster::last_arrival); the LAST of the
 //      G clusters to arrive at a slice sums the G partials in cluster
 //      order 0..G−1 (sixteen loads of a column group in flight), adds
 //      add_r·r, rounds once, writes o and r there, and resets the counter
@@ -343,50 +343,45 @@ fused_ffn_kernel(const bf16* __restrict__ x, const bf16* __restrict__ a,
     *reinterpret_cast<float4*>(ws + ((size_t)g * B + b) * D + d0 + c) =
         *reinterpret_cast<const float4*>(stage_o + b * srow + c);
   }
-  // release: this CTA's partial is visible before its arrival counts
-  __threadfence();
-  __syncthreads();
-  if (tid == 0) *last = atomicAdd(arrivals + rank, 1) == G - 1;
-  __syncthreads();
-  if (!*last) return;
-  // acquire: every cluster's partial of these columns is visible
-  __threadfence();
-  // sixteen partials of a column group in flight at once (the index
-  // clamped, the sum predicated), summed in cluster order
-  constexpr int KB = 16;
-  for (int i = tid; i < B * q4; i += NT) {
-    const int b = i / q4, c = d0 + (i % q4) * 4;
-    float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
-    for (int k0 = 0; k0 < G; k0 += KB) {
-      float4 v[KB];
+  // the last cluster to arrive at this column slice's counter sums the
+  // G clusters' partials of its columns
+  cluster::last_arrival(arrivals + rank, G, last, [&] {
+    // sixteen partials of a column group in flight at once (the index
+    // clamped, the sum predicated), summed in cluster order
+    constexpr int KB = 16;
+    for (int i = tid; i < B * q4; i += NT) {
+      const int b = i / q4, c = d0 + (i % q4) * 4;
+      float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int k0 = 0; k0 < G; k0 += KB) {
+        float4 v[KB];
 #pragma unroll
-      for (int u = 0; u < KB; ++u)
-        v[u] = __ldcg(reinterpret_cast<const float4*>(
-            ws + ((size_t)min(k0 + u, G - 1) * B + b) * D + c));
+        for (int u = 0; u < KB; ++u)
+          v[u] = __ldcg(reinterpret_cast<const float4*>(
+              ws + ((size_t)min(k0 + u, G - 1) * B + b) * D + c));
 #pragma unroll
-      for (int u = 0; u < KB; ++u) {
-        if (k0 + u < G) {
-          s.x += v[u].x; s.y += v[u].y; s.z += v[u].z; s.w += v[u].w;
+        for (int u = 0; u < KB; ++u) {
+          if (k0 + u < G) {
+            s.x += v[u].x; s.y += v[u].y; s.z += v[u].z; s.w += v[u].w;
+          }
         }
       }
-    }
-    float xv[4], av[4];
-    load_bf16x4(x + (size_t)b * D + c, xv);
-    load_bf16x4(a + (size_t)b * D + c, av);
-    const float sv[4] = {s.x, s.y, s.z, s.w};
-    __align__(8) bf16 o4[4], r4[4];
+      float xv[4], av[4];
+      load_bf16x4(x + (size_t)b * D + c, xv);
+      load_bf16x4(a + (size_t)b * D + c, av);
+      const float sv[4] = {s.x, s.y, s.z, s.w};
+      __align__(8) bf16 o4[4], r4[4];
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const float rv = round_bf(xv[k] + av[k]);
-      o4[k] = f2bf(sv[k] + rv * add_r);
-      r4[k] = f2bf(rv);
+      for (int k = 0; k < 4; ++k) {
+        const float rv = round_bf(xv[k] + av[k]);
+        o4[k] = f2bf(sv[k] + rv * add_r);
+        r4[k] = f2bf(rv);
+      }
+      *reinterpret_cast<uint2*>(o + (size_t)b * D + c) =
+          *reinterpret_cast<const uint2*>(o4);
+      *reinterpret_cast<uint2*>(r_out + (size_t)b * D + c) =
+          *reinterpret_cast<const uint2*>(r4);
     }
-    *reinterpret_cast<uint2*>(o + (size_t)b * D + c) =
-        *reinterpret_cast<const uint2*>(o4);
-    *reinterpret_cast<uint2*>(r_out + (size_t)b * D + c) =
-        *reinterpret_cast<const uint2*>(r4);
-  }
-  if (tid == 0) arrivals[rank] = 0;     // ready for the next call
+  });
 }
 
 // What the kernel takes (the wrapper's cluster_plan keeps to it): D / C

@@ -29,7 +29,12 @@ SOURCES = ("fused_decode", "fused_ffn", "fused_head", "fused_mla_decode",
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+MAX_CLUSTER = 8       # the portable thread-block cluster size
+WAVE_CTAS = 120       # CTAs in one wave of clusters of 8 at one CTA an SM
+                      # on an H100 (cudaOccupancyMaxActiveClusters: 15)
+
 _libs: Dict[str, ctypes.CDLL] = {}
+_arrivals: Dict[tuple, torch.Tensor] = {}
 _fns: Dict[tuple, ctypes._CFuncPtr] = {}
 _lock = threading.Lock()
 
@@ -108,6 +113,19 @@ def function(name: str, symbol: str, argtypes: Sequence) -> ctypes._CFuncPtr:
             fn.restype = ctypes.c_int
             _fns[key] = fn
         return _fns[key]
+
+
+def arrival_counters(kernel: str, device: torch.device) -> torch.Tensor:
+    """``MAX_CLUSTER`` int32 arrival counters of ``kernel`` on ``device``
+    (``cluster::last_arrival`` in ``csrc/cluster.cuh``): zeroed once
+    here, left at zero by every launch (the last cluster to arrive resets
+    each), so no call writes them from the host.  Calls that share them
+    run in stream order, as the port's one stream does."""
+    key = (kernel, device)
+    if key not in _arrivals:
+        _arrivals[key] = torch.zeros(MAX_CLUSTER, dtype=torch.int32,
+                                     device=device)
+    return _arrivals[key]
 
 
 def check(err: int, what: str) -> None:

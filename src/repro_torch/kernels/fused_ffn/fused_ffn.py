@@ -38,12 +38,8 @@ from repro_torch.kernels import _build
 from repro_torch.models.layers import activation
 
 _MAX_B = 8
-_MAX_CLUSTER = 8      # the portable thread-block cluster size
-_TARGET_CTAS = 120    # CTAs in one wave of clusters of 8 at one CTA an
-                      # SM on an H100 (cudaOccupancyMaxActiveClusters: 15)
 _MAX_ROWS = 512       # d_model rows a rank may hold (csrc MAX_DT · 128)
 _MAX_UNITS = 46       # 16-column units of d_ff a cluster may hold
-_ARRIVALS = {}        # device -> int32 arrival counters (zero between calls)
 
 
 @functools.lru_cache(maxsize=None)
@@ -51,32 +47,20 @@ def cluster_plan(d_model: int, d_ff: int) -> Tuple[int, int]:
     """``(G, C)``: ``G`` clusters of ``C`` CTAs for the shapes alone.
     ``C`` is the largest power of two ≤ 8 that leaves each rank a
     multiple of 16 rows of d_model, at most 512; ``G`` brings the grid to
-    about ``_TARGET_CTAS``, enough that no cluster holds more than 46
+    about ``_build.WAVE_CTAS``, enough that no cluster holds more than 46
     16-column units of d_ff, and no more than there are units.
     ``(0, 0)`` where no plan fits (d_ff not a multiple of 16, or d_model
     not split so)."""
     if d_ff % 16 or d_ff <= 0:
         return 0, 0
-    c = _MAX_CLUSTER
+    c = _build.MAX_CLUSTER
     while c >= 1 and (d_model % (16 * c) or d_model // c > _MAX_ROWS):
         c //= 2
     if c < 1:
         return 0, 0
     units = d_ff // 16
-    g = max(_TARGET_CTAS // c, -(-units // _MAX_UNITS))
+    g = max(_build.WAVE_CTAS // c, -(-units // _MAX_UNITS))
     return min(g, units), c
-
-
-def _arrivals(device: torch.device) -> torch.Tensor:
-    """The kernel's per-column-slice arrival counters on ``device``:
-    zeroed once here, left at zero by every launch (the last CTA of a
-    slice resets its counter), so no call writes them from the host.
-    Calls that share them run in stream order, as the port's one stream
-    does."""
-    if device not in _ARRIVALS:
-        _ARRIVALS[device] = torch.zeros(_MAX_CLUSTER, dtype=torch.int32,
-                                        device=device)
-    return _ARRIVALS[device]
 
 
 def fused_ffn_block(
@@ -156,9 +140,10 @@ def fused_ffn_cuda(x, a, w_in, w_gate, w_out, ln2, *, add_r, eps=1e-6):
     ws = torch.empty((G, B, D), dtype=torch.float32, device=x.device)
     o = torch.empty_like(x)
     r = torch.empty_like(x)
+    arrivals = _build.arrival_counters("fused_ffn", x.device)
     err = fn(*(t.data_ptr() for t in tensors.values()), ws.data_ptr(),
-             _arrivals(x.device).data_ptr(), o.data_ptr(), r.data_ptr(), B,
-             D, F, G, C, eps, float(add_r), _build.stream_ptr(x))
+             arrivals.data_ptr(), o.data_ptr(), r.data_ptr(), B, D, F, G, C,
+             eps, float(add_r), _build.stream_ptr(x))
     _build.check(err, "fused_ffn")
     tracecount.launch("fused_ffn")
     return o, r

@@ -1,26 +1,38 @@
-"""B3 — fused LM-head / sampling tail: final RMSNorm, f32 logits one
-vocab tile at a time, streaming top-k (value descending, ties to the
-lowest index).
+"""B3 — fused LM-head / sampling tail: final RMSNorm, f32 logits over the
+vocabulary, streaming top-k (value descending, ties to the lowest index).
 
 Replaces ``repro/kernels/fused_head/fused_head.py:fused_head_block``
-(``pallas_call`` at line 128) with ``topk.select_topk``; no softcap (the
-Gemma-2 slice; it raises ``NotImplementedError``).
+(``pallas_call`` at line 128) with ``topk.select_topk`` and
+``topk.topk_pair_merge``; no softcap (the Gemma-2 slice; it raises
+``NotImplementedError``), at most 8 slots and ``k`` ≤ 8.
 
-CUDA kernel: ``csrc/fused_head.cu``.  What bounds it on an H100: bytes —
-the ``[V, D]`` table (262.1 MB at Llama2-7B) is read once per step for
-all slots.  Design: one block per 128 vocab rows (250 blocks; the ragged
-last tile is masked, so V needs no divisor tile), a warp per row with
-16-byte loads, a per-slot top-k of the tile in registers; a second
-launch from the same source merges the ``[n_tiles, B, k]`` partials in
-the same total order.  Both launches are one wrapper call and one count;
-the ``[B, V]`` logits never reach device memory.
+CUDA kernel: ``csrc/fused_head.cu``, one device launch.  What bounds it
+on an H100: bytes — the ``[V, D]`` bf16 table (262.1 MB at Llama2-7B) is
+read once per step for all slots.  Design: ``G`` thread-block clusters of
+``C`` CTAs (:func:`cluster_plan`: 15 of 8 at every served width, the most
+an H100 runs at once at one CTA an SM).  Each CTA owns a contiguous run of
+16-row vocabulary units (the ragged last unit masked), streams it through
+a 4-stage ``cp.async`` ring whose first stages load while the rounded
+final norm is computed, takes the logits on the tensor cores
+(``mma.sync``: 16 table rows as A, the slots as n; each stage's 32-dim
+product added to an f32 sum on the CUDA cores) and keeps a per-slot
+running top-8 in registers.  The cluster's ranks merge their candidates
+over distributed shared memory (``cluster::topk``, a ClusterReduce whose
+operator is ``topk_pair_merge``) into ``[G, B, k]`` partials, and the
+last cluster to arrive (an int32 arrival counter the kernel resets)
+merges those.  The selection does no arithmetic, so a second launch
+gives the same bits.  One wrapper call is one launch and one count; the
+``[B, V]`` logits never reach device memory.
 
-What must match the reference: indices exactly; values to a few f32
-ulps (the summation order differs — ROADMAP fault C1).
+The plain version (:func:`fused_head_plain`) is for CPU tensors and the
+tests only.  What must match the reference: indices exactly; values to a
+few f32 ulps of the f64 sum (the summation order differs — ROADMAP
+faults C1 and C3).
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Tuple
 
 import torch
@@ -32,6 +44,24 @@ from repro_torch.models.layers import rms_norm
 
 _MAX_B = 8
 _MAX_K = 8
+_MAX_D = 9216         # the widest h beside a 2-stage ring in 227 KB (csrc
+                      # stages(): 4 stages up to 5120, 3 up to 7168)
+
+
+@functools.lru_cache(maxsize=None)
+def cluster_plan(vocab: int, d_model: int) -> Tuple[int, int]:
+    """``(G, C)``: ``G`` clusters of ``C`` CTAs for the shapes alone.
+    ``C`` is 8, or the largest power of two with a 16-row vocabulary
+    unit for each CTA; ``G`` brings the grid to ``_build.WAVE_CTAS`` CTAs,
+    at most one a unit.  ``(0, 0)`` where the kernel takes no such
+    shape (``d_model`` not a multiple of 8 or over ``_MAX_D``)."""
+    if d_model % 8 or not 0 < d_model <= _MAX_D or vocab < 1:
+        return 0, 0
+    units = -(-vocab // 16)
+    c = _build.MAX_CLUSTER
+    while c > units:
+        c //= 2
+    return max(1, min(_build.WAVE_CTAS // c, units // c)), c
 
 
 def fused_head_block(
@@ -72,33 +102,38 @@ def fused_head_plain(x, table, ln, *, eps=1e-6, k=8):
     return select_topk(logits, ids, k)
 
 
-_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 \
+_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 \
     + [ctypes.c_float] + [ctypes.c_void_p]
 
 
 def fused_head_cuda(x, table, ln, *, eps=1e-6, k=8):
-    """Launch ``csrc/fused_head.cu`` on the current stream."""
+    """Launch ``csrc/fused_head.cu`` on the current stream: one launch of
+    ``cluster_plan`` clusters for the whole batch."""
     B, D = x.shape
     V = table.shape[0]
-    if B > _MAX_B or D % 8 or not 1 <= k <= _MAX_K or table.shape[1] != D:
+    G, C = cluster_plan(V, D)
+    if B > _MAX_B or not C or not 1 <= k <= _MAX_K or table.shape[1] != D:
         raise NotImplementedError(
-            f"fused_head CUDA kernel: B ≤ {_MAX_B}, D % 8 == 0, "
-            f"1 ≤ k ≤ {_MAX_K}; got x {tuple(x.shape)}, k={k}")
+            f"fused_head CUDA kernel: B ≤ {_MAX_B}, D % 8 == 0 and "
+            f"D ≤ {_MAX_D}, 1 ≤ k ≤ {_MAX_K} (ROADMAP.md, Queue B: B3); "
+            f"got x {tuple(x.shape)}, table {tuple(table.shape)}, k={k}")
     tensors = dict(x=x, table=table, ln=ln)
     _build.require("fused_head", tensors, dict(
         x=torch.bfloat16, table=torch.bfloat16, ln=torch.float32))
+    if any(t.data_ptr() % 16 for t in tensors.values()):
+        raise NotImplementedError(
+            "fused_head CUDA kernel: x, table and ln must start on a 16-byte "
+            "boundary (ROADMAP.md, Queue B: B3)")
     fn = _build.function("fused_head", "fused_head_launch", _ARGTYPES)
-    # the workspace is sized by the kernel's own tile count
-    tiles = _build.function("fused_head", "fused_head_tiles", [ctypes.c_int])
-    n_tiles = tiles(V)
-    part_v = torch.empty((n_tiles, B, k), dtype=torch.float32,
-                         device=x.device)
-    part_i = torch.empty((n_tiles, B, k), dtype=torch.int32, device=x.device)
+    # each cluster's candidates, merged by the last cluster to arrive
+    part_v = torch.empty((G, B, k), dtype=torch.float32, device=x.device)
+    part_i = torch.empty((G, B, k), dtype=torch.int32, device=x.device)
     vals = torch.empty((B, k), dtype=torch.float32, device=x.device)
     idx = torch.empty((B, k), dtype=torch.int32, device=x.device)
+    arrivals = _build.arrival_counters("fused_head", x.device)
     err = fn(*(t.data_ptr() for t in tensors.values()), part_v.data_ptr(),
-             part_i.data_ptr(), vals.data_ptr(), idx.data_ptr(), B, D, V, k,
-             eps, _build.stream_ptr(x))
+             part_i.data_ptr(), arrivals.data_ptr(), vals.data_ptr(),
+             idx.data_ptr(), B, D, V, k, G, C, eps, _build.stream_ptr(x))
     _build.check(err, "fused_head")
     tracecount.launch("fused_head")
     return vals, idx

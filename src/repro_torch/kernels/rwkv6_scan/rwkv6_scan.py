@@ -12,16 +12,24 @@ length) or its one-step form (``rwkv6_step``, decode, ``S`` = 1).
 
 CUDA kernel: ``csrc/rwkv6_scan.cu``.  What bounds it on an H100: its
 bytes (r, k, v, w, o once each, ``s0`` and ``s_fin`` once) at 3.35 TB/s,
-with its 6·B·S·H·hd² f32 FLOPs on the CUDA cores just below; at prefill
-the chain of ``S`` dependent steps sets its time.  One CTA per (slot,
-head, 32 value columns) keeps its share of the state in registers for
-the whole scan.
+with its f32 FLOPs on the CUDA cores just below; at prefill the FMAs
+and shared-memory reads each of the ``S`` dependent steps issues set its
+time.  Design: one CTA per (slot, head, 32 value columns), all resident
+at once, keeps its share of the state in registers for the whole scan,
+16 rows × 2 columns a lane, so every r, k, w value read from shared
+memory serves two columns; each row group's share of ``o`` is one FMA
+chain over its rows and ``o`` the four groups' sums in order (the same
+f32 arithmetic, to the bit, as one column a thread); r, k, w and v
+arrive as TMA boxes (2-D tensor maps) in a 4-chunk ring, two chunks in
+flight, one barrier a chunk, and a third warp issues the boxes and
+writes the outputs while two scan.  At ``S`` = 1 (decode) a one-step
+kernel takes the same lanes and arithmetic without the ring.
 
 ``s_out``: where ``s_fin`` goes; it may be ``s0`` itself (the engine
 updates the state in place), in both the kernel and the plain version.
 The CUDA path takes f32 inputs and ``hd`` = 64; anything else raises
 ``NotImplementedError`` (ROADMAP.md) and never falls back to the plain
-version.
+version, which is for CPU tensors and the tests only.
 """
 from __future__ import annotations
 

@@ -773,11 +773,11 @@ def test_fused_ffn_wrapper_one_launch_with_cluster_workspace(
     ptrs, ints = args[:10], args[10:15]
     assert ptrs[:6] == tuple(t.data_ptr() for t in (x, a, w_in, w_gate,
                                                     w_out, ln2))
-    assert ptrs[7] == b2._arrivals(x.device).data_ptr()
+    arrivals = _build.arrival_counters("fused_ffn", x.device)
+    assert ptrs[7] == arrivals.data_ptr()
     assert ptrs[8:] == (o.data_ptr(), r.data_ptr())
     assert ints == (B, D, F, G, C)
     assert made == [((G, B, D), torch.float32)]    # o, r: empty_like
-    arrivals = b2._arrivals(x.device)
     assert arrivals.dtype == torch.int32 and arrivals.numel() >= C
     assert not arrivals.any()               # the kernel leaves them at 0
 
@@ -810,6 +810,90 @@ def test_fused_mla_decode_wrapper_one_launch_no_workspace(
     # o, c_new, m (l: empty_like of m)
     assert made == [((B, heads, D), f32), ((B, 576), torch.bfloat16),
                     ((B, heads), f32)]
+
+
+@pytest.mark.parametrize("V,D,plan", [(32000, 4096, (15, 8)),    # Llama2-7B
+                                      (102400, 2048, (15, 8)),   # DeepSeek
+                                      (65536, 2560, (15, 8)),    # RWKV-6 3B
+                                      (32011, 4096, (15, 8)),    # ragged
+                                      (96, 64, (1, 4)),
+                                      (4, 8, (1, 1))])
+def test_fused_head_wrapper_one_launch_with_cluster_partials(
+        monkeypatch, V, D, plan):
+    """B3's plan follows (vocab, d_model) alone: 15 clusters of 8 at the
+    three paths' widths and at a ragged vocabulary (no table allocated
+    there), every CTA at least one 16-row vocabulary unit.  At a small
+    width the wrapper makes one library call — no tile-count query —
+    with its eight pointers (x, table, ln, the ``[G, B, k]`` cluster
+    partials, the arrival counters, the outputs) and that plan, and
+    allocates no other workspace: no ``[n_tiles, B, k]`` partials.  The
+    counters are int32 and left at 0."""
+    assert b3.cluster_plan(V, D) == plan
+    G, C = plan
+    assert G * C <= -(-V // 16) and C in (1, 2, 4, 8)
+    if V * D > 1 << 20:
+        return                              # no 262 MB tables here
+    calls = _record_launch(monkeypatch)
+    made = _record_empty(monkeypatch)
+    B, k = 3, 5
+    x = torch.zeros(B, D, dtype=torch.bfloat16)
+    table = torch.zeros(V, D, dtype=torch.bfloat16)
+    ln = torch.zeros(D)
+    vals, idx = b3.fused_head_cuda(x, table, ln, eps=1e-5, k=k)
+    (args,) = calls
+    ptrs, ints = args[:8], args[8:14]
+    assert ptrs[:3] == (x.data_ptr(), table.data_ptr(), ln.data_ptr())
+    arrivals = _build.arrival_counters("fused_head", x.device)
+    assert ptrs[5] == arrivals.data_ptr()
+    assert ptrs[6:] == (vals.data_ptr(), idx.data_ptr())
+    assert ints == (B, D, V, k, G, C)
+    assert args[14] == pytest.approx(1e-5)
+    f32, i32 = torch.float32, torch.int32
+    assert made == [((G, B, k), f32), ((G, B, k), i32), ((B, k), f32),
+                    ((B, k), i32)]
+    assert arrivals.dtype == i32 and arrivals.numel() >= C
+    assert not arrivals.any()               # the kernel leaves them at 0
+
+
+def test_fused_head_refuses_unported_shapes(monkeypatch):
+    """More than 8 slots, k outside 1..8, a width not a multiple of 8 or
+    wider than the kernel's shared memory holds raise before the
+    library is reached, naming ROADMAP."""
+    def no_library(*_a, **_k):
+        raise AssertionError("an unsupported input reached the library")
+
+    monkeypatch.setattr(_build, "function", no_library)
+    bf = torch.bfloat16
+    for B, D, k in ((9, 64, 8), (2, 64, 9), (2, 64, 0), (2, 60, 8),
+                    (2, 9224, 8)):
+        assert b3.cluster_plan(32, D) == ((0, 0) if D in (60, 9224)
+                                          else (1, 2))
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            b3.fused_head_cuda(torch.zeros(B, D, dtype=bf),
+                               torch.zeros(32, D, dtype=bf), torch.zeros(D),
+                               k=k)
+
+
+@pytest.mark.parametrize("alias", [False, True])
+def test_rwkv6_scan_wrapper_passes_its_pointers(monkeypatch, alias):
+    """One library call with the eight pointers (r, k, v, w, u, s0, o,
+    s_fin) and (B, S, H, hd); with ``s_out = s0`` the final state's
+    pointer is the state's own (the engine's in-place update), else a
+    fresh ``[B, H, hd, hd]`` tensor.  No workspace."""
+    calls = _record_launch(monkeypatch)
+    made = _record_empty(monkeypatch)
+    B, S, H, hd = 2, 17, 3, 64
+    f = lambda *s: torch.zeros(s)
+    r, k, v, w = (f(B, S, H, hd) for _ in range(4))
+    u, s0 = f(H, hd), f(B, H, hd, hd)
+    o, s_fin = b7.rwkv6_scan_cuda(r, k, v, w, u, s0,
+                                  s_out=s0 if alias else None)
+    (args,) = calls
+    assert args[:8] == tuple(t.data_ptr() for t in (r, k, v, w, u, s0, o,
+                                                    s_fin))
+    assert args[8:12] == (B, S, H, hd)
+    assert (s_fin.data_ptr() == s0.data_ptr()) == alias
+    assert made == [((B, S, H, hd), torch.float32)]   # o; s_fin: empty_like
 
 
 def test_cluster_kernels_refuse_unported_shapes(monkeypatch):
@@ -851,7 +935,8 @@ def test_cluster_kernels_refuse_unported_shapes(monkeypatch):
 
 
 @pytest.mark.parametrize("name", ["flash_decode", "fused_decode",
-                                  "fused_ffn", "fused_mla_decode"])
+                                  "fused_ffn", "fused_mla_decode",
+                                  "fused_head", "rwkv6_scan"])
 @pytest.mark.parametrize("header", ["cluster.cuh", "common.cuh"])
 def test_lib_path_hashes_every_header(name, header, monkeypatch, tmp_path):
     """A changed header names another library, so a stale one built from
