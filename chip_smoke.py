@@ -58,11 +58,17 @@ prefill and at every decode step, B5 every local layer's decode over a
    B5) and B7 launched twice on the same inputs give the same bits (their
    ranks' and clusters' partials merge in a fixed order; B3's merges
    select without arithmetic);
-4. per attention path, serves a staggered 12-request trace through
-   ``SlotScheduler`` and checks that every decode step made exactly
+4. per path, builds the engine, whose ``decode_fn`` replays the decode
+   step captured once in a CUDA graph (``serving/step_graph.py``), and
+   serves through it; per attention path a staggered 12-request trace
+   through ``SlotScheduler``, checking that the capture counted exactly
    ``L`` launches of the attention kernel, ``L`` of B2 and one of B3
    (``2·L + 1``) — on the unfused path ``L`` of B5 and nothing else —
-   and no launch fell outside a step, that every token lies in the
+   that every decode step was exactly one replay of that graph and
+   credited those launches, and that no launch fell outside a step
+   (these launch counts are the capture's, which each replay credits:
+   phase 5's trace is the check made on the device), that every token
+   lies in the
    vocabulary and that every residual row stayed finite; the unfused
    path's line is followed by its step time over the fused path's; on
    RWKV-6 (no per-slot insert: the reference's ``admit`` raises) one
@@ -76,16 +82,37 @@ prefill and at every decode step, B5 every local layer's decode over a
    2080 tokens, 32 new tokens each: the 2048-row rings wrap during the
    second prefill and stay wrapped) and checks 26 B6 launches and no B5
    per prefill, 26 B6 and 12 B5 per decode step and nothing else, and
-   prints the 2080-token prefill's time;
-5. per path, runs teacher-forced decode steps once through the kernels
-   and once through their plain versions (RecurrentGemma after a
-   2080-token prefill), and requires their greedy tokens to agree on at
+   prints the 2080-token prefill's time; prefills stay eager (no
+   replay).  Then it holds the graph against the eager step: the
+   engine's own state admitted or prefilled afresh and cloned, 16
+   graphed steps on it and 16 eager ones (``decode_step`` with
+   ``KERNELS``) on the clone from the same forced tokens must give equal
+   tokens on every step and every state leaf (caches, ``pos``, recurrent
+   states, ``cache_lens``, sampling, ``nonfinite``) equal bit for bit;
+   it prints both medians of step and host-issue time and requires the
+   graphed step to issue in under 1 ms and to be no slower than the
+   eager one;
+5. after every path's phase 4 (a profiler trace leaves the host's
+   graph launches slower for the rest of the process), per path on an
+   engine built anew, runs teacher-forced decode steps once through the
+   kernels and once through their plain versions (RecurrentGemma after
+   a 2080-token prefill), and requires their greedy tokens to agree on at
    least 90 % of (step, slot) — the unfused path's tokens also against
-   the fused Llama path's; then traces a few decode steps with
-   ``torch.profiler`` for the device time per kernel and the device's
-   idle share, and requires every port kernel the step launches to show
-   device time under its own name (``GROUPS``);
-6. times each kernel and its plain version beside its bound at each
+   the fused Llama path's; then traces a few replays of the engine's
+   graph on its own state with ``torch.profiler`` for the device time
+   per kernel and the device's idle share, and requires exactly the
+   device kernels that the step's port kernels run at decode
+   (``DECODE_KERNELS``: both of B4's, B7's ``wkv_step_kernel``, one each
+   of the others) to show, each as many spans a step as phase 4's
+   capture counted launches, then times the graphed host issue again
+   (``graph_host_ms_after_trace``); dropping an engine, in either
+   phase, must give back its memory, the graph's pool included;
+6. times an empty launch (``torch.cuda._sleep(0)``) in the kernels'
+   harness, one launch at a time and as a graph's nodes (the ``floor``
+   line: a launch's cost, below which no kernel's time can go), with
+   the host's time for one launch of a graph of ``FLOOR_NODES`` empty
+   nodes, taken before phase 4 and again after phase 5's traces, then
+   times each kernel and its plain version beside its bound at each
    path's shapes (device time per call: CUDA events around back-to-back
    calls queued behind a spin kernel, median after warm-up; ``call_ms``
    is one call with its host work), and prints them as one JSON
@@ -99,7 +126,8 @@ prefill and at every decode step, B5 every local layer's decode over a
    B3's rows carry ``products_ms``, one ``torch.matmul(h, table.T)`` in
    bf16 on the same table — a yardstick of the rate at which the table
    can be read, not B3's function (no norm, no f32 logits, no top-k:
-   ``library_ms`` null).
+   ``library_ms`` null); ``bound_under_floor`` marks a row whose bound
+   lies under the empty launch's time.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failure raises
 and the script exits nonzero; without a CUDA device it exits nonzero
@@ -149,6 +177,7 @@ from repro_torch.serving.engine import (  # noqa: E402
 from repro_torch.serving.sampling import head_candidates  # noqa: E402
 from repro_torch.serving.scheduler import (  # noqa: E402
     Request, SlotScheduler, replay_trace)
+from repro_torch.serving.step_graph import StepGraph  # noqa: E402
 
 PATHS = (("llama2-7b", "pallas"),
          ("deepseek-v2-lite", "pallas"),   # its dense-MLA arm
@@ -184,6 +213,7 @@ RGLRU_REL_TOL = 1e-4           # B6's f32 h_seq and h_fin: the same order
                                # element
 FLASH_F32_REL_TOL = 1e-4       # B5 on f32 inputs: summation order only,
                                # relative to each slot's largest element
+FLOOR_NODES = 2600             # about RWKV-6's device launches a step
 SPIN_CYCLES = 50_000_000       # ≈ 25 ms at the H100's clock: longer than
                                # the host needs to queue a timed batch
 
@@ -276,6 +306,31 @@ def call_ms(fn, n: int, warmup: int = 3) -> float:
         e1.synchronize()
         times.append(e0.elapsed_time(e1))
     return statistics.median(times)
+
+
+def empty_graph(nodes: int):
+    """A CUDA graph of ``nodes`` empty kernels (``torch.cuda._sleep(0)``),
+    captured after one eager launch has loaded the kernel."""
+    torch.cuda._sleep(0)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(nodes):
+            torch.cuda._sleep(0)
+    return graph
+
+
+def launch_host_ms(graph, reps: int = 20) -> float:
+    """Median host clock around one ``graph.replay()`` issued to an idle
+    device: the host's cost of a graph launch."""
+    times = []
+    for _ in range(reps + 3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        graph.replay()
+        times.append(1e3 * (time.perf_counter() - t0))
+    torch.cuda.synchronize()
+    return statistics.median(times[3:])
 
 
 def tree_bytes(tree) -> int:
@@ -717,6 +772,23 @@ def check_kernel(case) -> float:
 # ---------------------------------------------------------------------------
 # Phase 4: the staggered request trace at full width
 # ---------------------------------------------------------------------------
+def check_graph(graph, want, step_replays):
+    """The decode steps just served: every one was exactly one replay of
+    the engine's one graph, whose capture counted ``want`` launches.
+    Each replay credits the capture's count, so the launches per step
+    that phase 4 reads repeat it; phase 5's trace checks on the device
+    that every replay ran them."""
+    if not isinstance(graph, StepGraph):
+        raise AssertionError(f"decode_fn is {type(graph).__name__}, not "
+                             "the engine's StepGraph")
+    if graph.launches != want:
+        raise AssertionError(f"the graph captured {graph.launches}, want "
+                             f"{want}")
+    if not step_replays or any(r != (1, 1) for r in step_replays):
+        raise AssertionError(f"decode steps that were not one replay of the "
+                             f"graph: {step_replays[:8]}")
+
+
 def decode_launches(cfg, backend):
     """Launches one decode step must make on an attention path: ``L`` of
     the attention kernel, ``L`` of B2 and one of B3 on ``"pallas"``;
@@ -736,11 +808,12 @@ def serve_trace(cfg, eng):
         prompt=rng.integers(0, cfg.vocab_size,
                             int(rng.integers(16, 513))).tolist(),
         max_new=int(rng.integers(8, 65)))) for i in range(n_req)]
-    step_launches, step_ms, host_ms = [], [], []
+    step_launches, step_replays, step_ms, host_ms = [], [], [], []
     dec = eng.decode_fn
 
     def counted_decode(p, st, tok):
         before = tracecount.launches()
+        replays = (tracecount.replays(), dec.replays)
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
@@ -754,6 +827,8 @@ def serve_trace(cfg, eng):
         step_ms.append(e0.elapsed_time(e1))
         after = tracecount.launches()
         step_launches.append({k: after[k] - before[k] for k in after})
+        step_replays.append((tracecount.replays() - replays[0],
+                             dec.replays - replays[1]))
         if int(st["nonfinite"].max()) != 0:
             raise AssertionError(f"non-finite residual or head value: "
                                  f"{st['nonfinite'].tolist()}")
@@ -769,6 +844,7 @@ def serve_trace(cfg, eng):
     launches = tracecount.launches()
     want = {k: 0 for k in launches}
     want.update(decode_launches(cfg, eng.scfg.backend))
+    check_graph(dec, want, step_replays)
     bad = [(i, n) for i, n in enumerate(step_launches) if n != want]
     if bad or not step_launches:
         raise AssertionError(f"launches per decode step {bad[:4]}, want "
@@ -789,7 +865,7 @@ def serve_trace(cfg, eng):
         - SLOTS
     return dict(requests=n_req, ticks=sched.tick,
                 decode_steps=sched.decode_calls, tokens=len(toks),
-                readmits=refills,
+                readmits=refills, replays=tracecount.replays(),
                 launches_per_step=sum(per_kernel.values()),
                 median_step_ms=round(statistics.median(step_ms), 3),
                 median_host_ms=round(statistics.median(host_ms), 3),
@@ -821,6 +897,7 @@ def serve_lockstep(cfg, eng):
     def counted(fn, stage):
         def run(p, st, tok):
             before = tracecount.launches()
+            replays = (tracecount.replays(), eng.decode_fn.replays)
             e0 = torch.cuda.Event(enable_timing=True)
             e1 = torch.cuda.Event(enable_timing=True)
             e0.record()
@@ -832,7 +909,9 @@ def serve_lockstep(cfg, eng):
             after = tracecount.launches()
             calls[stage].append(dict(
                 ms=e0.elapsed_time(e1), host_ms=host,
-                launches={k: after[k] - before[k] for k in after}))
+                launches={k: after[k] - before[k] for k in after},
+                replays=(tracecount.replays() - replays[0],
+                         eng.decode_fn.replays - replays[1])))
             if int(st["nonfinite"].max()) != 0:
                 raise AssertionError(f"non-finite residual or head value: "
                                      f"{st['nonfinite'].tolist()}")
@@ -861,6 +940,10 @@ def serve_lockstep(cfg, eng):
     want = {stage: {k: 0 for k in launches} for stage in calls}
     for stage, need in zip(("prefill", "decode"), lockstep_launches(cfg)):
         want[stage].update(need)
+    check_graph(eng.decode_fn, want["decode"],
+                [c["replays"] for c in calls["decode"]])
+    if any(c["replays"] != (0, 0) for c in calls["prefill"]):
+        raise AssertionError("a prefill replayed the decode graph")
     for stage, log in calls.items():
         bad = [(i, c["launches"]) for i, c in enumerate(log)
                if c["launches"] != want[stage]]
@@ -883,7 +966,7 @@ def serve_lockstep(cfg, eng):
     dec = calls["decode"]
     serve = dict(
         batches=len(plan), prefills=n_pre, decode_steps=n_dec,
-        tokens=sum(t.size for _, t in batches),
+        replays=tracecount.replays(), tokens=sum(t.size for _, t in batches),
         launches_per_step=sum(want["decode"].values()),
         launches_per_prefill=sum(want["prefill"].values()),
         median_step_ms=round(statistics.median(c["ms"] for c in dec), 3),
@@ -907,24 +990,120 @@ def serve_lockstep(cfg, eng):
 FORCED_PROMPT = {"rwkv6-3b": 128, "recurrentgemma-9b": 2080}
 
 
-def forced_decode(cfg, eng, steps: int = 8):
-    rng = np.random.default_rng(SEED + 2)
+def fill_state(cfg, eng, state, rng):
+    """Every slot of ``state`` filled: on an attention path admitted with
+    a prompt of 32–512 tokens, on a lockstep path prefilled with one of
+    ``FORCED_PROMPT`` tokens (the caches and recurrent states in place)."""
     lens = rng.integers(32, 513, SLOTS).astype(np.int32)
     n_prompt = FORCED_PROMPT.get(cfg.name)
     toks = rng.integers(0, cfg.vocab_size,
                         (SLOTS, max(512, n_prompt or 0))).astype(np.int32)
-    state = init_decode_state(cfg, eng.scfg, device="cuda")
     if n_prompt:                            # lockstep: one prompt length
         _, state = eng.prefill_fn(eng.params["train"], state,
                                   toks[:, :n_prompt])
     else:
         _, state = eng.admit_fn(eng.params["train"], state, toks, lens)
-    # decode updates the caches and recurrent states in place: the plain
-    # run gets a copy of its own
-    twin = {k: (v.clone() if torch.is_tensor(v) else
+    return state
+
+
+def clone_state(state):
+    """A copy of every leaf: decode updates the caches and recurrent
+    states in place, so a second run needs a state of its own."""
+    return {k: (v.clone() if torch.is_tensor(v) else
                 {n: t.clone() for n, t in v.items()} if isinstance(v, dict)
                 else [type(c)(*(t.clone() for t in c)) for c in v])
             for k, v in state.items()}
+
+
+def state_leaves(state):
+    """``(name, tensor)`` for every leaf of a decode state."""
+    out = []
+    for k in sorted(state):
+        v = state[k]
+        if torch.is_tensor(v):
+            out.append((k, v))
+        elif isinstance(v, dict):
+            out += [(f"{k}.{n}", t) for n, t in sorted(v.items())]
+        else:
+            out += [(f"{k}[{i}].{f}", t) for i, c in enumerate(v)
+                    for f, t in zip(c._fields, c)]
+    return out
+
+
+def time_steps(step, state, forced):
+    """``step(state, tokens)`` once per row of ``forced``: the tokens of
+    every step, the state after them, and the median step ms (CUDA
+    events around each step) and host-issue ms (host clock around the
+    call)."""
+    toks, ms, host = [], [], []
+    for t in range(len(forced)):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        t0 = time.perf_counter()
+        nxt, state = step(state, forced[t])
+        host.append(1e3 * (time.perf_counter() - t0))
+        e1.record()
+        e1.synchronize()
+        ms.append(e0.elapsed_time(e1))
+        toks.append(nxt)
+    return (torch.stack(toks), state, statistics.median(ms),
+            statistics.median(host))
+
+
+def graph_vs_eager(cfg, eng, steps: int = 16):
+    """The engine's graphed step against the eager step (``decode_step``
+    with ``KERNELS``): the engine's own state refilled and a clone of it,
+    ``steps`` steps each from the same forced tokens; tokens equal on
+    every step and every state leaf equal bit for bit at the end.  Times
+    both (CUDA events around each step; the host clock for its issue)
+    and returns the numbers of the line."""
+    rng = np.random.default_rng(SEED + 3)
+    state = fill_state(cfg, eng, eng.state, rng)
+    twin = clone_state(state)
+    forced = torch.as_tensor(rng.integers(0, cfg.vocab_size, (steps, SLOTS))
+                             .astype(np.int32), device="cuda")
+    graph = eng.decode_fn
+    replays = graph.replays
+    g_toks, state, g_ms, g_host = time_steps(
+        lambda st, tok: graph(eng.params["serve"], st, tok), state, forced)
+    e_toks, twin, e_ms, e_host = time_steps(
+        lambda st, tok: decode_step(cfg, eng.scfg, eng.params["serve"], st,
+                                    tok, kernels=KERNELS), twin, forced)
+    if graph.replays - replays != steps:
+        raise AssertionError(f"{graph.replays - replays} replays for "
+                             f"{steps} graphed steps")
+    differ = (g_toks != e_toks).any(dim=1).nonzero().flatten().tolist()
+    if differ:
+        raise AssertionError(f"graphed and eager tokens differ at steps "
+                             f"{differ}")
+    g_leaves, e_leaves = state_leaves(state), state_leaves(twin)
+    if [n for n, _ in g_leaves] != [n for n, _ in e_leaves]:
+        raise AssertionError("graphed and eager states have other leaves")
+    bad = [n for (n, g), (_, e) in zip(g_leaves, e_leaves)
+           if g.dtype != e.dtype or not torch.equal(
+               g.contiguous().view(-1).view(torch.uint8),
+               e.contiguous().view(-1).view(torch.uint8))]
+    if bad:
+        raise AssertionError(f"graphed and eager states differ in {bad}")
+    if g_host >= 1.0 or g_ms > e_ms:
+        raise AssertionError(f"graphed step {g_ms:.3f} ms (host "
+                             f"{g_host:.3f} ms) against eager {e_ms:.3f} ms")
+    return dict(steps=steps, tokens_equal=True, state_equal=True,
+                graph_median_step_ms=round(g_ms, 3),
+                graph_median_host_ms=round(g_host, 3),
+                eager_median_step_ms=round(e_ms, 3),
+                eager_median_host_ms=round(e_host, 3),
+                eager_over_graph=round(e_ms / g_ms, 3))
+
+
+def forced_decode(cfg, eng, steps: int = 8):
+    rng = np.random.default_rng(SEED + 2)
+    state = fill_state(cfg, eng,
+                       init_decode_state(cfg, eng.scfg, device="cuda"), rng)
+    # decode updates the caches and recurrent states in place: the plain
+    # run gets a copy of its own
+    twin = clone_state(state)
     forced = rng.integers(0, cfg.vocab_size, (steps, SLOTS)).astype(np.int32)
 
     def run(kernels, st):
@@ -948,8 +1127,8 @@ def forced_decode(cfg, eng, steps: int = 8):
             engine_mod.head_candidates = head_candidates
         return np.stack(toks), cands, st
 
-    (got, g_cands, state), (want, w_cands, _) = (run(KERNELS, state),
-                                                 run(PLAIN_KERNELS, twin))
+    (got, g_cands, _), (want, w_cands, _) = (run(KERNELS, state),
+                                             run(PLAIN_KERNELS, twin))
     agree = float(np.mean(got == want))
     # the largest difference of the best candidate's value, f32 logits
     gap = "{:.3e}".format(max(float((g[0][:, 0] - w[0][:, 0]).abs().max())
@@ -957,7 +1136,7 @@ def forced_decode(cfg, eng, steps: int = 8):
     if agree < 0.9:
         raise AssertionError(f"kernel vs plain token agreement {agree}")
     return dict(steps=steps, slots=SLOTS, agreement=round(agree, 4),
-                max_logit_gap=gap), state, got
+                max_logit_gap=gap), got
 
 
 # ---------------------------------------------------------------------------
@@ -971,18 +1150,25 @@ GROUPS = (("fused_decode", ("fused_decode_kernel",)),
           ("rwkv6_scan", ("wkv_scan_kernel", "wkv_step_kernel")),
           ("flash_decode", ("flash_cluster_kernel",)),
           ("rglru_scan", ("rglru_scan_kernel",)))
+# the device kernels each port kernel runs at decode, every one once a
+# launch (B7's chunked scan runs at prefill only)
+DECODE_KERNELS = dict(GROUPS, rwkv6_scan=("wkv_step_kernel",))
 MATMUL_NAMES = ("gemm", "gemv", "nvjet", "splitk", "cutlass", "xmma", "cublas")
 
 
-def profile_steps(cfg, eng, state, launched, steps: int = 4):
+def profile_steps(cfg, eng, state, per_step, steps: int = 4):
     """Device time per decode step by kernel — the port's kernels by
     name, cuBLAS/CUTLASS products as ``matmul``, everything else (the
     small PyTorch ops) as ``other`` — the device launches per step, and
-    the share of the traced window in which no kernel or copy ran.  The
-    profiler's own host cost inflates that idle share; the untraced step
-    time is phase 4's.  Every port kernel in ``launched`` (those a decode
-    step launches) must show device time in its group, so that a renamed
-    kernel cannot slip into ``other``."""
+    the share of the traced window in which no kernel or copy ran, over
+    ``steps`` replays of the engine's graph on the engine's own ``state``.
+    The profiler's own host cost inflates that idle share; the untraced
+    step time is phase 4's.  The port kernels a decode step launches
+    (``per_step``: phase 4's count, the capture's) must show exactly
+    their device kernels (``DECODE_KERNELS``), each with ``per_step``
+    spans a step, and no other port kernel: the replays ran every
+    captured launch on the device, and a renamed kernel cannot slip into
+    ``other``."""
     from torch.profiler import ProfilerActivity, profile
     tok = torch.zeros(SLOTS, dtype=torch.int32, device="cuda")
     torch.cuda.synchronize()
@@ -1000,6 +1186,7 @@ def profile_steps(cfg, eng, state, launched, steps: int = 4):
     per = {name: 0.0 for name, _ in GROUPS}
     per["matmul"] = per["other"] = 0.0
     stages = {}                  # each launch of a multi-launch kernel
+    n_spans = {}                 # spans of each port device kernel
     for t0, t1, name in spans:
         busy += max(0.0, t1 - max(t0, end))
         end = max(end, t1)
@@ -1008,18 +1195,24 @@ def profile_steps(cfg, eng, state, launched, steps: int = 4):
         if group == "other" and any(m in name.lower() for m in MATMUL_NAMES):
             group = "matmul"
         per[group] += t1 - t0
-        if key is not None and len(dict(GROUPS)[group]) > 1:
-            stages[key] = stages.get(key, 0.0) + t1 - t0
+        if key is not None:
+            n_spans[key] = n_spans.get(key, 0) + 1
+            if len(dict(GROUPS)[group]) > 1:
+                stages[key] = stages.get(key, 0.0) + t1 - t0
     window = end - spans[0][0]
-    missing = [k for k in launched if per[k] <= 0.0]
-    if missing:
-        raise AssertionError(f"no device time traced under {missing}: "
-                             "GROUPS does not name their kernels")
+    spans_per_step = {k: n / steps for k, n in n_spans.items()}
+    want = {k: n for g, n in per_step.items() if n
+            for k in DECODE_KERNELS[g]}
+    if spans_per_step != want:
+        raise AssertionError(f"device spans per step {spans_per_step}, "
+                             f"want {want} from phase 4's launches "
+                             f"{per_step}")
     out = {f"{g}_ms_per_step": round(v / steps / 1e3, 3)
            for g, v in per.items()}
     out["stage_ms_per_step"] = {k: round(v / steps / 1e3, 3)
                                 for k, v in stages.items()}
-    out.update(device_launches_per_step=len(spans) / steps,
+    out.update(spans_per_step=spans_per_step,
+               device_launches_per_step=len(spans) / steps,
                window_ms_per_step=round(window / steps / 1e3, 3),
                idle_share=round(1.0 - busy / window, 4))
     return out
@@ -1058,25 +1251,48 @@ def step_weights(cfg, eng):
     return sum(t.numel() * t.element_size() for t in block_w + (table,))
 
 
-def serve_path(cfg, backend, peers):
-    """Phases 4 and 5 for one path: build the engine, serve the trace
-    (RWKV-6: the lockstep batches), kernels against plain versions end
-    to end, a traced run.  ``peers`` holds the earlier paths' results by
-    (arch, backend); the unfused path is compared with the fused path of
-    its arch there.  Returns the path's launch counts per stage
-    ("decode", and "prefill" where prefill runs a kernel): total and per
-    call, and its median step time and forced tokens."""
+def build_engine(cfg, backend):
+    """The path's engine (its decode step captured in a graph) and its
+    ``max_seq``, after emptying the allocator's cache, with the memory
+    reserved before it was built."""
     lockstep = cfg.name in LOCKSTEP
     max_seq = LOCKSTEP[cfg.name][0] if lockstep else MAX_SEQ
-    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved()
     eng = build_engine_full(cfg, max_seq=max_seq, batch_global=SLOTS,
                             options=EngineOptions(backend=backend,
                                                   check_finite=True),
                             device="cuda", seed=SEED)
     torch.cuda.synchronize()
+    return eng, max_seq, reserved
+
+
+def check_released(reserved: int) -> None:
+    """After the last engine reference went: its memory, the graph's
+    private pool included, is given back (no reference cycle keeps
+    it)."""
+    torch.cuda.empty_cache()
+    kept = torch.cuda.memory_reserved() - reserved
+    if kept > 256 << 20:
+        raise AssertionError(f"{kept / 2**30:.2f} GiB still reserved after "
+                             "the engine was dropped")
+
+
+def serve_path(cfg, backend, peers):
+    """Phase 4 for one path: build the engine, serve the trace (the
+    lockstep paths: their two batches) through its graph, then the graph
+    against the eager step.  ``peers`` holds the earlier paths' results
+    by (arch, backend); the unfused path's step is compared with the
+    fused path's of its arch there.  Returns the path's launch counts
+    per stage ("decode", and "prefill" where prefill runs a kernel):
+    total and per call, and its median step time."""
+    lockstep = cfg.name in LOCKSTEP
+    t0 = time.perf_counter()
+    eng, max_seq, reserved = build_engine(cfg, backend)
     tag = dict(path=cfg.name, backend=backend)
     say("engine", **tag, layers=cfg.n_layers, max_seq=max_seq,
         build_s=round(time.perf_counter() - t0, 1),
+        graph_launches=sum(eng.decode_fn.launches.values()),
         weights_gb=round(tree_bytes(eng.params) / 1e9, 3),
         **{"state_gb" if lockstep else "kv_gb":
            round(tree_bytes(eng.state["layers"] + eng.state["tail"])
@@ -1102,7 +1318,23 @@ def serve_path(cfg, backend, peers):
             unfused_median_step_ms=serve["median_step_ms"],
             unfused_over_fused=round(serve["median_step_ms"]
                                      / fused["step_ms"], 4))
-    forced, state, forced_toks = forced_decode(cfg, eng)
+    say("graph", **tag, **graph_vs_eager(cfg, eng))
+    del eng
+    check_released(reserved)
+    return counts, dict(step_ms=serve["median_step_ms"])
+
+
+def check_path(cfg, backend, counts, peers):
+    """Phase 5 for one path, on an engine built anew: the kernels
+    against their plain versions end to end (the unfused path's tokens
+    also against the fused path's, from ``peers``), then a trace of
+    replays of its graph on its own state, refilled, and the graphed
+    host issue timed again after the trace.  Returns the forced
+    tokens."""
+    eng, _, reserved = build_engine(cfg, backend)
+    tag = dict(path=cfg.name, backend=backend)
+    forced, forced_toks = forced_decode(cfg, eng)
+    fused = peers.get((cfg.name, "pallas")) if backend == "xla" else None
     if fused is not None:
         # the card's counterpart of tests/test_backend_parity.py:241: the
         # same weights and forced tokens through both backends
@@ -1111,11 +1343,18 @@ def serve_path(cfg, backend, peers):
             raise AssertionError(f"unfused vs fused token agreement {agree}")
         forced["agreement_with_fused"] = round(agree, 4)
     say("forced", **tag, **forced)
-    launched = [k for k, n in counts["decode"][1].items() if n]
-    say("profile", **tag, **profile_steps(cfg, eng, state, launched))
+    state = fill_state(cfg, eng, eng.state, np.random.default_rng(SEED + 3))
+    prof = profile_steps(cfg, eng, state, counts["decode"][1])
+    # the trace leaves the profiler attached to the process, and graph
+    # launches cost the host more after it (phase 4 ran before any trace)
+    host_ms = time_steps(
+        lambda st, t: eng.decode_fn(eng.params["serve"], st, t), state,
+        torch.zeros((16, SLOTS), dtype=torch.int32, device="cuda"))[3]
+    say("profile", **tag, **prof,
+        graph_host_ms_after_trace=round(host_ms, 3))
     del eng, state
-    torch.cuda.empty_cache()
-    return counts, dict(step_ms=serve["median_step_ms"], forced=forced_toks)
+    check_released(reserved)
+    return forced_toks
 
 
 def ffn_products(case):
@@ -1205,13 +1444,35 @@ def main() -> int:
             backend=case["backend"], stage=case["stage"], ok=True,
             max_abs_err=f"{case['max_abs_err']:.3e}")
 
-    # 4-5. each path served at full width, one engine at a time
+    # the host's cost of a graph launch before any profiler trace (a
+    # trace leaves the host's graph launches slower for the rest of the
+    # process); timed again in phase 6
+    floor_graph = empty_graph(FLOOR_NODES)
+    host_untraced = launch_host_ms(floor_graph)
+    # 4. each path served at full width through its graph, one engine at
+    # a time, before any profiler trace
     counts, peers = {}, {}
     for cfg, backend in paths:
         key = (cfg.name, backend)
         counts[key], peers[key] = serve_path(cfg, backend, peers)
+    # 5. each path again: kernels against plain versions end to end, and
+    # the traced replays
+    for cfg, backend in paths:
+        key = (cfg.name, backend)
+        peers[key]["forced"] = check_path(cfg, backend, counts[key], peers)
 
-    # 6. times beside the bounds (the check-only shapes run on no path)
+    # 6. the launch floor: an empty kernel in the kernels' harness, issued
+    # one launch at a time and as the nodes of one graph
+    floor_ms, floor_covered = cuda_ms(lambda: torch.cuda._sleep(0), 100)
+    node_ms = cuda_ms(floor_graph.replay, 1)[0] / FLOOR_NODES
+    say("floor", kernel="torch.cuda._sleep(0)",
+        empty_launch_ms=round(floor_ms, 5), graph_node_ms=round(node_ms, 5),
+        queued_under_spin=floor_covered, graph_nodes=FLOOR_NODES,
+        graph_launch_host_ms=round(host_untraced, 4),
+        graph_launch_host_ms_after_trace=round(
+            launch_host_ms(floor_graph), 4))
+    del floor_graph
+    # times beside the bounds (the check-only shapes run on no path)
     rows = []
     for case in cases:
         if case.get("check_only"):
@@ -1251,6 +1512,7 @@ def main() -> int:
             max_abs_err=case["max_abs_err"], ms=round(ms, 4),
             plain_ms=round(plain_ms, 4), bound_ms=round(bound_ms, 4),
             bound_by=bound_by, library_ms=library_ms,
+            bound_under_floor=bound_ms < floor_ms,
             call_ms=round(one_call, 4),
             queued_under_spin=covered, **extra))
     print(json.dumps({"kernels": rows}), flush=True)

@@ -15,8 +15,11 @@ change also proves that the committed files suffice).
 
 Each run's full output goes to ``DIR/compare_<i>_<tree>.log`` (default
 ``build/compare``); the summary printed per run is each path's untraced
-median step, host issue time and device time per step by kernel group
-(phase 5), and the ``kernels`` line's device ms per call (phase 6).
+median step and host issue time (phase 4; where the run has a
+``[graph]`` line, also its graphed and eager medians from the same
+state), device time per step by kernel group (phase 5), the empty
+launch's floor and the ``kernels`` line's device ms per call (phase
+6).
 Exits nonzero if any run failed.
 """
 from __future__ import annotations
@@ -34,9 +37,12 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def summarize(log: str) -> dict:
     """The per-path step, host and device numbers and the kernel rows of
     one ``chip_smoke.py`` output."""
-    paths, kernels = {}, []
+    paths, kernels, floor = {}, [], {}
     for line in log.splitlines():
-        m = re.match(r"\[(serve|profile)\] path=(\S+) backend=(\S+) (.*)", line)
+        if line.startswith("[floor] "):
+            floor = dict(re.findall(r"(\w+)=(\S+)", line))
+        m = re.match(r"\[(serve|graph|profile)\] path=(\S+) backend=(\S+) "
+                     r"(.*)", line)
         if m:
             kind, path, backend, rest = m.groups()
             kv = dict(re.findall(r"(\w+)=(\S+)", rest))
@@ -44,16 +50,22 @@ def summarize(log: str) -> dict:
             if kind == "serve" and "median_step_ms" in kv:
                 d.update(step_ms=kv["median_step_ms"],
                          host_ms=kv["median_host_ms"])
+            if kind == "graph":
+                d.update({k: kv[k] for k in (
+                    "graph_median_step_ms", "graph_median_host_ms",
+                    "eager_median_step_ms", "eager_median_host_ms")})
             if kind == "profile":
                 d.update({k[:-len("_ms_per_step")]: v for k, v in kv.items()
                           if k.endswith("_ms_per_step") and v != "0.0"
                           and not k.startswith("stage")})
                 d["idle_share"] = kv.get("idle_share")
+                if "graph_host_ms_after_trace" in kv:
+                    d["host_ms_after_trace"] = kv["graph_host_ms_after_trace"]
         if line.startswith('{"kernels"'):
             kernels = [(r["name"], r["path"], r["stage"], r["ms"],
                         r["library_ms"], r.get("products_ms"))
                        for r in json.loads(line)["kernels"]]
-    return dict(paths=paths, kernels=kernels)
+    return dict(paths=paths, floor=floor, kernels=kernels)
 
 
 def main() -> int:

@@ -17,16 +17,27 @@ two numbers per kernel:
   launches its kernel, and nowhere else (a plain-version call on a CPU
   tensor does not count) — ``chip_smoke.py`` reads it to prove the main
   path on the card went through the kernels.
+
+A CUDA graph (``serving/step_graph.py``) runs no Python when it
+replays, so launches made while a graph is captured
+(:func:`capturing`) go to that graph's own count, not to
+:func:`launches`, and a replay (:func:`replayed`) credits its graph's
+captured launches to :func:`launches` and adds one to :func:`replays`:
+launches counted eagerly are ``launches()`` less what the replays
+credited.
 """
 from __future__ import annotations
 
-from typing import Dict
+import contextlib
+from typing import Dict, Iterator, Optional
 
 KERNELS = ("fused_decode", "fused_ffn", "fused_head", "fused_mla_decode",
            "rwkv6_scan", "flash_decode", "rglru_scan")
 
 _calls: Dict[str, int] = {name: 0 for name in KERNELS}
 _launches: Dict[str, int] = {name: 0 for name in KERNELS}
+_replays = 0
+_capture: Optional[Dict[str, int]] = None   # the graph being captured
 
 
 def call(name: str) -> None:
@@ -34,13 +45,40 @@ def call(name: str) -> None:
 
 
 def launch(name: str) -> None:
-    _launches[name] += 1
+    if _capture is not None:
+        _capture[name] += 1
+    else:
+        _launches[name] += 1
+
+
+@contextlib.contextmanager
+def capturing() -> Iterator[Dict[str, int]]:
+    """While a graph is captured: launches go to the dict yielded (that
+    graph's launches per replay), not to :func:`launches`."""
+    global _capture
+    if _capture is not None:
+        raise RuntimeError("tracecount: a graph is already being captured")
+    _capture = {name: 0 for name in KERNELS}
+    try:
+        yield _capture
+    finally:
+        _capture = None
+
+
+def replayed(graph_launches: Dict[str, int]) -> None:
+    """One replay of a graph whose capture counted ``graph_launches``."""
+    global _replays
+    _replays += 1
+    for name, n in graph_launches.items():
+        _launches[name] += n
 
 
 def reset() -> None:
+    global _replays
     for d in (_calls, _launches):
         for name in d:
             d[name] = 0
+    _replays = 0
 
 
 def calls() -> Dict[str, int]:
@@ -49,3 +87,7 @@ def calls() -> Dict[str, int]:
 
 def launches() -> Dict[str, int]:
     return dict(_launches)
+
+
+def replays() -> int:
+    return _replays

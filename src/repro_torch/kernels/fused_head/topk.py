@@ -22,7 +22,7 @@ def select_topk(vals: torch.Tensor, ids: torch.Tensor, k: int
     maxima, mask), as the reference."""
     v = vals.float()
     i = ids.to(torch.int32)
-    big = torch.tensor(INT32_MAX, dtype=torch.int32, device=v.device)
+    big = torch.full((), INT32_MAX, dtype=torch.int32, device=v.device)
     out_v, out_i = [], []
     for _ in range(k):
         mv = v.amax(dim=-1, keepdim=True)

@@ -10,7 +10,11 @@ prepacked layout on ``"pallas"``, the train tree itself on ``"xla"``),
 allocates the decode state and returns the steps a serving loop
 drives: ``prefill_fn``/``decode_fn`` for lockstep batches
 (:func:`generate`) and ``admit_fn``/``retire_fn`` for continuous
-batching (``serving/scheduler.py``).  Models with recurrent layers
+batching (``serving/scheduler.py``).  On the card ``decode_fn`` is one
+CUDA-graph replay of the step, captured here on the engine's state
+(``serving/step_graph.py``, the counterpart of the reference's jitted
+step); the CPU runs the eager step, and so does :func:`decode_step`
+called directly on the card.  Models with recurrent layers
 (RWKV-6, RecurrentGemma's RG-LRU) are served lockstep only: their
 ``admit_fn`` raises, as the reference's does (a recurrent state cannot
 take a per-slot insert).
@@ -32,6 +36,7 @@ from repro_torch.serving.prefill import prefill
 from repro_torch.serving.prepack import prepack_for_serving
 from repro_torch.serving.sampling import (host_sampling_rows,
                                           reset_sampling_state)
+from repro_torch.serving.step_graph import StepGraph
 
 
 class EngineHandle(NamedTuple):
@@ -41,7 +46,9 @@ class EngineHandle(NamedTuple):
     is the train tree).
 
     * ``prefill_fn(params["train"], state, tokens [B, S])``;
-    * ``decode_fn(params["serve"], state, tokens [B])``;
+    * ``decode_fn(params["serve"], state, tokens [B])`` — on the card a
+      :class:`~repro_torch.serving.step_graph.StepGraph`, bound to
+      ``params["serve"]`` and to ``state``'s caches;
     * ``admit_fn(params["train"], state, tokens [B, S_cap], lengths [B],
       samp=None)`` — targeted prefill-insert of the slots with
       ``lengths[b] > 0`` (attention models; raises on recurrent layers);
@@ -74,7 +81,9 @@ def build_engine_full(cfg: ModelConfig, *, max_seq: int, batch_global: int,
     ``NotImplementedError`` naming their ROADMAP items.
     Prefill does not depend on the backend.  ``train_params``:
     train-layout weights to serve (e.g. from ``from_reference_params``);
-    default: :func:`init_params` from ``seed``."""
+    default: :func:`init_params` from ``seed``.  On a CUDA device
+    ``decode_fn`` is the step captured in a graph; on the CPU it is the
+    eager step."""
     dev = resolve_device(device)
     opt = options or EngineOptions()
     backend, prepack = resolve_serving(cfg, opt.backend, opt.prepack)
@@ -111,6 +120,8 @@ def build_engine_full(cfg: ModelConfig, *, max_seq: int, batch_global: int,
             new["nonfinite"] = torch.where(m, 0, st["nonfinite"])
         return new
 
+    if dev.type == "cuda":
+        decode_fn = StepGraph(cfg, scfg, serve, state)
     return EngineHandle(params, prefill_fn, decode_fn, admit_fn, retire_fn,
                         state, scfg, cfg, batch_global)
 

@@ -48,7 +48,8 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6
 
 def rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
     half = head_dim // 2
-    return torch.pow(torch.tensor(theta, dtype=torch.float32, device=device),
+    # a device-side scalar (no host copy: capturable in a CUDA graph)
+    return torch.pow(torch.full((), theta, dtype=torch.float32, device=device),
                      -torch.arange(half, dtype=torch.float32,
                                    device=device) / half)
 

@@ -168,8 +168,8 @@ def embed_tokens(cfg: ModelConfig, table: torch.Tensor,
     11.3125 at ``d_model`` 128, exactly 64 at 4096."""
     x = embed_lookup(table, tokens)
     if cfg.tie_embeddings:
-        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
-                             device=x.device)
+        x = x * torch.full((), math.sqrt(cfg.d_model), dtype=x.dtype,
+                           device=x.device)
     return x
 
 

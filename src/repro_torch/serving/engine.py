@@ -342,12 +342,15 @@ def decode_step(cfg: ModelConfig, scfg: ServeConfig, params: Dict[str, Any],
     new state)``: the layer groups, then the tail layers
     (``engine.py:643–650``).  The KV caches and recurrent states are
     updated in place; ``cache_lens`` and the sampling leaves are new
-    tensors in the returned dict."""
+    tensors in the returned dict.  ``tokens`` already on the state's
+    device is taken as is (no copy: a CUDA graph captures the step on a
+    fixed token buffer)."""
     _check_not_param_pair(params, "serve")
     params = hoist_serve_weights(params)
     cache_lens = state["cache_lens"]
     dev = cache_lens.device
-    tokens = torch.as_tensor(tokens, device=dev)
+    if not (torch.is_tensor(tokens) and tokens.device == dev):
+        tokens = torch.as_tensor(tokens, device=dev)
     x = embed_tokens(cfg, params["embed"], tokens)
     cos = sin = None
     if not cfg.is_attention_free:

@@ -40,7 +40,8 @@ def test_every_module_imports_without_jax():
             "repro_torch.kernels.flash_decode.flash_decode",
             "repro_torch.core.autotune", "repro_torch.models.rglru",
             "repro_torch.kernels.rglru_scan.rglru_scan",
-            "repro_torch.configs.recurrentgemma_9b"} <= set(_modules())
+            "repro_torch.configs.recurrentgemma_9b",
+            "repro_torch.serving.step_graph"} <= set(_modules())
 
 
 def test_no_source_names_jax_or_the_reference_package():
