@@ -60,8 +60,8 @@ def run_tree(tree: str, names) -> int:
             if case["name"] not in names:
                 continue
             case.setdefault("stage", "decode")
-            key = (case["name"], cfg.d_model, case["stage"],
-                   case.get("check_only", False))
+            key = (case["name"], case["stage"],
+                   case.get("check_only", False), case["cost"])
             if key in seen:             # the same shape on another path
                 continue
             seen.add(key)

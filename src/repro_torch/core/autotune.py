@@ -10,9 +10,11 @@
   B4, B2, B3);
 * ``"auto"``: ``"pallas"`` for models with attention layers, ``"xla"``
   for attention-free ones (the fusion scope the paper targets does not
-  apply, DESIGN.md §4) — so RecurrentGemma, which has local-attention
-  layers, resolves to ``"pallas"`` as in the reference, and raises: its
-  fused arm is not ported (ROADMAP item 10).
+  apply, DESIGN.md §4) — so the dense MHA and GQA models (Llama2-7B,
+  Granite-8B, Minitron-4B) and the dense-MLA arm resolve to the fused
+  kernels, and RecurrentGemma, which has local-attention layers,
+  resolves to ``"pallas"`` as in the reference and raises: its fused arm
+  is not ported (ROADMAP item 10).
 """
 from __future__ import annotations
 
@@ -50,15 +52,21 @@ def _prepack_for(backend_resolved: str, prepack) -> bool:
 def resolve_serving(cfg: ModelConfig, backend: str, prepack
                     ) -> Tuple[str, bool]:
     """``(backend, prepack)`` for ``cfg``, raising on the combinations the
-    port cannot serve yet (never falling back to another backend)."""
+    port cannot serve yet (never falling back to another backend): the
+    fused arm of RG-LRU and local-attention models (Gemma-2's modes and
+    fused RecurrentGemma, ROADMAP item 10), ``"pallas"`` with prepack off
+    on an attention model (B1's ``fuse_out=False``), and MLA on
+    ``"xla"`` (item 4b).  Dense MHA and GQA models, gated or ungated, tied
+    or not, serve on both backends."""
     b = _backend_for(cfg, backend)
     pp = _prepack_for(b, prepack)
     if b == "pallas" and {RECURRENT, ATTN_LOCAL} & set(cfg.layer_kinds):
         raise NotImplementedError(
             f"backend='pallas' for {cfg.name}: the fused arm of RG-LRU and "
-            "local-attention models needs B1's MQA, head_dim 256, window "
-            "and ring-cache modes, B2's gelu_tanh and B3's tied table "
-            "(ROADMAP item 10); serve it on backend='xla'")
+            "local-attention models needs B1's head_dim 256, window, "
+            "ring-cache and softcap modes, B2's post_ln1, B3's logit "
+            "softcap and the serve layout of tail layers (ROADMAP item "
+            "10, the Gemma-2 slice); serve it on backend='xla'")
     if b == "pallas" and not pp and not cfg.is_attention_free:
         raise NotImplementedError(
             "backend='pallas' with prepack off needs B1's fuse_out=False "

@@ -1,31 +1,35 @@
-// B2 — fused block tail: r = x + a, h = RMSNorm(r, ln2), gated SiLU FFN,
-// second residual add.  One device launch.
+// B2 — fused block tail: r = x + a, h = RMSNorm(r, ln2), the FFN (gated
+// act(h·Wg)·(h·Wi), or ungated act(h·Wi)), second residual add.  One
+// device launch.
 //
 // Replaces repro/kernels/fused_ffn/fused_ffn.py:fused_ffn_block (the
-// Pallas kernel at its pallas_call, line 153) without post_ln1, gated
-// SiLU.
+// Pallas kernel at its pallas_call, line 153) without post_ln1, gated or
+// ungated, with the reference's activations (silu, gelu = gelu_tanh,
+// relu, relu2) as a template parameter.
 //
 // Bound on an H100: bytes — w_in, w_gate and w_out (270.5 MB at
-// Llama2-7B) are read once per step for all B slots, at 2·B FLOPs per
+// Llama2-7B, 352 MB at Granite-8B; w_in and w_out, 113 MB, ungated at
+// Minitron-4B) are read once per step for all B slots, at 2·B FLOPs per
 // weight element.  Design, the paper's cluster split: G thread-block
 // clusters of C CTAs (the wrapper's plan: 15 clusters of 8, 120 CTAs, at
-// Llama2-7B and DeepSeek-V2-Lite: as many as an H100 runs at once with
-// one CTA an SM; a 16th would share SMs and hold the launch back).
-// Cluster g owns a contiguous slice of d_ff (a multiple of 16 columns)
-// and rank r of it rows [r·D/C, (r+1)·D/C) of d_model.  Rank r of
+// every served width: as many as an H100 runs at once with one CTA an
+// SM; a 16th would share SMs and hold the launch back).  Cluster g owns
+// a contiguous slice of d_ff (a multiple of 16 columns, at most 64 units
+// of 16) and rank r of it rows [r·D/C, (r+1)·D/C) of d_model.  Rank r of
 // cluster g
 //   1. computes r = bf16(x + a) on its rows and their sums of squares,
 //      summed over the cluster in rank order (cluster::sum), and keeps h
 //      = bf16(rms(r, ln2)) of its rows in shared memory;
-//   2. streams its rows of the slice's w_in columns, then of its w_gate
-//      columns, ONCE through a 4-stage cp.async ring and multiplies them
-//      on the tensor cores (mma.sync m16n8k16: the weight tile as A,
-//      loaded with ldmatrix .trans, the B ≤ 8 slots on n, so no MMA row
-//      is padding);
-//   3. ClusterReduce: the [F_g, 2, 8] f32 u|g partials are summed in rank
-//      order over DSMEM, each rank its own columns (cluster::sum), which
-//      it rounds — u, g and hm = bf16(silu(g)·u), the reference's
-//      rounding points — and gathers as bf16 (cluster::gather);
+//   2. streams its rows of the slice's w_in columns, then (gated) of its
+//      w_gate columns, ONCE through a 4-stage cp.async ring and
+//      multiplies them on the tensor cores (mma.sync m16n8k16: the weight
+//      tile as A, loaded with ldmatrix .trans, the B ≤ 8 slots on n, so
+//      no MMA row is padding);
+//   3. ClusterReduce: the [F_g, 8] f32 u partials (gated: u|g, [F_g, 2,
+//      8]) are summed in rank order over DSMEM, each rank its own columns
+//      (cluster::sum), which it rounds — u, g and hm = bf16(act(g)·u), or
+//      hm = bf16(act(u)) ungated: the reference's rounding points — and
+//      gathers as bf16 (cluster::gather);
 //   4. streams the slice's w_out rows, columns [r·D/C, (r+1)·D/C), through
 //      a 5-stage ring (its first two tiles load during step 3) and
 //      multiplies hm by them on the tensor cores: the cluster's [B, D]
@@ -49,38 +53,62 @@ constexpr int BP = 8;          // slots as laid out: the MMA's n
 constexpr int TK = 16;         // weight rows a tile: one k16 step
 constexpr int UST = 4;         // w_in / w_gate ring stages
 constexpr int DST = 5;         // w_out ring stages (two load before step 3)
-constexpr int MAX_UT = 6;      // u|g m tiles a warp: a slice ≤ 48·16 columns
 constexpr int MAX_DT = 4;      // down m tiles a warp: D / C ≤ 512
+// u|g m tiles a warp (a template parameter): 6 where a slice holds at
+// most 48 16-column units (Llama2-7B's, DeepSeek-V2-Lite's and
+// Minitron-4B's plans: the accumulators fit 128 registers, two CTAs an
+// SM possible), 8 up to 64 units (Granite-8B's d_ff 14336 in one wave)
+constexpr int MAX_UNITS = NW * 8;
+
+// The reference's activations (repro/models/layers.py:activation; gelu is
+// jax.nn.gelu's default, the tanh approximation), in f32.
+enum Act { SILU = 0, GELU_TANH = 1, RELU = 2, RELU2 = 3 };
+
+template <int ACT>
+DEVI float act_f32(float v) {
+  if constexpr (ACT == SILU) {
+    return v * (1.0f / (1.0f + expf(-v)));
+  } else if constexpr (ACT == GELU_TANH) {
+    const float c = 0.7978845608028654f;   // sqrt(2 / pi)
+    return v * (0.5f * (1.0f + tanhf(c * (v + 0.044715f * (v * v * v)))));
+  } else if constexpr (ACT == RELU) {
+    return fmaxf(v, 0.f);
+  } else {
+    const float r = fmaxf(v, 0.f);
+    return r * r;
+  }
+}
 
 __host__ __device__ constexpr size_t smax(size_t a, size_t b) {
   return a > b ? a : b;
 }
 
 // Shared-memory layout for Dr = D / C rows a rank, slices of at most Fm
-// columns, C ranks.
+// columns, C ranks, NPC partial floats a column (u for 8 slots, then g
+// for 8 when gated).
 struct Lay {
-  int Dr, Fm, C;
+  int Dr, Fm, C, NPC;
   __host__ __device__ int urow() const { return Fm + 8; }   // bf16, padded
   __host__ __device__ int drow() const { return Dr + 8; }   // bf16, padded
   __host__ __device__ size_t up_stage() const { return (size_t)TK * urow() * 2; }
   __host__ __device__ size_t dn_stage() const { return (size_t)TK * drow() * 2; }
-  // the u|g partials f32 [Fm][2·BP], after the first two w_out tiles
+  // the u|g partials f32 [Fm][NPC], after the first two w_out tiles
   __host__ __device__ size_t part() const { return 2 * dn_stage(); }
   // region 0, reused phase by phase: the up ring; the first two w_out
   // tiles and the partials; the w_out ring; the output staging
   // f32 [BP][Dr + 4]
   __host__ __device__ size_t r0() const {
     size_t s = UST * up_stage();
-    s = smax(s, part() + (size_t)Fm * 2 * BP * 4);
+    s = smax(s, part() + (size_t)Fm * NPC * 4);
     s = smax(s, DST * dn_stage());
     return smax(s, (size_t)BP * (Dr + 4) * 4);
   }
   // region 1: this rank's rows of h, bf16 [BP][Dr + 8]; after step 2 the
-  // rank's reduced u|g f32 [Fm / C][2·BP], then hm bf16 [Fm][BP]
+  // rank's reduced u|g f32 [Fm / C][NPC], then hm bf16 [Fm][BP]
   __host__ __device__ size_t hs() const { return r0(); }
   __host__ __device__ size_t red() const { return hs(); }
   __host__ __device__ size_t hm() const {
-    return red() + (size_t)(Fm / C) * 2 * BP * 4;
+    return red() + (size_t)(Fm / C) * NPC * 4;
   }
   __host__ __device__ size_t misc() const {
     return hs() + smax((size_t)BP * drow() * 2,
@@ -94,17 +122,23 @@ struct Lay {
   __host__ __device__ size_t total() const { return ln2s() + (size_t)Dr * 4; }
 };
 
-template <int B>
-__global__ void __launch_bounds__(NT, 2)
+// MUT 8: one CTA an SM (the grid is one wave of them), as the gated
+// instance's 64 u|g accumulators a thread need more than 128 registers.
+// BT: the slots as a constant (8, the served batch), or 0 to take them
+// from B_ (fewer slots)
+template <bool GATED, int ACT, int MUT, int BT>
+__global__ void __launch_bounds__(NT, MUT == 8 ? 1 : 2)
 fused_ffn_kernel(const bf16* __restrict__ x, const bf16* __restrict__ a,
                  const bf16* __restrict__ w_in, const bf16* __restrict__ w_gate,
                  const bf16* __restrict__ w_out, const float* __restrict__ ln2,
                  float* __restrict__ ws, int* __restrict__ arrivals,
-                 bf16* __restrict__ o, bf16* __restrict__ r_out, int D, int F,
-                 int Fm, float eps, float add_r) {
+                 bf16* __restrict__ o, bf16* __restrict__ r_out, int B_, int D,
+                 int F, int Fm, float eps, float add_r) {
+  const int B = BT ? BT : B_;
+  constexpr int NPC = GATED ? 2 * BP : BP;   // partial floats a column
   const int C = (int)cooperative_groups::this_cluster().num_blocks();
   const int rank = blockIdx.x % C, g = blockIdx.x / C, G = gridDim.x / C;
-  const Lay L{D / C, Fm, C};
+  const Lay L{D / C, Fm, C, NPC};
   const int Dr = L.Dr, d0 = rank * Dr, urow = L.urow(), drow = L.drow();
   // cluster g's slice of d_ff: [f0, f0 + Fg), whole 16-column units
   const int units = F / 16, per = units / G, extra = units % G;
@@ -134,7 +168,8 @@ fused_ffn_kernel(const bf16* __restrict__ x, const bf16* __restrict__ a,
   // first w_in tiles, all in flight at once
   for (int i = tid; i < Dr / 4; i += NT) cp_async16(ln2s + i * 4, ln2 + d0 + i * 4);
   cp_async_commit();
-  const int nk = Dr / TK, nup = 2 * nk;     // w_in tiles, then w_gate's
+  // w_in tiles, then (gated) w_gate's
+  const int nk = Dr / TK, nup = GATED ? 2 * nk : nk;
   const int c8 = Fg / 8;
   auto load_up = [&](int t) {
     bf16* dst = ring + (size_t)(t % UST) * TK * urow;
@@ -154,30 +189,34 @@ fused_ffn_kernel(const bf16* __restrict__ x, const bf16* __restrict__ a,
   // ---- step 1: r = bf16(x + a) and its sums of squares on this rank's
   // rows, summed over the cluster in rank order; h = bf16(rms(r, ln2)) --
   {
-    float ss[B];
+    float ss[BP];
 #pragma unroll
-    for (int b = 0; b < B; ++b) ss[b] = 0.f;
+    for (int b = 0; b < BP; ++b) ss[b] = 0.f;
     for (int i = tid; i < Dr / 8; i += NT) {
 #pragma unroll
-      for (int b = 0; b < B; ++b) {
-        float xv[8], av[8];
-        load_bf16x8(x + (size_t)b * D + d0 + i * 8, xv);
-        load_bf16x8(a + (size_t)b * D + d0 + i * 8, av);
-        __align__(16) bf16 r8[8];
+      for (int b = 0; b < BP; ++b) {
+        if (b < B) {
+          float xv[8], av[8];
+          load_bf16x8(x + (size_t)b * D + d0 + i * 8, xv);
+          load_bf16x8(a + (size_t)b * D + d0 + i * 8, av);
+          __align__(16) bf16 r8[8];
 #pragma unroll
-        for (int k = 0; k < 8; ++k) {
-          const float v = round_bf(xv[k] + av[k]);
-          ss[b] += v * v;
-          r8[k] = f2bf(v);
+          for (int k = 0; k < 8; ++k) {
+            const float v = round_bf(xv[k] + av[k]);
+            ss[b] += v * v;
+            r8[k] = f2bf(v);
+          }
+          *reinterpret_cast<uint4*>(hs + b * drow + i * 8) =
+              *reinterpret_cast<const uint4*>(r8);
         }
-        *reinterpret_cast<uint4*>(hs + b * drow + i * 8) =
-            *reinterpret_cast<const uint4*>(r8);
       }
     }
 #pragma unroll
-    for (int b = 0; b < B; ++b) {
-      const float s = warp_sum(ss[b]);
-      if (lane == 0) red_ss[warp * BP + b] = s;
+    for (int b = 0; b < BP; ++b) {
+      if (b < B) {
+        const float s = warp_sum(ss[b]);
+        if (lane == 0) red_ss[warp * BP + b] = s;
+      }
     }
     __syncthreads();
     if (tid < BP) {
@@ -206,19 +245,25 @@ fused_ffn_kernel(const bf16* __restrict__ x, const bf16* __restrict__ a,
     }
   }
 
-  // ---- step 2: u|g over this rank's rows -------------------------------
+  // ---- step 2: u (and g) over this rank's rows -------------------------
   // warp w: m tiles (16 columns of the slice) w, w + 8, …; A = the weight
   // tile (ldmatrix .trans), B = h (k pairs of one slot a lane)
   const int nut = Fg / 16;
-  float cu[MAX_UT][4], cg_[MAX_UT][4];
+  float cu[MUT][4], cg_[GATED ? MUT : 1][4];
 #pragma unroll
-  for (int j = 0; j < MAX_UT; ++j)
+  for (int j = 0; j < MUT; ++j)
 #pragma unroll
-    for (int q = 0; q < 4; ++q) { cu[j][q] = 0.f; cg_[j][q] = 0.f; }
+    for (int q = 0; q < 4; ++q) cu[j][q] = 0.f;
+  if constexpr (GATED) {
+#pragma unroll
+    for (int j = 0; j < MUT; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) cg_[j][q] = 0.f;
+  }
   auto mma_up = [&](const bf16* tile, uint32_t b0, uint32_t b1,
-                    float (&acc)[MAX_UT][4]) {
+                    float (&acc)[MUT][4]) {
 #pragma unroll
-    for (int j = 0; j < MAX_UT; ++j) {
+    for (int j = 0; j < MUT; ++j) {
       const int mt = warp + j * NW;
       if (mt < nut) {
         uint32_t af[4];
@@ -237,8 +282,12 @@ fused_ffn_kernel(const bf16* __restrict__ x, const bf16* __restrict__ a,
     const bf16* tile = ring + (size_t)(t % UST) * TK * urow;
     const bf16* hb = hs + gi * drow + (t % nk) * TK + ti * 2;
     const uint32_t b0 = lds32(hb), b1 = lds32(hb + 8);
-    if (t < nk) mma_up(tile, b0, b1, cu);
-    else mma_up(tile, b0, b1, cg_);
+    if constexpr (GATED) {
+      if (t < nk) mma_up(tile, b0, b1, cu);
+      else mma_up(tile, b0, b1, cg_);
+    } else {
+      mma_up(tile, b0, b1, cu);
+    }
   }
   cp_async_wait<0>();
   __syncthreads();
@@ -262,15 +311,17 @@ fused_ffn_kernel(const bf16* __restrict__ x, const bf16* __restrict__ a,
 
   // this rank's partials as part[f][u 0..7 | g 0..7]
 #pragma unroll
-  for (int j = 0; j < MAX_UT; ++j) {
+  for (int j = 0; j < MUT; ++j) {
     const int mt = warp + j * NW;
     if (mt < nut) {
-      float* p0 = part + (size_t)(mt * 16 + gi) * 2 * BP + ti * 2;
-      float* p1 = p0 + 8 * 2 * BP;
+      float* p0 = part + (size_t)(mt * 16 + gi) * NPC + ti * 2;
+      float* p1 = p0 + 8 * NPC;
       *reinterpret_cast<float2*>(p0) = make_float2(cu[j][0], cu[j][1]);
       *reinterpret_cast<float2*>(p1) = make_float2(cu[j][2], cu[j][3]);
-      *reinterpret_cast<float2*>(p0 + BP) = make_float2(cg_[j][0], cg_[j][1]);
-      *reinterpret_cast<float2*>(p1 + BP) = make_float2(cg_[j][2], cg_[j][3]);
+      if constexpr (GATED) {
+        *reinterpret_cast<float2*>(p0 + BP) = make_float2(cg_[j][0], cg_[j][1]);
+        *reinterpret_cast<float2*>(p1 + BP) = make_float2(cg_[j][2], cg_[j][3]);
+      }
     }
   }
   // ClusterReduce: rank r sums columns [r·Fg/C, (r+1)·Fg/C) in rank order
@@ -278,13 +329,16 @@ fused_ffn_kernel(const bf16* __restrict__ x, const bf16* __restrict__ a,
   // shifted back by the range's start), rounds them to hm, and the ranks
   // gather hm
   const int fr = Fg / C, fb = rank * fr;
-  cluster::sum(part, red - (size_t)fb * 2 * BP, fb * 2 * BP, (fb + fr) * 2 * BP);
+  cluster::sum(part, red - (size_t)fb * NPC, fb * NPC, (fb + fr) * NPC);
   for (int i = tid; i < fr * BP; i += NT) {
     const int f = i / BP, b = i % BP;
-    const float u = round_bf(red[f * 2 * BP + b]);
-    const float gv = round_bf(red[f * 2 * BP + BP + b]);
-    const float act = gv * (1.0f / (1.0f + expf(-gv)));
-    hm[(fb + f) * BP + b] = f2bf(act * u);
+    const float u = round_bf(red[f * NPC + b]);
+    if constexpr (GATED) {
+      const float gv = round_bf(red[f * NPC + BP + b]);
+      hm[(fb + f) * BP + b] = f2bf(act_f32<ACT>(gv) * u);
+    } else {
+      hm[(fb + f) * BP + b] = f2bf(act_f32<ACT>(u));
+    }
   }
   // hm is [Fg][BP] bf16: a rank's columns are fr·BP/2 floats
   cluster::gather(reinterpret_cast<float*>(hm), fr * BP / 2);
@@ -386,48 +440,56 @@ fused_ffn_kernel(const bf16* __restrict__ x, const bf16* __restrict__ a,
 
 // What the kernel takes (the wrapper's cluster_plan keeps to it): D / C
 // rows a rank, a multiple of 16 up to 512; d_ff a multiple of 16, cut
-// into G slices of at most 736 columns (MAX_UT m tiles a warp), at least
-// 16 each; B ≤ 8 slots.
-bool plan_ok(int D, int F, int G, int C) {
-  if (C < 1 || G < 1 || D % C) return false;
+// into G slices of at most MAX_UNITS 16-column units (8 m tiles a warp),
+// at least one each; 1 ≤ B ≤ 8 slots.
+bool plan_ok(int B, int D, int F, int G, int C) {
+  if (B < 1 || B > BP || C < 1 || C > 8 || G < 1 || D % C) return false;
   const int Dr = D / C, units = F / 16;
   return Dr % 16 == 0 && Dr <= 16 * NW * MAX_DT && F % 16 == 0 &&
-         units >= G && (units + G - 1) / G <= 46;
+         units >= G && (units + G - 1) / G <= MAX_UNITS;
 }
 
-template <int B>
-int launch(int G, int C, const bf16* x, const bf16* a, const bf16* w_in,
-           const bf16* w_gate, const bf16* w_out, const float* ln2, float* ws,
-           int* arrivals, bf16* o, bf16* r, int D, int F, float eps,
-           float add_r, cudaStream_t stream) {
+template <bool GATED, int ACT>
+int launch(int B, int G, int C, const bf16* x, const bf16* a,
+           const bf16* w_in, const bf16* w_gate, const bf16* w_out,
+           const float* ln2, float* ws, int* arrivals, bf16* o, bf16* r,
+           int D, int F, float eps, float add_r, cudaStream_t stream) {
   const int units = F / 16, Fm = 16 * ((units + G - 1) / G);
-  const Lay L{D / C, Fm, C};
-  return (int)cluster::launch(fused_ffn_kernel<B>, dim3(G * C), NT, L.total(),
-                              stream, C, x, a, w_in, w_gate, w_out, ln2, ws,
-                              arrivals, o, r, D, F, Fm, eps, add_r);
+  const Lay L{D / C, Fm, C, GATED ? 2 * BP : BP};
+  auto kernel = Fm / 16 <= NW * 6
+      ? (B == BP ? fused_ffn_kernel<GATED, ACT, 6, BP>
+                 : fused_ffn_kernel<GATED, ACT, 6, 0>)
+      : (B == BP ? fused_ffn_kernel<GATED, ACT, 8, BP>
+                 : fused_ffn_kernel<GATED, ACT, 8, 0>);
+  return (int)cluster::launch(kernel, dim3(G * C), NT, L.total(), stream, C,
+                              x, a, w_in, w_gate, w_out, ln2, ws, arrivals, o,
+                              r, B, D, F, Fm, eps, add_r);
 }
 
 }  // namespace
 
+// act: 0 silu, 1 gelu_tanh (= the reference's gelu), 2 relu, 3 relu2;
+// gated 0: w_gate is not read (may be null).
 extern "C" int fused_ffn_launch(const void* x, const void* a, const void* w_in,
                                 const void* w_gate, const void* w_out,
                                 const void* ln2, void* ws, void* arrivals,
                                 void* o, void* r, int B, int D, int F, int G,
-                                int C, float eps, float add_r, void* stream) {
-  if (!plan_ok(D, F, G, C)) return (int)cudaErrorInvalidValue;
-#define ARGS G, C, (const bf16*)x, (const bf16*)a, (const bf16*)w_in,              \
+                                int C, int act, int gated, float eps,
+                                float add_r, void* stream) {
+  if (!plan_ok(B, D, F, G, C) || act < SILU || act > RELU2)
+    return (int)cudaErrorInvalidValue;
+#define ARGS B, G, C, (const bf16*)x, (const bf16*)a, (const bf16*)w_in,          \
     (const bf16*)w_gate, (const bf16*)w_out, (const float*)ln2, (float*)ws,      \
     (int*)arrivals, (bf16*)o, (bf16*)r, D, F, eps, add_r, (cudaStream_t)stream
-  switch (B) {
-    case 1: return launch<1>(ARGS);
-    case 2: return launch<2>(ARGS);
-    case 3: return launch<3>(ARGS);
-    case 4: return launch<4>(ARGS);
-    case 5: return launch<5>(ARGS);
-    case 6: return launch<6>(ARGS);
-    case 7: return launch<7>(ARGS);
-    case 8: return launch<8>(ARGS);
-    default: return (int)cudaErrorInvalidValue;
+  switch (act + 4 * (gated != 0)) {
+    case SILU: return launch<false, SILU>(ARGS);
+    case GELU_TANH: return launch<false, GELU_TANH>(ARGS);
+    case RELU: return launch<false, RELU>(ARGS);
+    case RELU2: return launch<false, RELU2>(ARGS);
+    case 4 + SILU: return launch<true, SILU>(ARGS);
+    case 4 + GELU_TANH: return launch<true, GELU_TANH>(ARGS);
+    case 4 + RELU: return launch<true, RELU>(ARGS);
+    default: return launch<true, RELU2>(ARGS);
   }
 #undef ARGS
 }

@@ -3,8 +3,9 @@ per-head Output-Projection (``fuse_out="partial_o"``).
 
 Replaces ``repro/kernels/fused_decode/fused_decode.py:fused_decode_attention``
 (``pallas_call`` at line 374), in the mode the serving path runs: fused
-``ln1``, linear cache, no bias, window, ring or softcap.  The other modes
-raise ``NotImplementedError`` (ROADMAP.md, the Gemma-2 slice).
+``ln1``, linear cache, no bias, window, ring or softcap, MHA, GQA or MQA
+at ``head_dim`` 128.  The other modes raise ``NotImplementedError``
+(ROADMAP.md, the Gemma-2 slice).
 
 CUDA kernel: ``csrc/fused_decode.cu``.  What bounds it on an H100: bytes.
 At Llama2-7B widths one layer streams ``wqkv`` (100.7 MB) and ``wo``
@@ -13,12 +14,18 @@ a few FLOPs per byte, far under the ~295 FLOP/byte ridge.  The design
 reads every weight byte ONCE per launch for the whole batch (the JAX
 path vmaps the Pallas kernel per slot, so on the TPU each slot re-reads
 ``wqkv``/``wo``), and is the paper's: one thread-block cluster of ``C``
-CTAs per kv head (:func:`cluster_size`, 4 at Llama2-7B: 128 CTAs).  Each
-rank projects its ``D/C`` rows of the head's ``wqkv`` columns, the
-partials are summed over distributed shared memory in rank order, each
-rank attends its share of every slot's live rows, the ``(m, l, acc)``
-partials merge on chip in rank order, and each rank projects through
-its ``D/C`` columns of ``wo``.
+CTAs per kv head, holding its ``H`` = ``q_per_kv`` query heads
+(:func:`cluster_plan`: ``C`` 4 and ``H`` 1 at Llama2-7B, 128 CTAs; ``C``
+8 and ``H`` 4 and 3 at Granite-8B and Minitron-4B, 64 CTAs: clusters of
+16 or a kv head split over two clusters took a second wave and were
+slower, PERF.md §6).
+Each rank projects its ``D/C`` rows of the cluster's ``wqkv`` columns
+(its query heads, then the kv head's k and v), the partials are summed over
+distributed shared memory in rank order, each rank attends its share of
+every slot's live rows for the cluster's query heads (each K/V row read
+once for all of them), the ``(m, l, acc)`` partials merge on chip in
+rank order, and each rank projects every head through its ``D/C``
+columns of that head's ``wo``.
 Attention covers only each slot's live prefix (``cache_len`` ragged,
 ``−1`` = free slot: no KV read at all).
 
@@ -45,6 +52,7 @@ _HEAD_DIMS = (128,)  # head dims the CUDA kernel is instantiated for
 _MAX_CLUSTER = 8     # the portable thread-block cluster size
 _TARGET_CTAS = 128   # about one CTA per SM of an H100 (132)
 _MAX_ROWS = 1024     # wqkv rows a rank may hold (csrc MAX_NTO · 64)
+_HEADS = (1, 3, 4)   # query heads a cluster the kernel is instantiated for
 
 
 def _rows_ok(rows: int) -> bool:
@@ -55,9 +63,9 @@ def _rows_ok(rows: int) -> bool:
 
 def cluster_size(kv_heads: int, d_model: int) -> int:
     """CTAs in the cluster of one kv head: the power of two ≤ 8 that
-    brings the grid to about ``_TARGET_CTAS`` (Llama2-7B's 32 heads: 4),
-    halved until each rank's ``d_model / C`` rows are ones the kernel
-    takes; 0 if none is."""
+    brings the grid to about ``_TARGET_CTAS`` (Llama2-7B's 32 heads: 4;
+    8 kv heads: 8), halved until each rank's ``d_model / C`` rows are
+    ones the kernel takes; 0 if none is."""
     c = 1
     while c < _MAX_CLUSTER and kv_heads * c < _TARGET_CTAS:
         c *= 2
@@ -66,6 +74,18 @@ def cluster_size(kv_heads: int, d_model: int) -> int:
             return c
         c //= 2
     return 0
+
+
+def cluster_plan(q_heads: int, kv_heads: int, d_model: int):
+    """``(C, H)`` from the shapes alone: ``H`` = ``q_per_kv`` query heads
+    a cluster (MHA 1, Minitron-4B 3, Granite-8B 4: the kernel's
+    instances), ``C`` CTAs a cluster for the ``kv_heads`` clusters
+    (:func:`cluster_size`); ``(0, 0)`` where no plan fits (another
+    ``q_per_kv``: ROADMAP.md)."""
+    if kv_heads < 1 or q_heads % kv_heads or q_heads // kv_heads not in _HEADS:
+        return (0, 0)
+    c = cluster_size(kv_heads, d_model)
+    return (c, q_heads // kv_heads) if c else (0, 0)
 
 
 def _check_mode(fuse_out, bqkv, window, ring, attn_softcap, norm_scale):
@@ -167,7 +187,7 @@ def fused_decode_plain(x, wqkv, wo, norm_scale, k_cache, v_cache, pos,
             m.reshape(B, q_loc), l.reshape(B, q_loc))
 
 
-_ARGTYPES = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 7 \
+_ARGTYPES = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 8 \
     + [ctypes.c_float] * 2 + [ctypes.c_void_p]
 
 
@@ -175,20 +195,20 @@ def fused_decode_cuda(x, wqkv, wo, norm_scale, k_cache, v_cache, pos,
                       cache_lens, include_new, cos, sin, *, q_heads,
                       kv_heads, scale, norm_eps):
     """Launch ``csrc/fused_decode.cu`` on the current stream (one launch
-    for the whole batch, in clusters of ``cluster_size`` CTAs)."""
+    for the whole batch, ``kv_heads`` clusters of ``C`` CTAs)."""
     B, D = x.shape
     S, rows, hd = k_cache.shape
-    C = cluster_size(kv_heads, D)
-    if (q_heads != kv_heads or hd not in _HEAD_DIMS or B > _MAX_B
-            or rows != B * kv_heads or not C
-            or wqkv.shape != (D, (q_heads + 2 * kv_heads) * hd)
+    C, H = cluster_plan(q_heads, kv_heads, D)
+    if (hd not in _HEAD_DIMS or B > _MAX_B or rows != B * kv_heads
+            or not C or wqkv.shape != (D, (q_heads + 2 * kv_heads) * hd)
             or wo.shape != (q_heads, hd, D) or pos.shape != (S, B)):
         raise NotImplementedError(
-            f"fused_decode CUDA kernel: MHA, head_dim in {_HEAD_DIMS}, "
-            f"B ≤ {_MAX_B}, d_model split into 64–{_MAX_ROWS} rows a rank "
-            f"(a multiple of 64); got x {tuple(x.shape)}, cache "
-            f"{tuple(k_cache.shape)}, wqkv {tuple(wqkv.shape)}, heads "
-            f"{q_heads}/{kv_heads}")
+            f"fused_decode CUDA kernel: head_dim in {_HEAD_DIMS}, "
+            f"q_per_kv in {_HEADS}, B ≤ {_MAX_B}, d_model split "
+            f"into 64–{_MAX_ROWS} rows a rank (a multiple of 64); got x "
+            f"{tuple(x.shape)}, cache {tuple(k_cache.shape)}, wqkv "
+            f"{tuple(wqkv.shape)}, heads {q_heads}/{kv_heads}, plan "
+            f"{(C, H)} (other head dims and q_per_kv: ROADMAP.md)")
     bf, f32, i32 = torch.bfloat16, torch.float32, torch.int32
     tensors = dict(x=x, wqkv=wqkv, wo=wo, ln1=norm_scale, k_cache=k_cache,
                    v_cache=v_cache, pos=pos, cache_lens=cache_lens,
@@ -205,7 +225,7 @@ def fused_decode_cuda(x, wqkv, wo, norm_scale, k_cache, v_cache, pos,
     err = fn(*(t.data_ptr() for t in tensors.values()),
              o.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
              m.data_ptr(), l.data_ptr(), B, D, S, q_heads, kv_heads, hd, C,
-             scale, norm_eps, _build.stream_ptr(x))
+             H, scale, norm_eps, _build.stream_ptr(x))
     _build.check(err, "fused_decode")
     tracecount.launch("fused_decode")
     return o, k_new, v_new, m, l

@@ -4,9 +4,11 @@ size 1 (every collective of the reference is the identity there).
 Numerics follow the reference exactly: RMSNorm uses ``(1 + scale)`` in
 f32 and casts back; RoPE rotates the two halves of the head dimension
 (not interleaved pairs); LM-head logits are f32 from model-dtype
-operands.
+operands, summed in 64-column chunks, one vocabulary tile at a time.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -86,11 +88,45 @@ def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     return table[tokens.long()]
 
 
-def lm_head_logits(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """f32 logits ``x · tableᵀ``: model-dtype values are exact in f32, so
-    this equals the reference's model-dtype product with f32
-    accumulation."""
-    return x.float() @ table.float().T
+# The loose head sums each logit as 64-column chunks (each a product of
+# model-dtype values with f32 output), then the chunks in f32: B3's
+# order, within 4 f32 ulps of the f64 sum (ROADMAP C3), where one
+# tensor-core product over all of d_model strays further.  The
+# vocabulary goes HEAD_TILE_ROWS rows at a time, so no f32 temporary is
+# the table's size.
+HEAD_CHUNK = 64
+HEAD_TILE_ROWS = 8192
+
+
+def lm_head_logits(table: torch.Tensor, x: torch.Tensor, *,
+                   tile_rows: int = HEAD_TILE_ROWS) -> torch.Tensor:
+    """f32 logits ``x · tableᵀ`` ``[..., V]`` without an f32 copy of the
+    ``[V, D]`` table.  Model-dtype products are exact in f32, so this is
+    the reference's model-dtype product with f32 accumulation: per
+    vocabulary tile of ``tile_rows`` rows, one batched product over the
+    ``D / 64`` column chunks gives each chunk's f32 partial ``[D/64, N,
+    rows]`` — on the card from the bf16 operands themselves (a product
+    with f32 output), elsewhere from the tile upcast on its own — and the
+    partials are summed in f32.  Every size follows from the shapes (no
+    host sync: capturable in a CUDA graph)."""
+    lead, D = x.shape[:-1], x.shape[-1]
+    V = table.shape[0]
+    chunk = math.gcd(D, HEAD_CHUNK)
+    nc = D // chunk
+    xr = x.reshape(-1, D)
+    xc = xr.view(xr.shape[0], nc, chunk).transpose(0, 1)     # [nc, N, c]
+    on_card = (x.is_cuda and x.dtype == table.dtype
+               and x.dtype in (torch.bfloat16, torch.float16))
+    if not on_card:
+        xc = xc.float()
+    tiles = []
+    for v0 in range(0, V, tile_rows):
+        t = table[v0:v0 + tile_rows]
+        tc = t.view(t.shape[0], nc, chunk).permute(1, 2, 0)  # [nc, c, n]
+        part = (torch.bmm(xc, tc, out_dtype=torch.float32) if on_card
+                else torch.bmm(xc, tc.float()))
+        tiles.append(part.sum(dim=0))
+    return torch.cat(tiles, dim=-1).view(*lead, V)
 
 
 def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:

@@ -43,11 +43,11 @@ from repro_torch.models.layers import (embed_lookup, ffn_apply, rms_norm,
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    """The port runs decoders with dense FFNs whose layers are global
-    attention — GQA/MHA (Llama-style) or MLA (the dense-MLA arm of
-    DeepSeek-V2-Lite) —, local (sliding-window) attention and RG-LRU
-    blocks (RecurrentGemma, tied embeddings included), and the all-RWKV-6
-    pattern (RWKV-6 3B).  MoE, post-norms, q/k/v biases, encoders and
+    """The port runs decoders with dense FFNs (gated or not) whose layers
+    are global attention — MHA or GQA (Llama-style, Granite-8B,
+    Minitron-4B) or MLA (the dense-MLA arm of DeepSeek-V2-Lite) —, local
+    (sliding-window) attention and RG-LRU blocks (RecurrentGemma), tied
+    embeddings or not, and the all-RWKV-6 pattern (RWKV-6 3B).  MoE, post-norms, q/k/v biases, encoders and
     frontends are later slices (ROADMAP.md)."""
     kinds = set(cfg.layer_kinds)
     if RWKV6 in kinds:
@@ -137,11 +137,10 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda",
                 "wv": lin((d, nkv, hd), s_in),
                 "wo": lin((nq * hd, d), 1.0 / math.sqrt(nq * hd)),
             }
-        blk["ffn"] = {
-            "w_in": lin((d, F), s_in),
-            "w_gate": lin((d, F), s_in),
-            "w_out": lin((F, d), 1.0 / math.sqrt(F)),
-        }
+        blk["ffn"] = {"w_in": lin((d, F), s_in)}
+        if cfg.ffn_gated:                   # ungated (relu2): no gate
+            blk["ffn"]["w_gate"] = lin((d, F), s_in)
+        blk["ffn"]["w_out"] = lin((F, d), 1.0 / math.sqrt(F))
         return blk
 
     period = len(cfg.block_pattern)

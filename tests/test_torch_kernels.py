@@ -507,15 +507,19 @@ def test_fused_ffn_plain_vs_pallas_and_ref(add_r, dt):
 
 
 def test_fused_ffn_unported_variants_raise():
+    """``post_ln1`` (gated or not: the Gemma-2 slice) and an activation
+    outside the reference's table raise; the ungated form and the table's
+    activations are ported (``tests/test_torch_gqa.py``)."""
     x = torch.zeros(2, 8)
     w = torch.zeros(8, 8)
-    with pytest.raises(NotImplementedError):
-        b2.fused_ffn_block(x, x, w, None, w, torch.zeros(8))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="post_ln1"):
+        b2.fused_ffn_block(x, x, w, None, w, torch.zeros(8),
+                           post_ln1=torch.zeros(8), act="relu2")
+    with pytest.raises(NotImplementedError, match="post_ln1"):
         b2.fused_ffn_block(x, x, w, w, w, torch.zeros(8),
                            post_ln1=torch.zeros(8))
-    with pytest.raises(NotImplementedError):
-        b2.fused_ffn_block(x, x, w, w, w, torch.zeros(8), act="gelu")
+    with pytest.raises(NotImplementedError, match="geglu"):
+        b2.fused_ffn_block(x, x, w, w, w, torch.zeros(8), act="geglu")
 
 
 # ---------------------------------------------------------------------------
@@ -707,27 +711,36 @@ def test_flash_decode_wrapper_passes_no_workspace(monkeypatch, shape, plan):
     assert C in (1, 2, 4, 8) and G % GB == 0
 
 
-@pytest.mark.parametrize("heads,D,C", [(32, 256, 4), (4, 512, 8),
-                                       (32, 4096, 4)])
-def test_fused_decode_wrapper_cluster_size(monkeypatch, heads, D, C):
-    """The cluster size follows the kv heads and d_model alone: about 128
-    CTAs (Llama2-7B's 32 heads: 4), each rank 64–1024 rows of wqkv."""
-    assert b1.cluster_size(heads, D) == C
+@pytest.mark.parametrize("heads,kv,D,C,H", [
+    (32, 32, 256, 4, 1), (4, 4, 512, 8, 1),
+    (32, 32, 4096, 4, 1),                   # Llama2-7B
+    (32, 8, 4096, 8, 4),                    # Granite-8B
+    (24, 8, 3072, 8, 3),                    # Minitron-4B
+    (8, 2, 256, 4, 4), (6, 2, 256, 4, 3)])  # reduced GQA 8/2 and 6/2
+def test_fused_decode_wrapper_cluster_size(monkeypatch, heads, kv, D, C, H):
+    """The plan follows the heads and d_model alone: ``H`` = q_per_kv
+    query heads a cluster (a kv head's 1, 3 or 4), clusters of ``C`` ≤ 8
+    CTAs bringing the grid to about 128 CTAs (Llama2-7B's 32 heads: 4; 8
+    kv heads: 8), each rank 64–1024 rows of wqkv.  One library call
+    carries the plan."""
+    assert b1.cluster_plan(heads, kv, D) == (C, H)
+    assert b1.cluster_size(kv, D) == C
     if D > 512:
         return                              # no 100 MB weights here
     calls = _record_launch(monkeypatch)
     bf, f32, i32 = torch.bfloat16, torch.float32, torch.int32
     B, S, hd = 2, 8, 128
     b1.fused_decode_cuda(
-        torch.zeros(B, D, dtype=bf), torch.zeros(D, 3 * heads * hd, dtype=bf),
+        torch.zeros(B, D, dtype=bf),
+        torch.zeros(D, (heads + 2 * kv) * hd, dtype=bf),
         torch.zeros(heads, hd, D, dtype=bf), torch.zeros(D, dtype=f32),
-        torch.zeros(S, B * heads, hd, dtype=bf),
-        torch.zeros(S, B * heads, hd, dtype=bf), torch.zeros(S, B, dtype=i32),
+        torch.zeros(S, B * kv, hd, dtype=bf),
+        torch.zeros(S, B * kv, hd, dtype=bf), torch.zeros(S, B, dtype=i32),
         torch.zeros(B, dtype=i32), torch.zeros(B, dtype=i32),
         torch.zeros(B, hd // 2, dtype=f32), torch.zeros(B, hd // 2, dtype=f32),
-        q_heads=heads, kv_heads=heads, scale=hd ** -0.5, norm_eps=1e-6)
+        q_heads=heads, kv_heads=kv, scale=hd ** -0.5, norm_eps=1e-6)
     (args,) = calls
-    assert args[16:23] == (B, D, S, heads, heads, hd, C)
+    assert args[16:24] == (B, D, S, heads, kv, hd, C, H)
 
 
 def _record_empty(monkeypatch):
@@ -897,8 +910,11 @@ def test_rwkv6_scan_wrapper_passes_its_pointers(monkeypatch, alias):
 
 
 def test_cluster_kernels_refuse_unported_shapes(monkeypatch):
-    """GQA, and a d_model no cluster size splits into 64-row multiples,
-    raise before the library is reached; so do B2 shapes its plan cannot
+    """B1 at head_dim 256 (GQA 8/2: the Gemma-2 slice's), a d_model no
+    cluster size splits into 64-row multiples, query heads that are no
+    multiple of the kv heads, and q_per_kv 2 and 8 (no instance) raise
+    before the library is reached; so
+    do B2 shapes its plan cannot
     split (d_ff not a multiple of 16, d_model not a multiple of 16 or
     over 512 rows a rank) and B4 shapes outside MLA's geometry or with a
     d_model whose eighth is not a multiple of 64 up to 512."""
@@ -907,8 +923,10 @@ def test_cluster_kernels_refuse_unported_shapes(monkeypatch):
 
     monkeypatch.setattr(_build, "function", no_library)
     bf, f32, i32 = torch.bfloat16, torch.float32, torch.int32
-    for heads, kv, D in ((8, 2, 256), (4, 4, 72)):
-        B, S, hd = 1, 4, 128
+    for heads, kv, D, hd in ((8, 2, 256, 256), (4, 4, 72, 128),
+                             (6, 4, 256, 128), (8, 4, 256, 128),
+                             (16, 2, 512, 128)):
+        B, S = 1, 4
         with pytest.raises(NotImplementedError, match="fused_decode"):
             b1.fused_decode_cuda(
                 torch.zeros(B, D, dtype=bf),
