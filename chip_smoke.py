@@ -5,7 +5,7 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py
 
-It drives nine serving paths, each at full width and depth with seeded
+It drives eleven serving paths, each at full width and depth with seeded
 random bf16 weights and 8 slots.  Three run the fused ``backend="pallas"``
 kernels: Llama2-7B (32 layers; kernels B1 ``fused_decode``, B2
 ``fused_ffn``, B3 ``fused_head``) and the dense-MLA arm of
@@ -26,7 +26,13 @@ both backends like Llama2-7B: Granite-8B (36 layers, 32/8 heads, tied
 embeddings: B3 reads ``embed`` itself) and Minitron-4B (32 layers,
 24/8 heads, an ungated squared-ReLU FFN: B2's ungated ``relu2``
 instance), through B1's GQA mode, B2 and B3 on ``"pallas"`` and B5 on
-``"xla"``.  It builds the hand-written kernels from
+``"xla"``.  The last two are DeepSeek-V2-Lite as the reference registers
+it (path ``deepseek-v2-lite-moe``: 27 layers, each MLA attention and a
+64-expert top-6 MoE FFN of expert width 1408 at capacity factor 1.25),
+served lockstep (the scheduler refuses MoE, as the reference's does) on
+``"pallas"`` (B4, the experts in torch and cuBLAS, B3) and on ``"xla"``
+(the unfused MLA attention, the same experts, the loose head: no kernel
+of the port's).  It builds the hand-written kernels from
 ``src/repro_torch/csrc`` with ``nvcc`` and then, one line per phase:
 
 1. prints the card (``nvidia-smi`` name and power limit);
@@ -66,9 +72,11 @@ instance), through B1's GQA mode, B2 and B3 on ``"pallas"`` and B5 on
    ``gelu_tanh``, ``relu``, ``relu2`` and ungated ``silu``,
    ``gelu_tanh``, ``relu``;
    B3 at every vocabulary (32000 … 256000); B5 at the GQA paths' 32/8
-   and 24/8; check-only, the unfused paths' loose head
+   and 24/8 (the MoE path's B4 and B3 run at the dense arm's shapes);
+   check-only, the unfused paths' loose head
    (``models/layers.py:lm_head_logits``, no kernel of its own) on a
-   random table of each path's shape (32000, 49152 and 256000 rows),
+   random table of each path's shape (32000, 49152, 102400 and 256000
+   rows),
    its top-8 against the f64 sum to exact indices and values within 4
    f32 ulps, its peak allocation under a quarter of an f32 copy of the
    table; the cluster kernels (B1, B2, B3, B4,
@@ -98,8 +106,11 @@ instance), through B1's GQA mode, B2 and B3 on ``"pallas"`` and B5 on
    2080 tokens, 32 new tokens each: the 2048-row rings wrap during the
    second prefill and stay wrapped) and checks 26 B6 launches and no B5
    per prefill, 26 B6 and 12 B5 per decode step and nothing else, and
-   prints the 2080-token prefill's time; prefills stay eager (no
-   replay).  Then it holds the graph against the eager step: the
+   prints the 2080-token prefill's time; MoE DeepSeek-V2-Lite runs the
+   RWKV-6 loop (prompts of 128 then 512 tokens, 32 then 64 new tokens)
+   and checks no launch per prefill, 27 B4 and one B3 (and no B2) per
+   decode step on ``"pallas"`` and no launch at all on ``"xla"``;
+   prefills stay eager (no replay).  Then it holds the graph against the eager step: the
    engine's own state admitted or prefilled afresh and cloned, 16
    graphed steps on it and 16 eager ones (``decode_step`` with
    ``KERNELS``) on the clone from the same forced tokens must give equal
@@ -199,6 +210,9 @@ from repro_torch.serving.scheduler import (  # noqa: E402
     Request, SlotScheduler, replay_trace)
 from repro_torch.serving.step_graph import StepGraph  # noqa: E402
 
+# (path, backend): a path is an arch, or DeepSeek-V2-Lite with its MoE
+# layers (``MOE_PATH``); plain "deepseek-v2-lite" is its dense-MLA arm
+MOE_PATH = "deepseek-v2-lite-moe"
 PATHS = (("llama2-7b", "pallas"),
          ("deepseek-v2-lite", "pallas"),   # its dense-MLA arm
          ("rwkv6-3b", "pallas"),
@@ -207,14 +221,18 @@ PATHS = (("llama2-7b", "pallas"),
          ("granite-8b", "pallas"),         # GQA 32/8, tied embeddings
          ("granite-8b", "xla"),
          ("minitron-4b", "pallas"),        # GQA 24/8, ungated relu2 FFN
-         ("minitron-4b", "xla"))
+         ("minitron-4b", "xla"),
+         (MOE_PATH, "pallas"),             # as registered: 64 experts
+         (MOE_PATH, "xla"))                # and its unfused MLA
 SLOTS = 8
 MAX_SEQ = 1024
 SEED = 0
 # lockstep paths: max_seq and the (prompt, new tokens) of each batch; the
-# second RecurrentGemma prompt wraps the 2048-row rings during prefill
+# second RecurrentGemma prompt wraps the 2048-row rings during prefill;
+# MoE serves lockstep (the scheduler refuses it, as the reference's does)
 LOCKSTEP = {"rwkv6-3b": (MAX_SEQ, ((128, 32), (512, 64))),
-            "recurrentgemma-9b": (4096, ((128, 32), (2080, 32)))}
+            "recurrentgemma-9b": (4096, ((128, 32), (2080, 32))),
+            MOE_PATH: (MAX_SEQ, ((128, 32), (512, 64)))}
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor rate
 F32_FLOPS = 67e12              # H100 SXM f32 on the CUDA cores
@@ -621,21 +639,29 @@ def flash_case(cfg, gen, *, q_heads=None, kv_heads=None, q_scale=1.0,
     return case
 
 
-def kernel_cases(cfg, backend):
-    """The kernels of ``cfg``'s path at its widths: on ``"pallas"`` the
+def kernel_cases(path, cfg, backend):
+    """The kernels of ``path`` at its widths: on ``"pallas"`` the
     attention kernel (B1, or B4 for MLA), B2 and B3 — or, on RWKV-6, B7
-    at the prefill and the decode shape, and B3; on ``"xla"`` B5 at the
-    path's shape and at a GQA shape with a window and a softcap — or, on
+    at the prefill and the decode shape, and B3; with MoE none (its B4
+    and B3 run at the dense-MLA arm's shapes, whose cases hold them; the
+    experts are torch and cuBLAS); on ``"xla"`` B5 at the path's
+    shape and at a GQA shape with a window and a softcap — or, on
     RecurrentGemma, B6 at the prefill and the decode shape and B5 on a
-    full ring."""
+    full ring; the unfused MLA path runs no kernel (only its loose head
+    is checked)."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED + 1)
     B, D, F, V = SLOTS, cfg.d_model, cfg.d_ff, cfg.vocab_size
     if RECURRENT in cfg.block_pattern:
-        n_prompt = LOCKSTEP[cfg.name][1][-1][0]
+        n_prompt = LOCKSTEP[path][1][-1][0]
         cases = [rglru_case(cfg, gen, n_prompt), rglru_case(cfg, gen, 1),
                  ring_flash_case(cfg, gen)] + [
             ring_flash_case(cfg, gen, lens) for lens in RING_EDGE_LENS]
+    elif backend == "xla" and cfg.mla is not None:
+        cases = []
+    elif cfg.moe is not None:
+        # B4 and B3 at the dense-MLA arm's shapes: its cases hold them
+        cases = []
     elif backend == "xla" and cfg.q_per_kv > 1:
         cases = [flash_case(cfg, gen)]          # the path's GQA shape
     elif backend == "xla":
@@ -646,7 +672,7 @@ def kernel_cases(cfg, backend):
                  flash_case(cfg, gen, q_heads=32, kv_heads=32,
                             dtype=torch.float32)]
     elif cfg.block_pattern == (RWKV6,):
-        cases = [wkv_case(cfg, gen, LOCKSTEP[cfg.name][1][-1][0]),
+        cases = [wkv_case(cfg, gen, LOCKSTEP[path][1][-1][0]),
                  wkv_case(cfg, gen, 1),
                  head_case(cfg, gen)] + [
             wkv_case(cfg, gen, S, check_only=True) for S in WKV_EDGE_LENS]
@@ -674,7 +700,7 @@ def kernel_cases(cfg, backend):
     if backend == "xla":
         cases.append(loose_head_case(cfg, gen))
     for case in cases:
-        case["path"], case["backend"] = cfg.name, backend
+        case["path"], case["backend"] = path, backend
     return cases
 
 
@@ -884,12 +910,13 @@ def check_graph(graph, want, step_replays):
 
 def decode_launches(cfg, backend):
     """Launches one decode step must make on an attention path: ``L`` of
-    the attention kernel, ``L`` of B2 and one of B3 on ``"pallas"``;
-    ``L`` of B5 on ``"xla"``."""
+    the attention kernel, ``L`` of B2 (none with MoE) and one of B3 on
+    ``"pallas"``; ``L`` of B5 on ``"xla"`` (none for MLA)."""
     if backend == "xla":
-        return {"flash_decode": cfg.n_layers}
+        return {} if cfg.mla is not None else {"flash_decode": cfg.n_layers}
     attn = "fused_mla_decode" if cfg.mla is not None else "fused_decode"
-    return {attn: cfg.n_layers, "fused_ffn": cfg.n_layers, "fused_head": 1}
+    ffn = {} if cfg.moe is not None else {"fused_ffn": cfg.n_layers}
+    return {attn: cfg.n_layers, **ffn, "fused_head": 1}
 
 
 def serve_trace(cfg, eng):
@@ -965,11 +992,14 @@ def serve_trace(cfg, eng):
                 wall_s=round(wall, 2)), launches, per_kernel, results
 
 
-def lockstep_launches(cfg):
+def lockstep_launches(cfg, backend):
     """Launches one prefill and one decode step must make on a lockstep
     path: RWKV-6 ``L`` B7 per prefill, ``L`` B7 and one B3 per step;
     RecurrentGemma one B6 per RG-LRU layer per prefill, and per step one
-    B6 per RG-LRU layer and one B5 per local-attention layer."""
+    B6 per RG-LRU layer and one B5 per local-attention layer; MoE
+    DeepSeek-V2-Lite none per prefill and ``decode_launches`` per step."""
+    if cfg.moe is not None:
+        return {}, decode_launches(cfg, backend)
     if cfg.block_pattern == (RWKV6,):
         return ({"rwkv6_scan": cfg.n_layers},
                 {"rwkv6_scan": cfg.n_layers, "fused_head": 1})
@@ -979,8 +1009,8 @@ def lockstep_launches(cfg):
              "flash_decode": cfg.layer_kinds.count(ATTN_LOCAL)})
 
 
-def serve_lockstep(cfg, eng):
-    """A lockstep model's serving loop: two ``generate`` batches of
+def serve_lockstep(path, cfg, eng):
+    """A lockstep path's serving loop: two ``generate`` batches of
     ``SLOTS`` requests on one engine (``LOCKSTEP``), every prefill and
     decode step counted, timed (CUDA events; host clock for the enqueue)
     and checked for non-finite rows."""
@@ -1011,7 +1041,7 @@ def serve_lockstep(cfg, eng):
             return nxt, st
         return run
 
-    plan = LOCKSTEP[cfg.name][1]
+    plan = LOCKSTEP[path][1]
     state, batches = eng.state, []
     tracecount.reset()
     t0 = time.perf_counter()
@@ -1031,7 +1061,8 @@ def serve_lockstep(cfg, eng):
     wall = time.perf_counter() - t0
     launches = tracecount.launches()
     want = {stage: {k: 0 for k in launches} for stage in calls}
-    for stage, need in zip(("prefill", "decode"), lockstep_launches(cfg)):
+    for stage, need in zip(("prefill", "decode"),
+                           lockstep_launches(cfg, eng.scfg.backend)):
         want[stage].update(need)
     check_graph(eng.decode_fn, want["decode"],
                 [c["replays"] for c in calls["decode"]])
@@ -1079,16 +1110,16 @@ def serve_lockstep(cfg, eng):
 # Phase 5: kernels against their plain versions, end to end
 # ---------------------------------------------------------------------------
 # lockstep paths' forced-decode prompt: RWKV-6 its first batch's, and
-# RecurrentGemma its second's (past the ring)
-FORCED_PROMPT = {"rwkv6-3b": 128, "recurrentgemma-9b": 2080}
+# RecurrentGemma (past the ring) and MoE DeepSeek-V2-Lite their second's
+FORCED_PROMPT = {"rwkv6-3b": 128, "recurrentgemma-9b": 2080, MOE_PATH: 512}
 
 
-def fill_state(cfg, eng, state, rng):
+def fill_state(path, cfg, eng, state, rng):
     """Every slot of ``state`` filled: on an attention path admitted with
     a prompt of 32–512 tokens, on a lockstep path prefilled with one of
     ``FORCED_PROMPT`` tokens (the caches and recurrent states in place)."""
     lens = rng.integers(32, 513, SLOTS).astype(np.int32)
-    n_prompt = FORCED_PROMPT.get(cfg.name)
+    n_prompt = FORCED_PROMPT.get(path)
     toks = rng.integers(0, cfg.vocab_size,
                         (SLOTS, max(512, n_prompt or 0))).astype(np.int32)
     if n_prompt:                            # lockstep: one prompt length
@@ -1144,7 +1175,7 @@ def time_steps(step, state, forced):
             statistics.median(host))
 
 
-def graph_vs_eager(cfg, eng, steps: int = 16):
+def graph_vs_eager(path, cfg, eng, steps: int = 16):
     """The engine's graphed step against the eager step (``decode_step``
     with ``KERNELS``): the engine's own state refilled and a clone of it,
     ``steps`` steps each from the same forced tokens; tokens equal on
@@ -1156,7 +1187,7 @@ def graph_vs_eager(cfg, eng, steps: int = 16):
     served step's excess over it is device time spent waiting on the
     host)."""
     rng = np.random.default_rng(SEED + 3)
-    state = fill_state(cfg, eng, eng.state, rng)
+    state = fill_state(path, cfg, eng, eng.state, rng)
     twin = clone_state(state)
     forced = torch.as_tensor(rng.integers(0, cfg.vocab_size, (steps, SLOTS))
                              .astype(np.int32), device="cuda")
@@ -1201,9 +1232,9 @@ def graph_vs_eager(cfg, eng, steps: int = 16):
                 device_queued_under_spin=covered)
 
 
-def forced_decode(cfg, eng, steps: int = 8):
+def forced_decode(path, cfg, eng, steps: int = 8):
     rng = np.random.default_rng(SEED + 2)
-    state = fill_state(cfg, eng,
+    state = fill_state(path, cfg, eng,
                        init_decode_state(cfg, eng.scfg, device="cuda"), rng)
     # decode updates the caches and recurrent states in place: the plain
     # run gets a copy of its own
@@ -1322,19 +1353,25 @@ def profile_steps(cfg, eng, state, per_step, steps: int = 4):
     return out
 
 
-def path_config(arch: str):
-    """The path's config: DeepSeek-V2-Lite as its dense-MLA arm (MoE is
-    a later slice)."""
-    cfg = get_config(arch)
+def path_config(path: str):
+    """The path's config: DeepSeek-V2-Lite as registered (MoE on every
+    layer) on ``MOE_PATH``, and as its dense-MLA arm (every FFN the dense
+    one of width ``d_ff``) on ``"deepseek-v2-lite"``."""
+    if path == MOE_PATH:
+        return get_config("deepseek-v2-lite")
+    cfg = get_config(path)
     return dataclasses.replace(cfg, moe=None) if cfg.moe else cfg
 
 
 def step_weights(cfg, eng):
     """The weights a decode step reads: every layer's attention and FFN
-    weights (or the RWKV-6 block's leaves, or every leaf of every
-    RecurrentGemma block, its tail included) and the head table — on the
-    unfused path the train tree's ``wq``/``wk``/``wv``/``wo`` and the
-    ``lm_head`` (tied: ``embed``) the loose head reads."""
+    weights — a MoE FFN's router and all its experts, which the
+    reference's capacity dispatch reads whatever the routing — (or the
+    RWKV-6 block's leaves, or every leaf of every RecurrentGemma block,
+    its tail included) and the head table; on the unfused path the train
+    tree's attention weights (MLA: ``wq``, ``wdkv``, ``wuk``, ``wuv``,
+    ``wo``; on ``"pallas"`` B4 reads ``wproj`` in place of the last two)
+    and the ``lm_head`` (tied: ``embed``) the loose head reads."""
     serve = eng.params["serve"]
     blk = serve["blocks"][0]
     table = (serve["head"].table if "head" in serve else
@@ -1344,24 +1381,26 @@ def step_weights(cfg, eng):
             + table.numel() * table.element_size()
     if cfg.block_pattern == (RWKV6,):
         block_w = tuple(blk["rwkv"].values())
-    elif isinstance(blk["attn"], dict):
-        block_w = tuple(blk["attn"].values()) + tuple(
-            t for t in blk["ffn"].values() if t is not None)
     else:
-        attn = blk["attn"]
-        block_w = ((attn.wq, attn.wdkv, attn.wuk, attn.wproj)
-                   if cfg.mla is not None else (attn.wqkv, attn.wo)) + tuple(
-            t for t in (blk["ffn"].w_in, blk["ffn"].w_gate, blk["ffn"].w_out)
-            if t is not None)
+        attn, ffn = blk["attn"], blk["ffn"]
+        if isinstance(attn, dict):
+            block_w = tuple(attn.values())
+        elif cfg.mla is not None:
+            block_w = (attn.wq, attn.wdkv, attn.wuk, attn.wproj)
+        else:
+            block_w = (attn.wqkv, attn.wo)
+        block_w += tuple(t for t in (ffn.values() if isinstance(ffn, dict)
+                                     else (ffn.w_in, ffn.w_gate, ffn.w_out))
+                         if t is not None)
     return sum(t.numel() * t.element_size() for t in block_w + (table,))
 
 
-def build_engine(cfg, backend):
+def build_engine(path, cfg, backend):
     """The path's engine (its decode step captured in a graph) and its
     ``max_seq``, after emptying the allocator's cache, with the memory
     reserved before it was built."""
-    lockstep = cfg.name in LOCKSTEP
-    max_seq = LOCKSTEP[cfg.name][0] if lockstep else MAX_SEQ
+    lockstep = path in LOCKSTEP
+    max_seq = LOCKSTEP[path][0] if lockstep else MAX_SEQ
     torch.cuda.empty_cache()
     reserved = torch.cuda.memory_reserved()
     eng = build_engine_full(cfg, max_seq=max_seq, batch_global=SLOTS,
@@ -1383,18 +1422,18 @@ def check_released(reserved: int) -> None:
                              "the engine was dropped")
 
 
-def serve_path(cfg, backend, peers):
+def serve_path(path, cfg, backend, peers):
     """Phase 4 for one path: build the engine, serve the trace (the
     lockstep paths: their two batches) through its graph, then the graph
     against the eager step.  ``peers`` holds the earlier paths' results
-    by (arch, backend); the unfused path's step is compared with the
-    fused path's of its arch there.  Returns the path's launch counts
-    per stage ("decode", and "prefill" where prefill runs a kernel):
-    total and per call, and its median step time."""
-    lockstep = cfg.name in LOCKSTEP
+    by (path, backend); the unfused path's step is compared with the
+    fused one of the same path there.  Returns the path's launch counts
+    per stage ("decode", and "prefill" on a lockstep path): total and
+    per call, and its median step time."""
+    lockstep = path in LOCKSTEP
     t0 = time.perf_counter()
-    eng, max_seq, reserved = build_engine(cfg, backend)
-    tag = dict(path=cfg.name, backend=backend)
+    eng, max_seq, reserved = build_engine(path, cfg, backend)
+    tag = dict(path=path, backend=backend)
     say("engine", **tag, layers=cfg.n_layers, max_seq=max_seq,
         build_s=round(time.perf_counter() - t0, 1),
         graph_launches=sum(eng.decode_fn.launches.values()),
@@ -1404,7 +1443,7 @@ def serve_path(cfg, backend, peers):
                  / 1e9, 3)},
         allocated_gb=round(torch.cuda.memory_allocated() / 1e9, 3))
     if lockstep:
-        serve, counts, batches = serve_lockstep(cfg, eng)
+        serve, counts, batches = serve_lockstep(path, cfg, eng)
         toks = batches[-1][1]
         first = {b: toks[b, :4].tolist() for b in range(3)}
     else:
@@ -1417,14 +1456,14 @@ def serve_path(cfg, backend, peers):
     serve["weights_bound_ms"] = round(1e3 * weight_bytes / HBM_BYTES_PER_S, 3)
     say("serve", **tag, **serve)
     say("serve", **tag, first_tokens=first)
-    vs_eager = graph_vs_eager(cfg, eng)
+    vs_eager = graph_vs_eager(path, cfg, eng)
     say("graph", **tag, **vs_eager)
     dev_ms = vs_eager["graph_device_step_ms"]
-    fused = peers.get((cfg.name, "pallas")) if backend == "xla" else None
+    fused = peers.get((path, "pallas")) if backend == "xla" else None
     if fused is not None:
         # served steps (host issue inside the window) and device work
         # alone (graph replays queued behind a spin)
-        say("serve", path=cfg.name, fused_median_step_ms=fused["step_ms"],
+        say("serve", path=path, fused_median_step_ms=fused["step_ms"],
             unfused_median_step_ms=serve["median_step_ms"],
             unfused_over_fused=round(serve["median_step_ms"]
                                      / fused["step_ms"], 4),
@@ -1436,17 +1475,17 @@ def serve_path(cfg, backend, peers):
     return counts, dict(step_ms=serve["median_step_ms"], device_ms=dev_ms)
 
 
-def check_path(cfg, backend, counts, peers):
+def check_path(path, cfg, backend, counts, peers):
     """Phase 5 for one path, on an engine built anew: the kernels
     against their plain versions end to end (the unfused path's tokens
     also against the fused path's, from ``peers``), then a trace of
     replays of its graph on its own state, refilled, and the graphed
     host issue timed again after the trace.  Returns the forced
     tokens."""
-    eng, _, reserved = build_engine(cfg, backend)
-    tag = dict(path=cfg.name, backend=backend)
-    forced, forced_toks = forced_decode(cfg, eng)
-    fused = peers.get((cfg.name, "pallas")) if backend == "xla" else None
+    eng, _, reserved = build_engine(path, cfg, backend)
+    tag = dict(path=path, backend=backend)
+    forced, forced_toks = forced_decode(path, cfg, eng)
+    fused = peers.get((path, "pallas")) if backend == "xla" else None
     if fused is not None:
         # the card's counterpart of tests/test_backend_parity.py:241: the
         # same weights and forced tokens through both backends
@@ -1455,7 +1494,8 @@ def check_path(cfg, backend, counts, peers):
             raise AssertionError(f"unfused vs fused token agreement {agree}")
         forced["agreement_with_fused"] = round(agree, 4)
     say("forced", **tag, **forced)
-    state = fill_state(cfg, eng, eng.state, np.random.default_rng(SEED + 3))
+    state = fill_state(path, cfg, eng, eng.state,
+                       np.random.default_rng(SEED + 3))
     prof = profile_steps(cfg, eng, state, counts["decode"][1])
     # the trace leaves the profiler attached to the process, and graph
     # launches cost the host more after it (phase 4 ran before any trace)
@@ -1522,7 +1562,7 @@ def main() -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    paths = [(path_config(arch), backend) for arch, backend in PATHS]
+    paths = [(path, path_config(path), backend) for path, backend in PATHS]
 
     # 1. device
     smi = subprocess.run(
@@ -1548,8 +1588,8 @@ def main() -> int:
               f"{'; '.join(spills) or 'none'}")
 
     # 3. each kernel against its plain version at each path's shapes
-    cases = [case for cfg, backend in paths
-             for case in kernel_cases(cfg, backend)]
+    cases = [case for path, cfg, backend in paths
+             for case in kernel_cases(path, cfg, backend)]
     for case in cases:
         case.setdefault("stage", "decode")
         case["max_abs_err"] = check_kernel(case)
@@ -1567,14 +1607,15 @@ def main() -> int:
     # 4. each path served at full width through its graph, one engine at
     # a time, before any profiler trace
     counts, peers = {}, {}
-    for cfg, backend in paths:
-        key = (cfg.name, backend)
-        counts[key], peers[key] = serve_path(cfg, backend, peers)
+    for path, cfg, backend in paths:
+        key = (path, backend)
+        counts[key], peers[key] = serve_path(path, cfg, backend, peers)
     # 5. each path again: kernels against plain versions end to end, and
     # the traced replays
-    for cfg, backend in paths:
-        key = (cfg.name, backend)
-        peers[key]["forced"] = check_path(cfg, backend, counts[key], peers)
+    for path, cfg, backend in paths:
+        key = (path, backend)
+        peers[key]["forced"] = check_path(path, cfg, backend, counts[key],
+                                          peers)
 
     # 6. the launch floor: an empty kernel in the kernels' harness, issued
     # one launch at a time and as the nodes of one graph

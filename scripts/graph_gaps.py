@@ -3,7 +3,7 @@
 the gaps between the graph's nodes, per engine build, on one card.
 From the root of a checkout on a machine with a card:
 
-    python3 scripts/graph_gaps.py [--builds N] [--paths ARCH:BACKEND,...]
+    python3 scripts/graph_gaps.py [--builds N] [--paths PATH:BACKEND,...]
 
 For each path (default: Granite-8B and Minitron-4B on both backends, as
 ``chip_smoke.py`` serves them), builds the engine ``N`` times (default
@@ -68,11 +68,11 @@ def main() -> int:
     print(json.dumps(dict(card=smi.splitlines()[0])), flush=True)
     _build.build_all()
     for spec in opt.paths.split(","):
-        arch, backend = spec.split(":")
-        cfg = cs.path_config(arch)
+        path, backend = spec.split(":")
+        cfg = cs.path_config(path)
         for build in range(opt.builds):
-            eng, _, _ = cs.build_engine(cfg, backend)
-            state = cs.fill_state(cfg, eng, eng.state,
+            eng, _, _ = cs.build_engine(path, cfg, backend)
+            state = cs.fill_state(path, cfg, eng, eng.state,
                                   np.random.default_rng(cs.SEED + 3))
             tok = torch.zeros(cs.SLOTS, dtype=torch.int32, device="cuda")
             box = [state]
@@ -82,7 +82,7 @@ def main() -> int:
             step_ms, covered = cs.cuda_ms(replay, 8)
             k_ms, launches = kernel_ms(eng, box[0])
             print(json.dumps(dict(
-                path=arch, backend=backend, build=build,
+                path=path, backend=backend, build=build,
                 device_step_ms=round(step_ms, 3), kernel_ms=round(k_ms, 3),
                 device_launches_per_step=launches,
                 gap_us_per_launch=round(1e3 * (step_ms - k_ms) / launches,

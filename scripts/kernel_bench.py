@@ -54,9 +54,9 @@ def run_tree(tree: str, names) -> int:
                            and "0 bytes spill stores" not in ln}))),
               flush=True)
     seen = set()
-    for arch, backend in cs.PATHS:
-        cfg = cs.path_config(arch)
-        for case in cs.kernel_cases(cfg, backend):
+    for path, backend in cs.PATHS:
+        cfg = cs.path_config(path)
+        for case in cs.kernel_cases(path, cfg, backend):
             if case["name"] not in names:
                 continue
             case.setdefault("stage", "decode")
@@ -66,7 +66,7 @@ def run_tree(tree: str, names) -> int:
                 continue
             seen.add(key)
             err = cs.check_kernel(case)
-            row = dict(tree=tree, name=case["name"], path=cfg.name,
+            row = dict(tree=tree, name=case["name"], path=path,
                        stage=case["stage"], max_abs_err=err)
             if not case.get("check_only"):
                 args, kw = case["args"], case["kw"]

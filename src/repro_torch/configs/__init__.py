@@ -1,6 +1,7 @@
 """Architecture registry.  The port registers the architectures whose
 serving path it runs so far: Llama2-7B (the paper's primary model),
-DeepSeek-V2-Lite (its MLA model; the port serves the dense-MLA arm),
+DeepSeek-V2-Lite (its MLA model, with its MoE layers, and its dense-MLA
+arm),
 RWKV-6 3B (attention-free; lockstep serving through the WKV scan),
 RecurrentGemma-9B (RG-LRU and local attention; lockstep serving on the
 unfused backend), and the GQA dense models Granite-8B (32/8 heads, tied

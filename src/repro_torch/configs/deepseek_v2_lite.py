@@ -4,11 +4,11 @@
 rope_head_dim=64, nope=128, v=128), MoE 64 experts top-6, expert d_ff=1408,
 vocab=102400.
 
-Registered field for field as the reference registers it, MoE included.
-The port serves its dense-MLA arm, ``dataclasses.replace(cfg, moe=None)``:
-every layer is MLA attention and the dense gated-SiLU FFN of width
-``d_ff`` (the width of the model's own dense first layer).  MoE is ROADMAP
-item 13.
+Registered field for field as the reference registers it, and served
+so: every layer is MLA attention and a 64-expert top-6 MoE FFN
+(``models/moe.py``), on both backends.  Its dense-MLA arm,
+``dataclasses.replace(cfg, moe=None)`` (every FFN the dense gated-SiLU
+one of width ``d_ff``), is served too: it exercises B2 beside B4.
 """
 from repro_torch.configs.base import (MLAConfig, ModelConfig, MoEConfig,
                                       register)

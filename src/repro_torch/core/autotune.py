@@ -5,16 +5,21 @@
 
 * ``"xla"``: the unfused dataflow, the paper's baseline — q/k/v
   products, RoPE, the append, B5 ``flash_decode``, the ``wo`` product, a
-  separate FFN and the loose head (full logits, then top-k);
+  separate FFN and the loose head (full logits, then top-k); for MLA the
+  latent attention in torch and cuBLAS, with no kernel of the port's;
 * ``"pallas"``: the fused kernels on the prepacked serve layout (B1 or
-  B4, B2, B3);
+  B4, B2, B3; a MoE FFN stays the expert dispatch in torch and cuBLAS,
+  as the reference's does);
 * ``"auto"``: ``"pallas"`` for models with attention layers, ``"xla"``
   for attention-free ones (the fusion scope the paper targets does not
   apply, DESIGN.md §4) — so the dense MHA and GQA models (Llama2-7B,
-  Granite-8B, Minitron-4B) and the dense-MLA arm resolve to the fused
-  kernels, and RecurrentGemma, which has local-attention layers,
-  resolves to ``"pallas"`` as in the reference and raises: its fused arm
-  is not ported (ROADMAP item 10).
+  Granite-8B, Minitron-4B) and DeepSeek-V2-Lite (MoE or its dense-MLA
+  arm) resolve to the fused kernels, and RecurrentGemma, which has
+  local-attention layers, resolves to ``"pallas"`` as in the reference
+  and raises: its fused arm is not ported (ROADMAP item 10).
+
+Every model the port registers serves on ``"xla"``; all but
+RecurrentGemma also on ``"pallas"``.
 """
 from __future__ import annotations
 
@@ -54,10 +59,10 @@ def resolve_serving(cfg: ModelConfig, backend: str, prepack
     """``(backend, prepack)`` for ``cfg``, raising on the combinations the
     port cannot serve yet (never falling back to another backend): the
     fused arm of RG-LRU and local-attention models (Gemma-2's modes and
-    fused RecurrentGemma, ROADMAP item 10), ``"pallas"`` with prepack off
-    on an attention model (B1's ``fuse_out=False``), and MLA on
-    ``"xla"`` (item 4b).  Dense MHA and GQA models, gated or ungated, tied
-    or not, serve on both backends."""
+    fused RecurrentGemma, ROADMAP item 10) and ``"pallas"`` with prepack
+    off on an attention model (B1's and B4's ``fuse_out=False``).  Dense
+    MHA and GQA models, gated or ungated, tied or not, and MLA models
+    with a dense or a MoE FFN serve on both backends."""
     b = _backend_for(cfg, backend)
     pp = _prepack_for(b, prepack)
     if b == "pallas" and {RECURRENT, ATTN_LOCAL} & set(cfg.layer_kinds):
@@ -72,8 +77,4 @@ def resolve_serving(cfg: ModelConfig, backend: str, prepack
             "backend='pallas' with prepack off needs B1's fuse_out=False "
             "mode on the train layout (ROADMAP.md, Queue B: B1's unported "
             "modes)")
-    if b == "xla" and cfg.mla is not None:
-        raise NotImplementedError(
-            "the XLA-backend MLA path (latent flash attention around no "
-            "Pallas kernel) is ROADMAP item 4b")
     return b, pp

@@ -10,7 +10,9 @@ partials — the last two plain torch, as they are XLA ops in the
 reference.  On the unfused ``"xla"`` path (:func:`split_token_attention`,
 the paper's baseline) the q/k/v projections, RoPE, the append (into a
 ring cache on sliding-window layers) and the output projection are
-plain torch around B5 ``flash_decode``.
+plain torch around B5 ``flash_decode``; its MLA layer
+(:func:`mla_attention`) is plain torch and cuBLAS throughout, as the
+reference's XLA branch runs around no Pallas kernel.
 
 The port updates the KV cache in place (the reference rebuilt it).
 The reference's ``_fit_block_s`` has no counterpart: it fits Pallas
@@ -58,6 +60,19 @@ class SplitTokenWeights(NamedTuple):
     bq: Optional[torch.Tensor] = None
     bk: Optional[torch.Tensor] = None
     bv: Optional[torch.Tensor] = None
+
+
+class MLAWeights(NamedTuple):
+    """Train-layout MLA weights the unfused path reads (``dataflow.py:842``
+    at cluster size 1, where every rank segment is the whole tensor):
+    ``wq [D, q, nope+rope]``, ``wdkv [D, l+rope]``, ``wuk [q, nope, l]``,
+    ``wuv [q, l, v]``, ``wo [q·v, D]``."""
+
+    wq: torch.Tensor
+    wdkv: torch.Tensor
+    wuk: torch.Tensor
+    wuv: torch.Tensor
+    wo: torch.Tensor
 
 
 class PackedSplitTokenWeights(NamedTuple):
@@ -235,6 +250,73 @@ def split_token_attention_packed(x: torch.Tensor,
     return o_full.to(x.dtype)
 
 
+def mla_attention(x: torch.Tensor, w: MLAWeights, cache: KVBlock,
+                  cache_lens: torch.Tensor, cos: torch.Tensor,
+                  sin: torch.Tensor, *, nope_dim: int, rope_dim: int
+                  ) -> torch.Tensor:
+    """One MLA layer of the unfused dataflow (the XLA branch of
+    ``mla_attention``, ``dataflow.py:896–955``, at cluster 1): ``x [B,
+    D]`` already normed → ``[B, D]`` in ``x.dtype``; the latent entry is
+    appended to ``cache`` in place.
+
+    Stages, rounded where the reference rounds: ``q = x·wq`` and ``c =
+    x·wdkv`` in the model dtype; ``q_lat = q_nope·W_UK`` per head in the
+    model dtype; RoPE on ``q_rope`` and ``c_rope`` at ``cache_lens``
+    (``cos``/``sin`` of width ``rope_dim``); the entry ``c_lat ++ c_rope``
+    appended (to ``k``, its first column to ``v``, as the fused path
+    does); then attention in f32 over the latent cache — keys ``l +
+    rope`` wide, values the ``l`` latent columns, scale
+    ``1/√(nope + rope)``, valid rows ``0 ≤ pos ≤ cache_len``; normalized
+    by ``max(l, 1e-30)``; ``·W_UV`` per head in f32; then rounded to the
+    model dtype and ``·wo``.
+
+    The reference's ``bucketed_flash_attention`` (``dataflow.py:264``)
+    skips buckets with no live row and merges the rest online; its result
+    is one masked pass, which :func:`latent_attention` computes over all
+    ``S`` rows (static shapes, as a CUDA graph needs).  A free slot (``cache_len = −1``)
+    has no valid row and gets zeros, as there."""
+    B, D = x.shape
+    q_loc, nope_w, l_rank = w.wuk.shape
+    hr = w.wq.shape[2]
+    scale = 1.0 / math.sqrt(nope_dim + rope_dim)
+    q = (x @ w.wq.reshape(D, q_loc * hr)).view(B, q_loc, hr)
+    c = x @ w.wdkv                                          # [B, l+rope]
+    q_nope, q_rope = q[..., :nope_dim], q[..., nope_dim:]
+    c_lat, c_rope = c[:, :l_rank], c[:, l_rank:]
+    q_lat = torch.bmm(q_nope.transpose(0, 1), w.wuk).transpose(0, 1)
+    q_rope = _apply_rope(q_rope, cos, sin)
+    c_rope = _apply_rope(c_rope[:, None, :], cos, sin)[:, 0]
+    entry = torch.cat([c_lat, c_rope], dim=-1)              # [B, l+rope]
+    _insert_kv_ragged(cache, entry, entry[:, :1], cache_lens)
+    q_cat = torch.cat([q_lat, q_rope], dim=-1)              # [B, q, l+r]
+    a_lat = latent_attention(q_cat, cache, cache_lens, l_rank, scale)
+    o_head = torch.bmm(a_lat.transpose(0, 1), w.wuv.float())  # [q, B, v]
+    v_dim = w.wuv.shape[2]
+    return o_head.transpose(0, 1).reshape(B, q_loc * v_dim).to(x.dtype) \
+        @ w.wo
+
+
+def latent_attention(q_cat: torch.Tensor, cache: KVBlock,
+                     cache_lens: torch.Tensor, l_rank: int, scale: float
+                     ) -> torch.Tensor:
+    """The unfused MLA layer's attention core, one masked pass in f32:
+    ``q_cat [B, q, l+rope]`` against every row of the latent cache
+    ``cache.k [S, B, l+rope]`` (keys: all columns; values: the first
+    ``l_rank``), valid rows ``0 ≤ pos ≤ cache_len`` → the normalized
+    ``a_lat [B, q, l_rank]`` f32 (zeros where a slot has no valid row)."""
+    S, B = cache.pos.shape
+    cc = cache.k.view(S, B, -1).transpose(0, 1).to(
+        torch.float32, memory_format=torch.contiguous_format)  # [B,S,l+r]
+    valid = ((cache.pos >= 0) & (cache.pos <= cache_lens)).T[:, None, :]
+    s = torch.bmm(q_cat.float(), cc.transpose(1, 2)) * scale  # [B, q, S]
+    s = torch.where(valid, s, -1e30)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(valid, torch.exp(s - m), 0.0)
+    l_sum = p.sum(dim=-1, keepdim=True)
+    o = torch.bmm(p, cc[..., :l_rank])                      # [B, q, l]
+    return o / torch.clamp(l_sum, min=1e-30)
+
+
 def mla_attention_packed(x: torch.Tensor, w: PackedMLAWeights,
                          cache: KVBlock, cache_lens: torch.Tensor,
                          cos: torch.Tensor, sin: torch.Tensor, *,
@@ -260,7 +342,9 @@ def mla_attention_packed(x: torch.Tensor, w: PackedMLAWeights,
     return o_full.to(x.dtype)
 
 
-__all__ = ["KVBlock", "SplitTokenWeights", "PackedSplitTokenWeights",
-           "PackedMLAWeights", "PackedFFNWeights", "PackedHeadWeights",
-           "split_token_attention", "split_token_attention_packed",
+__all__ = ["KVBlock", "SplitTokenWeights", "MLAWeights",
+           "PackedSplitTokenWeights", "PackedMLAWeights", "PackedFFNWeights",
+           "PackedHeadWeights", "split_token_attention",
+           "split_token_attention_packed", "mla_attention",
+           "latent_attention",
            "mla_attention_packed", "rope_at"]

@@ -11,8 +11,12 @@ two numbers per kernel:
   and one ``fused_ffn`` per layer, one ``fused_head`` per step), ``L``
   on the unfused ``backend="xla"`` path (one ``flash_decode`` per
   layer), ``L + 1`` on RWKV-6 (one ``rwkv6_scan`` per layer, one
-  ``fused_head``), or ``L`` on RecurrentGemma (one ``rglru_scan`` per
-  recurrent layer, one ``flash_decode`` per local-attention layer);
+  ``fused_head``), ``L`` on RecurrentGemma (one ``rglru_scan`` per
+  recurrent layer, one ``flash_decode`` per local-attention layer),
+  ``L + 1`` on MoE DeepSeek-V2-Lite's fused path (one
+  ``fused_mla_decode`` per layer and one ``fused_head``: its FFN is the
+  expert dispatch in torch) and none on its unfused path (its MLA
+  attention, MoE and head are torch and cuBLAS);
 * ``launches``: bumped by each CUDA wrapper at the one place where it
   launches its kernel, and nowhere else (a plain-version call on a CPU
   tensor does not count) — ``chip_smoke.py`` reads it to prove the main

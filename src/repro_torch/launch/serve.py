@@ -17,7 +17,10 @@ step); the CPU runs the eager step, and so does :func:`decode_step`
 called directly on the card.  Models with recurrent layers
 (RWKV-6, RecurrentGemma's RG-LRU) are served lockstep only: their
 ``admit_fn`` raises, as the reference's does (a recurrent state cannot
-take a per-slot insert).
+take a per-slot insert).  MoE models (DeepSeek-V2-Lite as registered)
+are served lockstep too: their ``admit_fn`` runs, as the reference's
+does, but ``serving/scheduler.py:SlotScheduler`` refuses them (the
+experts' capacity couples the slots).
 """
 from __future__ import annotations
 
@@ -76,9 +79,9 @@ def build_engine_full(cfg: ModelConfig, *, max_seq: int, batch_global: int,
     raises when no card is present and the CPU was not asked for).
 
     ``options.backend``/``options.prepack`` resolve as in the reference
-    (``core/autotune.py``); ``"pallas"`` with prepack off, ``"pallas"``
-    (or ``"auto"``) for RecurrentGemma and MLA on ``"xla"`` raise
-    ``NotImplementedError`` naming their ROADMAP items.
+    (``core/autotune.py``); ``"pallas"`` with prepack off and ``"pallas"``
+    (or ``"auto"``) for RecurrentGemma raise ``NotImplementedError``
+    naming their ROADMAP items.
     Prefill does not depend on the backend.  ``train_params``:
     train-layout weights to serve (e.g. from ``from_reference_params``);
     default: :func:`init_params` from ``seed``.  On a CUDA device
@@ -130,7 +133,7 @@ def generate(params, pf, dec, state, prompts, n_new: int):
     """prompts ``[B, S]`` → greedy tokens ``[B, n_new]`` and the state: a
     lockstep batch, one prefill of every slot and ``n_new − 1`` decode
     steps (the reference's ``generate``; the one serving loop of the
-    recurrent models)."""
+    recurrent and the MoE models)."""
     nxt, state = pf(params["train"], state, prompts)
     out = [nxt]
     for _ in range(n_new - 1):

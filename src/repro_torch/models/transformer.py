@@ -1,6 +1,6 @@
-"""Model assembly — the port of ``repro/models/transformer.py`` for dense
-attention decoders, RWKV-6 and the RG-LRU/local-attention hybrid
-(RecurrentGemma) on one device.
+"""Model assembly — the port of ``repro/models/transformer.py`` for
+attention decoders with dense or MoE FFNs, RWKV-6 and the
+RG-LRU/local-attention hybrid (RecurrentGemma) on one device.
 
 The reference's ``ParallelCtx`` (``repro/models/ctx.py``) is dropped:
 on one GPU the model axis is 1 and every collective it wraps is the
@@ -16,7 +16,9 @@ Parameter tree (the train layout; leaves are tensors):
   [G, D, kv, hd]``, ``wo [G, q·hd, D]`` — or, for MLA, ``wq [G, D, q,
   nope+rope]``, ``wdkv [G, D, l+rope]``, ``wuk [G, q, nope, l]``, ``wuv
   [G, q, l, v]``, ``wo [G, q·v, D]``; ``ffn`` = ``w_in``/``w_gate
-  [G, D, F]``, ``w_out [G, F, D]``; an RG-LRU block holds ``rglru`` (the
+  [G, D, F]``, ``w_out [G, F, D]`` — or, on a MoE model, ``MoEParams``
+  (``models/moe.py``: ``router [G, D, E]`` f32, ``w_in``/``w_gate [G, E,
+  D, F]``, ``w_out [G, E, F, D]``); an RG-LRU block holds ``rglru`` (the
   ``RGLRUParams`` fields, ``models/rglru.py``) in place of ``attn``; an
   RWKV-6 block holds ``ln1``, ``ln2`` and ``rwkv`` (the ``RWKV6Params``
   fields, ``models/rwkv6.py``) and no ``attn`` or ``ffn``;
@@ -36,6 +38,7 @@ from repro_torch.configs.base import (ATTN_GLOBAL, RECURRENT, RWKV6,
                                       ModelConfig)
 from repro_torch.core.device import resolve_device
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import rwkv6 as rwkv_mod
 from repro_torch.models.layers import (embed_lookup, ffn_apply, rms_norm,
@@ -43,12 +46,13 @@ from repro_torch.models.layers import (embed_lookup, ffn_apply, rms_norm,
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    """The port runs decoders with dense FFNs (gated or not) whose layers
-    are global attention — MHA or GQA (Llama-style, Granite-8B,
-    Minitron-4B) or MLA (the dense-MLA arm of DeepSeek-V2-Lite) —, local
-    (sliding-window) attention and RG-LRU blocks (RecurrentGemma), tied
-    embeddings or not, and the all-RWKV-6 pattern (RWKV-6 3B).  MoE, post-norms, q/k/v biases, encoders and
-    frontends are later slices (ROADMAP.md)."""
+    """The port runs decoders whose layers are global attention — MHA or
+    GQA (Llama-style, Granite-8B, Minitron-4B) or MLA (DeepSeek-V2-Lite)
+    —, local (sliding-window) attention and RG-LRU blocks
+    (RecurrentGemma), with dense FFNs (gated or not) or MoE FFNs
+    (DeepSeek-V2-Lite's 64 experts), tied embeddings or not, and the
+    all-RWKV-6 pattern (RWKV-6 3B).  Post-norms, q/k/v biases, encoders
+    and frontends are later slices (ROADMAP.md)."""
     kinds = set(cfg.layer_kinds)
     if RWKV6 in kinds:
         if (cfg.block_pattern != (RWKV6,) or cfg.encoder or cfg.frontend
@@ -57,19 +61,17 @@ def _check_supported(cfg: ModelConfig) -> None:
                 f"{cfg.name}: the port runs RWKV-6 as the only block kind, "
                 "with an untied head (ROADMAP.md item 15a)")
         return
-    if cfg.moe:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE is ROADMAP item 13; serve the dense arm, "
-            "dataclasses.replace(cfg, moe=None)")
     if cfg.use_post_norm:
         raise NotImplementedError(
             f"{cfg.name}: post-attention and post-FFN norms are ROADMAP "
             "item 10 (the Gemma-2 features)")
-    if (cfg.encoder or cfg.frontend or cfg.qkv_bias
-            or (cfg.mla is not None and kinds != {ATTN_GLOBAL})):
+    if cfg.encoder or cfg.frontend:
         raise NotImplementedError(
-            f"{cfg.name}: encoders, frontends, q/k/v biases and MLA beside "
-            "other block kinds are later slices (ROADMAP.md)")
+            f"{cfg.name}: encoders and frontends are ROADMAP item 14")
+    if cfg.qkv_bias or (cfg.mla is not None and kinds != {ATTN_GLOBAL}):
+        raise NotImplementedError(
+            f"{cfg.name}: q/k/v biases (ROADMAP item 11, with qwen2-72b) "
+            "and MLA beside other block kinds are later slices")
 
 
 # ---------------------------------------------------------------------------
@@ -84,7 +86,9 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda",
     the down projection, 0.02 for the embedding, 1/√D for the LM head,
     zero norm scales — so many random layers stay finite.  MLA: 1/√D
     for ``wq`` and ``wdkv``, 0.05 for ``wuk`` and ``wuv``, 1/√(q·v) for
-    ``wo`` (``transformer.py:94–107``).  RG-LRU: ``rglru_init``'s scales
+    ``wo`` (``transformer.py:94–107``).  MoE: ``moe_init``'s scales
+    (``models/moe.py``) on every non-recurrent layer, as the reference's
+    ``init_logical_block`` (:133–135).  RG-LRU: ``rglru_init``'s scales
     with the model's heads as gate blocks.  RWKV-6: ``rwkv6_init``'s
     scales per layer, zero ``ln1``/``ln2``, an untied ``lm_head``.  With
     tied embeddings there is no ``lm_head``."""
@@ -137,6 +141,10 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda",
                 "wv": lin((d, nkv, hd), s_in),
                 "wo": lin((nq * hd, d), 1.0 / math.sqrt(nq * hd)),
             }
+        if cfg.moe is not None and kind != RECURRENT:
+            blk["ffn"] = moe_mod.moe_init(gen, d, cfg.moe, cfg.ffn_gated,
+                                          lead=lead, dtype=dtype)
+            return blk
         blk["ffn"] = {"w_in": lin((d, F), s_in)}
         if cfg.ffn_gated:                   # ungated (relu2): no gate
             blk["ffn"]["w_gate"] = lin((d, F), s_in)
@@ -189,10 +197,10 @@ def from_reference_params(cfg: ModelConfig, tree: Dict[str, Any], *,
                           device="cuda") -> Dict[str, Any]:
     """The JAX package's device-major train params at model size 1 —
     as nested dicts / lists of numpy arrays, NamedTuple fields
-    (``AttnParams``, ``MLAAttnParams``, ``RGLRUParams``, …) turned into
-    dict keys and the leading device axis (size 1) kept — → the port's
-    train params (same tree, device axis stripped, vocabulary padding
-    cut)."""
+    (``AttnParams``, ``MLAAttnParams``, ``MoEParams``, ``RGLRUParams``,
+    …) turned into dict keys and the leading device axis (size 1) kept —
+    → the port's train params (same tree, device axis stripped — a MoE
+    leaf keeps its expert axis behind it —, vocabulary padding cut)."""
     _check_supported(cfg)
     dev = resolve_device(device)
 
@@ -258,8 +266,17 @@ def apply_block(cfg: ModelConfig, blk: Dict[str, Any], x: torch.Tensor, *,
         a, kv = attn_mod.attention_train(blk["attn"], h, cfg, kind,
                                          return_kv=return_kv)
     x = x + a
-    h = rms_norm(x, blk["ln2"], eps)
-    return x + ffn_apply(blk["ffn"], h, cfg.ffn_act), kv
+    return x + block_ffn(cfg, blk["ffn"], rms_norm(x, blk["ln2"], eps)), kv
+
+
+def block_ffn(cfg: ModelConfig, ffn: Dict[str, Any], h: torch.Tensor
+              ) -> torch.Tensor:
+    """A block's FFN on its normed input ``h [..., D]``: the MoE
+    (``moe_apply``, every token of ``h`` sharing one capacity) or the
+    dense FFN (``transformer.py:499–501``)."""
+    if moe_mod.is_moe(ffn):
+        return moe_mod.moe_apply(ffn, h, cfg.ffn_act, cfg.moe)
+    return ffn_apply(ffn, h, cfg.ffn_act)
 
 
 def forward(cfg: ModelConfig, params: Dict[str, Any], tokens: torch.Tensor

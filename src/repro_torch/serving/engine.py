@@ -19,7 +19,19 @@ baseline) the serve tree is the train tree, and a layer is
 (``flash_decode``) over each slot's live prefix, the ``wo`` product, the
 residual add, ``rms_norm(ln2)``, the FFN products and the second add;
 the head is loose (``final_norm``, full f32 logits, softcap, top-k):
-``L`` kernel calls a step.
+``L`` kernel calls a step.  Its MLA layer (``core/dataflow.py:
+mla_attention``) runs no kernel of the port's: the projections, the
+latent append and the f32 latent attention are torch and cuBLAS, as the
+reference's XLA branch runs around no Pallas kernel.
+
+On a MoE model (DeepSeek-V2-Lite as the reference registers it) every
+layer's FFN is the expert dispatch of ``models/moe.py`` in torch and
+cuBLAS on both backends, after the attention's residual add and
+``rms_norm(ln2)``: on ``"pallas"`` a step is ``L`` B4 launches and one
+B3 (no B2: its block tail has no MoE form, as the reference's packed
+FFN has none), on ``"xla"`` no kernel launch at all.  Capacity couples
+the slots, so MoE models serve lockstep (``launch/serve.py:generate``),
+as the reference's scheduler asserts.
 
 On RWKV-6 a step is the embedding, then per layer the reference's
 ``rwkv6_step`` + ``rwkv6_channel_step`` in plain torch around one B7
@@ -56,10 +68,11 @@ from typing import Any, Callable, Dict, NamedTuple, Tuple
 import torch
 
 from repro_torch.configs.base import ATTN_LOCAL, RECURRENT, RWKV6, ModelConfig
-from repro_torch.core.dataflow import (KVBlock, PackedFFNWeights,
-                                       PackedHeadWeights, PackedMLAWeights,
+from repro_torch.core.dataflow import (KVBlock, MLAWeights,
+                                       PackedFFNWeights, PackedHeadWeights,
+                                       PackedMLAWeights,
                                        PackedSplitTokenWeights,
-                                       SplitTokenWeights,
+                                       SplitTokenWeights, mla_attention,
                                        mla_attention_packed,
                                        split_token_attention,
                                        split_token_attention_packed)
@@ -78,12 +91,12 @@ from repro_torch.kernels.rglru_scan.rglru_scan import (rglru_scan,
                                                        rglru_scan_plain)
 from repro_torch.kernels.rwkv6_scan.rwkv6_scan import (rwkv6_scan,
                                                        rwkv6_scan_plain)
-from repro_torch.models.layers import (ffn_apply, lm_head_logits, rms_norm,
-                                       softcap)
+from repro_torch.models.layers import lm_head_logits, rms_norm, softcap
 from repro_torch.models.rglru import rglru_block_step, rglru_state_init
 from repro_torch.models.rwkv6 import (rwkv6_channel_step, rwkv6_state_init,
                                       rwkv6_step)
-from repro_torch.models.transformer import embed_tokens, head_table
+from repro_torch.models.transformer import (block_ffn, embed_tokens,
+                                            head_table)
 from repro_torch.serving.sampling import (CAND_K, advance_sampling_step,
                                           finalize_candidates,
                                           head_candidates,
@@ -237,16 +250,26 @@ def _split_token_weights(a: Dict[str, torch.Tensor]) -> SplitTokenWeights:
                              bv=a.get("bv"))
 
 
+def _mla_weights(a: Dict[str, torch.Tensor]) -> MLAWeights:
+    """Train-layout MLA → the unfused dataflow's weights (``engine.py:274``):
+    at cluster size 1 the rank slices of ``wuk``, ``wuv`` and ``wo`` are
+    the whole tensors, so this only names the train tensors (no copy)."""
+    return MLAWeights(wq=a["wq"], wdkv=a["wdkv"], wuk=a["wuk"], wuv=a["wuv"],
+                      wo=a["wo"])
+
+
 def hoist_serve_weights(params: Dict[str, Any]) -> Dict[str, Any]:
     """The per-step weight adapters, once per step outside the layer loop
     (``engine.py:303``): every train-layout attention block's ``attn``
-    becomes :class:`SplitTokenWeights` (the identity at cluster 1), in
-    the groups and the tail; packed blocks, MLA blocks, RG-LRU blocks and
-    RWKV-6 blocks pass through."""
+    becomes :class:`SplitTokenWeights` or, for MLA, :class:`MLAWeights`
+    (the identity at cluster 1), in the groups and the tail; packed
+    blocks, RG-LRU blocks and RWKV-6 blocks pass through."""
     def adapt(blk):
         a = blk.get("attn")
         if isinstance(a, dict) and "wk" in a:
             return dict(blk, attn=_split_token_weights(a))
+        if isinstance(a, dict) and "wdkv" in a:
+            return dict(blk, attn=_mla_weights(a))
         return blk
 
     return dict(params, blocks=[adapt(b) for b in params["blocks"]],
@@ -261,12 +284,17 @@ def decode_block(cfg: ModelConfig, kind: str, blk: Dict[str, Any],
 
     Prepacked attention: B1 (attention with its fused ``ln1`` and
     per-head output projection) — or B4 for MLA — with the cache append,
-    then B2 (both residual adds and the FFN).  :class:`SplitTokenWeights`
-    (the unfused ``"xla"`` path, ``engine.py:377–478``, after
-    :func:`hoist_serve_weights`):
+    then B2 (both residual adds and the FFN); a MoE block (whose FFN the
+    pack leaves unbundled) falls through to ``x + a``, ``rms_norm(ln2)``
+    and ``moe_apply``, as the reference does when the FFN is not packed.
+    :class:`SplitTokenWeights` (the unfused ``"xla"`` path,
+    ``engine.py:377–478``, after :func:`hoist_serve_weights`):
     ``rms_norm(ln1)``, :func:`split_token_attention` around B5,
-    ``x + a``, ``rms_norm(ln2)``, ``ffn_apply``, ``x + f`` — on a ring
-    cache for a local-attention layer.  RG-LRU (``engine.py:390–392``):
+    ``x + a``, ``rms_norm(ln2)``, the FFN (dense or MoE), ``x + f`` — on
+    a ring cache for a local-attention layer; :class:`MLAWeights` the
+    same around the unfused :func:`mla_attention`.  The MoE branch is
+    the reference's ``engine.py:437–448`` without ``dff_shard`` (A.5): the
+    slots' ``B`` tokens share one capacity.  RG-LRU (``engine.py:390–392``):
     ``rglru_block_step`` with its recurrence in one B6 launch in place of
     the attention, the same FFN tail; the layer's ``RGLRUState`` is
     updated in place (``h`` by the kernel, the conv tail by a copy).
@@ -290,30 +318,30 @@ def decode_block(cfg: ModelConfig, kind: str, blk: Dict[str, Any],
                                  cache, scan=kernels.rglru, h_out=cache.h)
         cache.conv.copy_(st.conv)
         x = x + a
-        return x + ffn_apply(blk["ffn"], rms_norm(x, blk["ln2"], eps),
-                             cfg.ffn_act)
+        return x + block_ffn(cfg, blk["ffn"], rms_norm(x, blk["ln2"], eps))
     w = blk["attn"]
     if isinstance(w, PackedMLAWeights):
         a = mla_attention_packed(x, w, cache, cache_lens, cos, sin,
                                  nope_dim=cfg.mla.nope_head_dim,
                                  rope_dim=cfg.mla.rope_head_dim,
                                  norm_eps=eps, kernel=kernels.mla)
-        return _fused_ffn_tail(cfg, blk["ffn"], x, a, kernels)
-    if isinstance(w, PackedSplitTokenWeights):
+    elif isinstance(w, PackedSplitTokenWeights):
         a = split_token_attention_packed(x, w, cache, cache_lens, cos, sin,
                                          norm_eps=eps, kernel=kernels.decode)
+    elif isinstance(w, MLAWeights):
+        a = mla_attention(rms_norm(x, blk["ln1"], eps), w, cache,
+                          cache_lens, cos, sin,
+                          nope_dim=cfg.mla.nope_head_dim,
+                          rope_dim=cfg.mla.rope_head_dim)
+    else:
+        a = split_token_attention(
+            rms_norm(x, blk["ln1"], eps), w, cache, cache_lens, cos, sin,
+            window=cfg.sliding_window if kind == ATTN_LOCAL else 0,
+            attn_softcap=cfg.attn_softcap, kernel=kernels.flash)
+    if isinstance(blk["ffn"], PackedFFNWeights):
         return _fused_ffn_tail(cfg, blk["ffn"], x, a, kernels)
-    if cfg.mla is not None:
-        raise NotImplementedError(
-            "the XLA-backend MLA path (train-layout MLA weights) is ROADMAP "
-            "item 4b")
-    a = split_token_attention(
-        rms_norm(x, blk["ln1"], eps), w, cache, cache_lens, cos, sin,
-        window=cfg.sliding_window if kind == ATTN_LOCAL else 0,
-        attn_softcap=cfg.attn_softcap, kernel=kernels.flash)
     x = x + a
-    return x + ffn_apply(blk["ffn"], rms_norm(x, blk["ln2"], eps),
-                         cfg.ffn_act)
+    return x + block_ffn(cfg, blk["ffn"], rms_norm(x, blk["ln2"], eps))
 
 
 def _check_not_param_pair(params: Any, want: str) -> None:

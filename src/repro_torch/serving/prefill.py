@@ -11,19 +11,26 @@ scan and write the decode state: ``s_fin`` and the NORMED last inputs
 the block from the zero state, the recurrence through the B6 scan, and
 write ``h`` from the scan's LAST OUTPUT, rounded to the model dtype as
 the reference's scan returns it (``rglru.py:95``, ROADMAP C6), and the
-conv tail from the last ``width − 1`` conv inputs.  Local-attention
+conv tail from the last ``width − 1`` conv inputs.  MoE FFNs
+(``prefill.py:140``) run ``moe_apply`` over the layer's whole token
+batch.  Local-attention
 layers fill their ring cache (``_fill_ring``).  The ``tail`` layers run
 after the groups, and with tied embeddings the input is scaled by
 ``√d_model`` and the head reads ``embed``.
 
 Per-slot ``lengths`` make prefill a targeted insert on attention models:
-``lengths[b] == 0`` leaves slot b untouched.  Rows are independent in
-every op of this path, so only the admitted rows are computed, and only
-up to their longest prompt (causal attention: a padded tail never
-reaches the positions before it).  A recurrent state would fold a padded
-tail into itself, so ``lengths`` on a config with RWKV-6 or RG-LRU
-layers raises, as the reference's assertion does.  The caches and states
-are written in place.
+``lengths[b] == 0`` leaves slot b untouched.  On a dense-FFN model rows
+are independent in every op of this path, so only the admitted rows are
+computed, and only up to their longest prompt (causal attention: a
+padded tail never reaches the positions before it).  A MoE layer is not
+row-independent: its capacity is per call, over all ``T = B·S`` tokens,
+so which tokens drop depends on the whole batch.  On a MoE config
+prefill therefore runs every slot's whole ``[B, S]`` row through every
+layer, as the reference does, even under ``lengths``, and writes only
+the admitted slots.  A recurrent state would fold a padded tail into
+itself, so ``lengths`` on a config with RWKV-6 or RG-LRU layers raises,
+as the reference's assertion does.  The caches and states are written
+in place.
 """
 from __future__ import annotations
 
@@ -35,12 +42,12 @@ import torch
 from repro_torch.configs.base import ATTN_LOCAL, RECURRENT, RWKV6, ModelConfig
 from repro_torch.core.dataflow import KVBlock
 from repro_torch.models import rglru as rglru_mod
-from repro_torch.models.layers import (ffn_apply, lm_head_logits, rms_norm,
-                                       softcap)
+from repro_torch.models.layers import lm_head_logits, rms_norm, softcap
 from repro_torch.models.rwkv6 import (RWKV6State, rwkv6_channel_mix,
                                       rwkv6_time_mix)
-from repro_torch.models.transformer import (apply_block, embed_tokens,
-                                            head_table, layer_params)
+from repro_torch.models.transformer import (apply_block, block_ffn,
+                                            embed_tokens, head_table,
+                                            layer_params)
 from repro_torch.serving.engine import (ServeConfig, _check_not_param_pair,
                                         _finite_violations, _layer)
 from repro_torch.serving.sampling import (admit_sampling_state,
@@ -117,8 +124,7 @@ def _prefill_rglru(cfg: ModelConfig, blk: Dict[str, Any], x: torch.Tensor,
                       device=u.device)
     st.h.copy_(h_seq[:, -1])
     st.conv.copy_(torch.cat([pad, u[:, -n_tail:]], dim=1)[:, -n_tail:])
-    return x + ffn_apply(blk["ffn"], rms_norm(x, blk["ln2"], eps),
-                         cfg.ffn_act)
+    return x + block_ffn(cfg, blk["ffn"], rms_norm(x, blk["ln2"], eps))
 
 
 def _prefill_rwkv(cfg: ModelConfig, blk: Dict[str, Any], x: torch.Tensor,
@@ -169,9 +175,13 @@ def prefill(cfg: ModelConfig, scfg: ServeConfig, params: Dict[str, Any],
     nxt = torch.zeros((B,), dtype=torch.int32, device=dev)
     bad = torch.zeros((B,), dtype=torch.int32, device=dev)
     if adm_np.any():
-        s_eff = int(lens_np[adm_np].max())
         lens_a = lens[rows]
-        x = embed_tokens(cfg, params["embed"], tokens[rows, :s_eff])
+        if cfg.moe is None:        # the admitted rows, to their longest
+            run, sel = rows, slice(None)
+            s_eff = int(lens_np[adm_np].max())
+        else:                      # every row: capacity couples them
+            run, sel, s_eff = torch.arange(B, device=dev), rows, S
+        x = embed_tokens(cfg, params["embed"], tokens[run, :s_eff])
         caches = [_layer(c, g)
                   for g in range(cfg.n_layers // len(cfg.block_pattern))
                   for c in state["layers"]] + list(state["tail"])
@@ -188,8 +198,8 @@ def prefill(cfg: ModelConfig, scfg: ServeConfig, params: Dict[str, Any],
             if cfg.mla is not None:            # prefill.py:145–149
                 kv = (kv, kv[..., :1])
             fill = _fill_ring if kind == ATTN_LOCAL else _fill_global
-            fill(cache, *kv, rows, lens_a)
-        last_raw = x[torch.arange(len(rows), device=dev), lens_a - 1]
+            fill(cache, *(t[sel] for t in kv), rows, lens_a)
+        last_raw = x[sel][torch.arange(len(rows), device=dev), lens_a - 1]
         last = rms_norm(last_raw, params["final_norm"], cfg.norm_eps)
         logits = softcap(lm_head_logits(head_table(cfg, params), last),
                          cfg.logit_softcap)

@@ -7,7 +7,11 @@ makes) and views ``wo`` as per-head full-width rows ``[q, hd, D]``;
 ``_pack_mla`` views ``wq``, aliases ``wdkv``/``wuk`` and folds
 ``wproj = W_UV·W_O`` (its one copy); ``bundle_ffn`` and ``bundle_head``
 only alias train tensors.  RWKV-6 blocks ride through unpacked, as in
-the reference (``prepack.py:280–293``): the serve tree aliases them.
+the reference (``prepack.py:280–293``): the serve tree aliases them.  A
+MoE block's FFN is not packable (``_ffn_packable``, ``prepack.py:167``:
+the fused block tail has no expert dispatch), so its experts, router
+and ``ln2`` ride through as the train tensors, aliased, while its
+attention is packed for B4.
 
 That is the ``"pallas"`` backend's serve layout.  On ``"xla"`` the
 reference keeps the train-layout segments and only moves the rank
@@ -25,6 +29,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.dataflow import (PackedFFNWeights, PackedHeadWeights,
                                        PackedMLAWeights,
                                        PackedSplitTokenWeights)
+from repro_torch.models.moe import is_moe
 
 
 def _pack_attn(a: Dict[str, torch.Tensor], ln1: torch.Tensor
@@ -79,7 +84,8 @@ def bundle_head(cfg: ModelConfig, params: Dict[str, Any]) -> PackedHeadWeights:
 def prepack_for_serving(cfg: ModelConfig, params: Dict[str, Any], *,
                         backend: str = "pallas") -> Dict[str, Any]:
     """Serve tree.  ``"pallas"``: every attention block's ``attn`` packed,
-    ``ffn`` bundled, every other block (RWKV-6) aliased as it is, plus
+    its dense ``ffn`` bundled — a MoE ``ffn`` and ``ln2`` aliased as they
+    are —, every other block (RWKV-6) aliased as it is, plus
     the ``head`` bundle (B3's table); ``embed`` aliases the train tensor.
     ``"xla"``: ``params`` itself — its RG-LRU, local- and global-attention
     blocks and its ``tail`` ride through as the train tree, and the
@@ -96,8 +102,9 @@ def prepack_for_serving(cfg: ModelConfig, params: Dict[str, Any], *,
     def pack_block(blk):
         if "attn" not in blk:
             return blk
-        return {"attn": pack_attn(blk["attn"], blk["ln1"]),
-                "ffn": bundle_ffn(blk)}
+        ffn = ({"ffn": blk["ffn"], "ln2": blk["ln2"]} if is_moe(blk["ffn"])
+               else {"ffn": bundle_ffn(blk)})
+        return {"attn": pack_attn(blk["attn"], blk["ln1"]), **ffn}
 
     return {"embed": params["embed"],
             "blocks": [pack_block(b) for b in params["blocks"]], "tail": [],

@@ -56,10 +56,18 @@ class RequestResult:
 
 
 class SlotScheduler:
-    """Continuous batching over an :class:`EngineHandle`."""
+    """Continuous batching over an :class:`EngineHandle` of a dense-FFN
+    model.  A MoE model is refused, as the reference asserts
+    (``scheduler.py:152–158``): capacity routing drops experts' tokens by
+    per-batch capacity, so a request's tokens would depend on the slots
+    beside it.  MoE models serve lockstep (``launch/serve.py:generate``)."""
 
     def __init__(self, engine: EngineHandle, *, prompt_cap: int,
                  eos_id: Optional[int] = None):
+        if engine.cfg.moe is not None:
+            raise AssertionError(
+                "SlotScheduler requires dense-FFN models: MoE capacity "
+                "routing makes tokens depend on co-resident slots")
         self.eng = engine
         self.prompt_cap = int(prompt_cap)
         self.eos_id = eos_id

@@ -44,7 +44,7 @@ ARCHS = ("llama2-7b", "deepseek-v2-lite")
 
 def _configs(arch):
     """(reference, port) reduced configs; DeepSeek-V2-Lite as its dense-MLA
-    arm (MoE is ROADMAP item 13)."""
+    arm (the MoE model's engines: ``tests/test_torch_moe.py``)."""
     ref_cfg = ref_reduced(ref_get_config(arch))
     port_cfg = reduced(get_config(arch))
     if ref_cfg.moe is not None:

@@ -287,7 +287,24 @@ NEAR_TIE = 0.05   # bf16 logits of a reduced random model: ~0.06 spread
 
 
 def test_moe_config_raises_naming_the_roadmap():
-    from repro_torch.models.transformer import init_params
+    """MoE serves lockstep only: the port's ``SlotScheduler`` refuses a MoE
+    engine with the reference's assertion (``scheduler.py:152–158``:
+    capacity couples the slots), and accepts its dense-MLA arm."""
+    from types import SimpleNamespace
+
+    from repro.serving.scheduler import SlotScheduler as RefScheduler
+
+    from repro_torch.launch.serve import build_engine_full
+    from repro_torch.serving.scheduler import SlotScheduler
     cfg = reduced(get_config("deepseek-v2-lite"))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
-        init_params(cfg, device="cpu")
+    msg = "MoE capacity routing makes tokens depend on co-resident slots"
+    with pytest.raises(AssertionError, match=msg):
+        RefScheduler(SimpleNamespace(cfg=ref_reduced(ref_get_config(
+            "deepseek-v2-lite"))), prompt_cap=8)
+    for c in (cfg, dense_mla(cfg)):
+        eng = build_engine_full(c, max_seq=16, batch_global=2, device="cpu")
+        if c.moe is None:
+            assert SlotScheduler(eng, prompt_cap=8).n_slots == 2
+            continue
+        with pytest.raises(AssertionError, match=msg):
+            SlotScheduler(eng, prompt_cap=8)

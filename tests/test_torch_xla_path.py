@@ -14,6 +14,8 @@ must agree on at least 90 % of (step, active slot) and every
 difference must be a near-tie, the reference's token within
 ``NEAR_TIE`` of the port's best logit (ROADMAP C2).
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -35,7 +37,7 @@ from repro.serving.scheduler import replay_trace as ref_replay
 
 from test_torch_layers import dense_mla, jax_tree_to_numpy
 
-from repro_torch.configs import get_config, reduced
+from repro_torch.configs import EncoderConfig, get_config, reduced
 from repro_torch.core import autotune, tracecount
 from repro_torch.core import dataflow as df
 from repro_torch.kernels.fused_decode.fused_decode import rope_at
@@ -341,17 +343,30 @@ def test_backend_and_prepack_resolve_as_the_reference(arch):
 
 
 def test_unservable_combinations_raise_naming_the_roadmap():
-    """MLA on ``"xla"`` (item 4b) and ``"pallas"`` with prepack off on an
-    attention model (B1's ``fuse_out=False`` mode, Queue B) raise before
-    any weight is made; an attention-free model may turn prepack off."""
-    mla = dense_mla(reduced(get_config("deepseek-v2-lite")))
+    """MLA on ``"xla"`` is served now (item 4b, with MoE or without);
+    ``"pallas"`` with prepack off on an attention model (B1's and B4's
+    ``fuse_out=False`` modes, Queue B), post-norms (item 10), q/k/v
+    biases (item 11) and encoders (item 14) raise before any weight is
+    made; an attention-free model may turn prepack off."""
+    mla = reduced(get_config("deepseek-v2-lite"))
     llama = reduced(get_config("llama2-7b"))
-    with pytest.raises(NotImplementedError, match="item 4b"):
-        build_engine_full(mla, max_seq=16, batch_global=2, device="cpu")
+    for cfg in (mla, dense_mla(mla)):
+        assert autotune.resolve_serving(cfg, "xla", "auto") == ("xla", False)
+        with pytest.raises(NotImplementedError, match="Queue B"):
+            build_engine_full(cfg, max_seq=16, batch_global=2, device="cpu",
+                              options=EngineOptions(backend="pallas",
+                                                    prepack="off"))
     with pytest.raises(NotImplementedError, match="Queue B"):
         build_engine_full(llama, max_seq=16, batch_global=2, device="cpu",
                           options=EngineOptions(backend="pallas",
                                                 prepack="off"))
+    for bad, item in (({"use_post_norm": True}, "item 10"),
+                      ({"qkv_bias": True}, "item 11"),
+                      ({"encoder": EncoderConfig(2, 4, 4, 384)},
+                       "item 14")):
+        with pytest.raises(NotImplementedError, match=item):
+            build_engine_full(dataclasses.replace(llama, **bad), max_seq=16,
+                              batch_global=2, device="cpu")
     assert autotune.resolve_serving(
         reduced(get_config("rwkv6-3b")), "pallas", "off") == ("pallas",
                                                                False)
