@@ -16,8 +16,9 @@ Each tree (an unpacked ``git archive``, or this checkout) runs in a
 process of its own, importing that tree's ``chip_smoke.py`` and
 ``repro_torch``, in the order given; each prints one JSON line a case
 (``tree``, ``name``, ``path``, ``stage``, ``max_abs_err``, ``ms``,
-``bound_ms``, ``products_ms``) and one of its build (registers and
-spills per kernel instance, from ``nvcc -Xptxas -v``).  Full output of
+``bound_ms``, ``products_ms``), one of its build (registers and
+spills per kernel instance, from ``nvcc -Xptxas -v``) and one of the
+card (``nvidia-smi``'s name and power limit).  Full output of
 run i goes to ``DIR/bench_<i>.log`` (default ``build/bench``).  Exits
 nonzero if any check or run failed.
 """
@@ -43,6 +44,10 @@ def run_tree(tree: str, names) -> int:
         print("kernel_bench: no CUDA device", file=sys.stderr)
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
+    print(json.dumps(dict(tree=tree, card=card)), flush=True)
     logs = _build.build_all(tuple(names))
     for name, log in logs.items():
         print(json.dumps(dict(

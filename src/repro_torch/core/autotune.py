@@ -13,10 +13,11 @@
 * ``"auto"``: ``"pallas"`` for models with attention layers, ``"xla"``
   for attention-free ones (the fusion scope the paper targets does not
   apply, DESIGN.md §4) — so the dense MHA and GQA models (Llama2-7B,
-  Granite-8B, Minitron-4B) and DeepSeek-V2-Lite (MoE or its dense-MLA
-  arm) resolve to the fused kernels, and RecurrentGemma, which has
-  local-attention layers, resolves to ``"pallas"`` as in the reference
-  and raises: its fused arm is not ported (ROADMAP item 10).
+  Granite-8B, Minitron-4B), Gemma-2 27B (local and global attention)
+  and DeepSeek-V2-Lite (MoE or its dense-MLA arm) resolve to the fused
+  kernels, and RecurrentGemma, which has local-attention layers,
+  resolves to ``"pallas"`` as in the reference and raises: its fused arm
+  is not ported (ROADMAP A.4c, item 10).
 
 Every model the port registers serves on ``"xla"``; all but
 RecurrentGemma also on ``"pallas"``.
@@ -25,7 +26,7 @@ from __future__ import annotations
 
 from typing import Tuple
 
-from repro_torch.configs.base import ATTN_LOCAL, RECURRENT, ModelConfig
+from repro_torch.configs.base import RECURRENT, ModelConfig
 
 BACKENDS = ("xla", "pallas")
 
@@ -58,20 +59,20 @@ def resolve_serving(cfg: ModelConfig, backend: str, prepack
                     ) -> Tuple[str, bool]:
     """``(backend, prepack)`` for ``cfg``, raising on the combinations the
     port cannot serve yet (never falling back to another backend): the
-    fused arm of RG-LRU and local-attention models (Gemma-2's modes and
-    fused RecurrentGemma, ROADMAP item 10) and ``"pallas"`` with prepack
-    off on an attention model (B1's and B4's ``fuse_out=False``).  Dense
-    MHA and GQA models, gated or ungated, tied or not, and MLA models
-    with a dense or a MoE FFN serve on both backends."""
+    fused arm of RG-LRU models (RecurrentGemma, ROADMAP A.4c, item 10)
+    and ``"pallas"`` with prepack off on an attention model (B1's and
+    B4's ``fuse_out=False``).  Dense MHA and GQA models, gated or
+    ungated, tied or not, with local (sliding-window) layers or not
+    (Gemma-2), and MLA models with a dense or a MoE FFN serve on both
+    backends."""
     b = _backend_for(cfg, backend)
     pp = _prepack_for(b, prepack)
-    if b == "pallas" and {RECURRENT, ATTN_LOCAL} & set(cfg.layer_kinds):
+    if b == "pallas" and RECURRENT in cfg.layer_kinds:
         raise NotImplementedError(
-            f"backend='pallas' for {cfg.name}: the fused arm of RG-LRU and "
-            "local-attention models needs B1's head_dim 256, window, "
-            "ring-cache and softcap modes, B2's post_ln1, B3's logit "
-            "softcap and the serve layout of tail layers (ROADMAP item "
-            "10, the Gemma-2 slice); serve it on backend='xla'")
+            f"backend='pallas' for {cfg.name}: the fused arm of RG-LRU "
+            "models needs B1's head_dim 256 with MQA 16/1 (q_per_kv 16) "
+            "and the serve layout of tail layers (ROADMAP A.4c, item 10); "
+            "serve it on backend='xla'")
     if b == "pallas" and not pp and not cfg.is_attention_free:
         raise NotImplementedError(
             "backend='pallas' with prepack off needs B1's fuse_out=False "

@@ -225,7 +225,9 @@ def split_token_attention(x: torch.Tensor, w: SplitTokenWeights,
 def split_token_attention_packed(x: torch.Tensor,
                                  w: PackedSplitTokenWeights, cache: KVBlock,
                                  cache_lens: torch.Tensor, cos: torch.Tensor,
-                                 sin: torch.Tensor, *, norm_eps: float = 1e-6,
+                                 sin: torch.Tensor, *, window: int = 0,
+                                 attn_softcap: float = 0.0,
+                                 norm_eps: float = 1e-6,
                                  scale: Optional[float] = None,
                                  kernel=fused_decode_attention
                                  ) -> torch.Tensor:
@@ -235,17 +237,28 @@ def split_token_attention_packed(x: torch.Tensor,
     ``cache`` in place.  ``cos``/``sin`` are :func:`rope_at` of
     ``cache_lens`` (shared by every layer of a step).  ``kernel`` is the
     B1 entry point (its plain version to hold the kernel against it on
-    the card)."""
+    the card).
+
+    A sliding-window layer (``window > 0``) runs on a ring cache: B1
+    attends BEFORE the append, masking each row by its stored ``pos``
+    (``0 ≤ pos < cache_len`` and ``pos > cache_len − window``: the row
+    the append will overwrite still holds ``cache_len − S``, outside the
+    window), counts the new token whenever the slot is live (the ring
+    always has room: ``dataflow.py:_append_slot``), and the append then
+    writes row ``cache_len mod S`` (``ring=True``)."""
     B, D = x.shape
     q_loc, hd, d_out = w.wo.shape
     kv_loc = (w.wqkv.shape[1] // hd - q_loc) // 2
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
-    include_new = _appends(cache.k.shape[0], cache_lens).to(torch.int32)
+    ring = window > 0
+    live = (cache_lens >= 0) if ring else _appends(cache.k.shape[0],
+                                                   cache_lens)
     o, k_new, v_new, m, l = kernel(
         x, w.wqkv, w.wo, w.ln1, cache.k, cache.v, cache.pos, cache_lens,
-        include_new, cos, sin, q_heads=q_loc, kv_heads=kv_loc,
-        scale=scale, norm_eps=norm_eps)
-    _insert_kv_ragged(cache, k_new, v_new, cache_lens)
+        live.to(torch.int32), cos, sin, q_heads=q_loc, kv_heads=kv_loc,
+        scale=scale, norm_eps=norm_eps, window=window,
+        attn_softcap=attn_softcap)
+    _insert_kv_ragged(cache, k_new, v_new, cache_lens, ring=ring)
     o_full = (o / torch.clamp(l[..., None], min=1e-30)).sum(dim=1)
     return o_full.to(x.dtype)
 

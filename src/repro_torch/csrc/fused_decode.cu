@@ -3,8 +3,10 @@
 //
 // Replaces repro/kernels/fused_decode/fused_decode.py:fused_decode_attention
 // (the Pallas kernel at its pallas_call, line 374) in the serving mode:
-// fused ln1, linear cache, no bias/window/softcap, q_per_kv = nq / nkv
-// query heads a kv head (1 = MHA; GQA and MQA above), hd 128.
+// fused ln1, no bias, q_per_kv = nq / nkv query heads a kv head (1 = MHA;
+// GQA and MQA above), hd 128, on a linear cache or a sliding window over
+// a ring cache (Gemma-2's local layers), with or without the attention
+// softcap.
 //
 // Bound on an H100: bytes.  Per layer the weights (wqkv + wo: 134 MB at
 // Llama2-7B, 84 MB at Granite-8B) and each slot's live KV are read once;
@@ -12,7 +14,9 @@
 // 1-3): one thread-block cluster of C CTAs per kv head g, holding its
 // H = q_per_kv query heads (the wrapper's plan: C = 4, H = 1 at
 // Llama2-7B, 128 CTAs; C = 8, H = 4 and 3 at Granite-8B and Minitron-4B,
-// 64 CTAs), the grid and the buffers laid out by kv head.
+// 64 CTAs; C = 4, H = 2 at Gemma-2 27B, 64 CTAs: its 16 clusters of 8
+// would be one more than the 15 an H100 runs at once, and measured
+// slower), the grid and the buffers laid out by kv head.
 // Rank r of the cluster of kv head g
 //   1. normalizes x for all B slots (the sum of squares over the whole
 //      row, redundant per rank: 64 KB from L2) and keeps its rows
@@ -30,9 +34,13 @@
 //      (cluster::gather), so every rank holds the same q, k and v;
 //   4. applies RoPE in f32; rank 0 writes the rounded
 //      k_new/v_new;
-//   5. attends over its share of the live rows [0, cache_len) of all
+//   5. attends over its share of the rows [0, min(cache_len, S)) of all
 //      slots laid end to end (C runs of equal length, in tiles that stop
-//      at a slot's edge), rows with pos in [0, cache_len), streaming K/V
+//      at a slot's edge), rows with pos in [0, cache_len) and, with a
+//      window, pos > cache_len − window (by stored pos: on a wrapped ring
+//      the row the append will overwrite still holds cache_len − S, and
+//      offsets are not positions, so no row is culled by its offset);
+//      scores softcapped (tanh(s/cap)·cap) before the softmax; streaming K/V
 //      and pos through a cp.async ring (its first tiles load during step
 //      3); a tile holds one slot's rows, which that slot's H query heads
 //      attend: each warp scores 8 keys of a tile for all H heads (each K
@@ -45,8 +53,9 @@
 //      on every rank (H = 1: cluster::flash_merge; H > 1: each rank merges
 //      its slice of the rows with the operator's factors, then the ranks
 //      gather the slices);
-//   7. folds in the new token (f32 k/v, gated by include_new) the same
-//      way on every rank; rank 0 writes m and l;
+//   7. folds in the new token (f32 k/v, gated by include_new, its score
+//      softcapped like the cached rows') the same way on every rank; rank
+//      0 writes m and l;
 //   8. projects each head's acc through columns [r·D/C, (r+1)·D/C) of its
 //      wo[h] (a cp.async ring over the H heads' rows) on the tensor
 //      cores, acc split into bf16 hi + lo terms (two mma.sync each: acc
@@ -65,6 +74,11 @@
 
 namespace {
 
+// the attention softcap of a scaled score (none at cap 0)
+DEVI float softcap(float s, float cap) {
+  return cap > 0.f ? tanhf(s / cap) * cap : s;
+}
+
 constexpr int NT = 256;        // 8 warps
 constexpr int NW = NT / 32;
 constexpr int HD = 128;
@@ -82,13 +96,17 @@ constexpr int AST = H == 1 ? 2 : 3;
 // k16 steps would otherwise each pay a tile's wait, barrier and issue
 template <int H>
 constexpr int TRO = H == 1 ? 16 : 32;
-// wo ring stages: two for one head (its 8 tiles), four for H heads' 4·H
-// tiles, so three tiles stay in flight (the ring fits in region 0 beside
-// the larger wqkv ring at H ≥ 3)
+// wo ring stages: two for one head (its 8 tiles), four for H ≥ 3 heads'
+// 4·H tiles, so three tiles stay in flight (the ring fits in region 0
+// beside the larger wqkv ring); two for two heads, whose plan gives a rank
+// 1152 rows (Gemma-2 27B: four such stages would not fit)
 template <int H>
-constexpr int OST = H == 1 ? 2 : 4;
+constexpr int OST = H <= 2 ? 2 : 4;
 constexpr int ACS = HD + 4;    // acc row stride (f32)
-constexpr int MAX_NTO = 16;    // wo n tiles a warp: Dr ≤ 1024
+// wo n tiles a warp: Dr ≤ 1152 (Gemma-2 27B's 4608 / 4) for two heads,
+// ≤ 1024 for the others
+template <int H>
+constexpr int MAX_NTO = H == 2 ? 18 : 16;
 constexpr int MAX_C = 8;       // ranks a cluster (the portable size)
 
 __host__ __device__ constexpr size_t smax(size_t a, size_t b) {
@@ -149,7 +167,7 @@ fused_decode_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wqkv,
                     float* __restrict__ o, bf16* __restrict__ k_new,
                     bf16* __restrict__ v_new, float* __restrict__ m_out,
                     float* __restrict__ l_out, int D, int S, int nq, int nkv,
-                    float scale, float eps) {
+                    int window, float scale, float eps, float cap) {
   using L_ = Lay<B, H>;
   constexpr int NC = L_::NC, NCP = L_::NCP, R = L_::R;
   constexpr int NTW = NC / 8 / NW;   // 8-column n tiles a warp projects
@@ -457,7 +475,7 @@ fused_decode_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wqkv,
     for (int h = 0; h < H; ++h) d[h] = 0.f;
     if (p < nv) {
       const int ps_ = posb[(f % AS) * TRA + p];
-      valid = ps_ >= 0 && ps_ < cl;
+      valid = ps_ >= 0 && ps_ < cl && (window <= 0 || ps_ > cl - window);
       const float* qr = qkv + b * NC;
 #pragma unroll
       for (int u = 0; u < HD / 32; ++u) {
@@ -480,7 +498,7 @@ fused_decode_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wqkv,
       float dh = d[h];
       dh += __shfl_xor_sync(0xffffffffu, dh, 1);
       dh += __shfl_xor_sync(0xffffffffu, dh, 2);
-      const float sv = valid ? dh * scale : -INFINITY;
+      const float sv = valid ? softcap(dh * scale, cap) : -INFINITY;
       float mx = sv;
 #pragma unroll
       for (int u = 4; u < 32; u <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, u));
@@ -651,7 +669,7 @@ fused_decode_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wqkv,
       dot += qkv[b * NC + h * HD + d] * qkv[b * NC + H * HD + d];
     dot = warp_sum(dot);
     if (lane == 0) {
-      const float s_new = include_new[b] > 0 ? dot * scale : -1e30f;
+      const float s_new = include_new[b] > 0 ? softcap(dot * scale, cap) : -1e30f;
       const float m_fin = fmaxf(mfin[r], s_new);
       const float p = expf(s_new - m_fin);
       const float c = expf(mfin[r] - m_fin);
@@ -684,9 +702,10 @@ fused_decode_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wqkv,
   // so no MMA row is padding: half the products
   if constexpr (H == 1) {
     const int nto = Dr / 64;
-    float co[MAX_NTO][4];
+    constexpr int NTO = MAX_NTO<H>;
+    float co[NTO][4];
 #pragma unroll
-    for (int n = 0; n < MAX_NTO; ++n)
+    for (int n = 0; n < NTO; ++n)
 #pragma unroll
       for (int j = 0; j < 4; ++j) co[n][j] = 0.f;
     for (int t = 0; t < H * TPH; ++t) {
@@ -703,7 +722,7 @@ fused_decode_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wqkv,
       const bf16* tb = tile + ((lane & 7) + (mi & 1) * 8) * xrow
                      + warp * (Dr / NW) + (mi >> 1) * 8;
 #pragma unroll
-      for (int n = 0; n < MAX_NTO; n += 2) {
+      for (int n = 0; n < NTO; n += 2) {
         if (n < nto) {
           uint32_t bq[4];
           ldsm_x4_t(tb + n * 8, bq);
@@ -718,18 +737,18 @@ fused_decode_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wqkv,
           float* orow = o + ((size_t)gi * nq + qb + h) * D + d0
                       + warp * (Dr / NW) + ti * 2;
 #pragma unroll
-          for (int n = 0; n < MAX_NTO; ++n)
+          for (int n = 0; n < NTO; ++n)
             if (n < nto)
               *reinterpret_cast<float2*>(orow + n * 8) = make_float2(co[n][0], co[n][1]);
         }
 #pragma unroll
-        for (int n = 0; n < MAX_NTO; ++n)
+        for (int n = 0; n < NTO; ++n)
 #pragma unroll
           for (int j = 0; j < 4; ++j) co[n][j] = 0.f;
       }
     }
   } else {
-    constexpr int MAX_MT = MAX_NTO / 2;   // m tiles a warp: Dr ≤ 1024
+    constexpr int MAX_MT = MAX_NTO<H> / 2;   // m tiles a warp: 64·MAX_NTO rows
     const int nmt = Dr / 16;
     // ldmatrix .trans of the [k][m] tile: lanes 0-7 rows k 0-7 at m 0,
     // 8-15 rows k 0-7 at m 8, 16-23 rows k 8-15 at m 0, 24-31 rows k 8-15
@@ -795,8 +814,9 @@ fused_decode_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wqkv,
 }
 
 // Rows a rank may hold: a multiple of 64 (eight warps' n tiles of wo) up
-// to 1024 (MAX_NTO).
-bool rows_ok(int Dr) { return Dr >= 64 && Dr <= 64 * MAX_NTO && Dr % 64 == 0; }
+// to 64·MAX_NTO (1152 for two heads a cluster, 1024 for the others).
+template <int H>
+bool rows_ok(int Dr) { return Dr >= 64 && Dr <= 64 * MAX_NTO<H> && Dr % 64 == 0; }
 
 template <int B, int H>
 size_t smem_bytes(int D, int C) { return Lay<B, H>{D / C}.total(); }
@@ -806,12 +826,12 @@ int launch(int C, const bf16* x, const bf16* wqkv, const bf16* wo,
            const float* ln1, const bf16* kc, const bf16* vc, const int* pos,
            const int* cache_lens, const int* include_new, const float* cosv,
            const float* sinv, float* o, bf16* k_new, bf16* v_new, float* m,
-           float* l, int D, int S, int nq, int nkv, float scale, float eps,
-           cudaStream_t stream) {
+           float* l, int D, int S, int nq, int nkv, int window, float scale,
+           float eps, float cap, cudaStream_t stream) {
   return (int)cluster::launch(
       fused_decode_kernel<B, H>, dim3(nq / H * C), NT, smem_bytes<B, H>(D, C),
       stream, C, x, wqkv, wo, ln1, kc, vc, pos, cache_lens, include_new, cosv,
-      sinv, o, k_new, v_new, m, l, D, S, nq, nkv, scale, eps);
+      sinv, o, k_new, v_new, m, l, D, S, nq, nkv, window, scale, eps, cap);
 }
 
 template <int H>
@@ -819,10 +839,10 @@ int launch_b(int B, int C, const bf16* x, const bf16* wqkv, const bf16* wo,
              const float* ln1, const bf16* kc, const bf16* vc, const int* pos,
              const int* cache_lens, const int* include_new, const float* cosv,
              const float* sinv, float* o, bf16* k_new, bf16* v_new, float* m,
-             float* l, int D, int S, int nq, int nkv, float scale, float eps,
-             cudaStream_t stream) {
+             float* l, int D, int S, int nq, int nkv, int window, float scale,
+             float eps, float cap, cudaStream_t stream) {
 #define ARGS C, x, wqkv, wo, ln1, kc, vc, pos, cache_lens, include_new, cosv, \
-    sinv, o, k_new, v_new, m, l, D, S, nq, nkv, scale, eps, stream
+    sinv, o, k_new, v_new, m, l, D, S, nq, nkv, window, scale, eps, cap, stream
   switch (B) {
     case 1: return launch<1, H>(ARGS);
     case 2: return launch<2, H>(ARGS);
@@ -842,13 +862,14 @@ constexpr size_t SMEM_MAX = 232448;
 
 // The plan the kernel takes: C ranks (a power of two up to 8) that split
 // d_model into rows_ok runs, and H = q_per_kv query heads a cluster, H in
-// {1, 3, 4}, within the shared memory a CTA has.
+// {1, 2, 3, 4}, within the shared memory a CTA has.
 bool plan_ok(int nq, int nkv, int hd, int D, int C, int H) {
-  if (!(hd == HD && nkv >= 1 && nq == nkv * H &&
-        (H == 1 || H == 3 || H == 4) && C >= 1 && C <= MAX_C &&
-        D % C == 0 && rows_ok(D / C)))
+  if (!(hd == HD && nkv >= 1 && nq == nkv * H && H >= 1 && H <= 4 &&
+        C >= 1 && C <= MAX_C && D % C == 0 &&
+        (H == 2 ? rows_ok<2>(D / C) : rows_ok<1>(D / C))))
     return false;
   const size_t smem = H == 1 ? smem_bytes<BP, 1>(D, C)
+                    : H == 2 ? smem_bytes<BP, 2>(D, C)
                     : H == 3 ? smem_bytes<BP, 3>(D, C)
                              : smem_bytes<BP, 4>(D, C);
   return smem <= SMEM_MAX;
@@ -861,15 +882,17 @@ extern "C" int fused_decode_launch(
     const void* kc, const void* vc, const void* pos, const void* cache_lens,
     const void* include_new, const void* cosv, const void* sinv, void* o,
     void* k_new, void* v_new, void* m, void* l, int B, int D, int S, int nq,
-    int nkv, int hd, int C, int H, float scale, float eps, void* stream) {
+    int nkv, int hd, int C, int H, int window, float scale, float eps,
+    float cap, void* stream) {
   if (!plan_ok(nq, nkv, hd, D, C, H)) return (int)cudaErrorInvalidValue;
 #define ARGS B, C, (const bf16*)x, (const bf16*)wqkv, (const bf16*)wo,           \
     (const float*)ln1, (const bf16*)kc, (const bf16*)vc, (const int*)pos,        \
     (const int*)cache_lens, (const int*)include_new, (const float*)cosv,         \
     (const float*)sinv, (float*)o, (bf16*)k_new, (bf16*)v_new, (float*)m,        \
-    (float*)l, D, S, nq, nkv, scale, eps, (cudaStream_t)stream
+    (float*)l, D, S, nq, nkv, window, scale, eps, cap, (cudaStream_t)stream
   switch (H) {
     case 1: return launch_b<1>(ARGS);
+    case 2: return launch_b<2>(ARGS);
     case 3: return launch_b<3>(ARGS);
     case 4: return launch_b<4>(ARGS);
     default: return (int)cudaErrorInvalidValue;

@@ -4,7 +4,7 @@
 //
 // Replaces repro/kernels/fused_head/fused_head.py:fused_head_block (the
 // Pallas kernel at its pallas_call, line 128) with topk.select_topk and
-// topk.topk_pair_merge, no softcap.
+// topk.topk_pair_merge, with or without the logit softcap.
 //
 // Bound on an H100: bytes — the [V, D] bf16 table (262 MB at Llama2-7B) is
 // read once per step for all B ≤ 8 slots, at 2·B FLOPs per element.
@@ -31,7 +31,11 @@
 //      accumulator touches only 64-term partials; the eight warps' sums
 //      of a 16-row block are then added in warp order.
 //   3. Warp s keeps slot s's running top-8 in registers over the whole run
-//      (LaneTopK), and writes its K best to shared memory at the end.
+//      (LaneTopK), each logit softcapped (tanh(l/cap)·cap, Gemma-2's 30)
+//      BEFORE it enters: f32 rounding can make two different logits equal
+//      after the cap, and the tie then goes to the lower index, as in the
+//      reference (fused_head.py:79-80), which capping only the survivors
+//      would not give; it writes its K best to shared memory at the end.
 //   4. ClusterReduce with the top-k operator over DSMEM
 //      (cluster::topk): rank c merges the C ranks' candidates of the slots
 //      s ≡ c (mod C) and writes the cluster's [B, K] candidates to the
@@ -149,7 +153,7 @@ template <int B>
 __global__ void __launch_bounds__(NT, 1)
 fused_head_kernel(const bf16* __restrict__ x, const bf16* __restrict__ table,
                   const float* __restrict__ ln, int D, int V, int K, int ST,
-                  float eps, float* __restrict__ part_v,
+                  float eps, float cap, float* __restrict__ part_v,
                   int* __restrict__ part_i, int* __restrict__ arrivals,
                   float* __restrict__ out_v, int* __restrict__ out_i) {
   const int C = (int)cooperative_groups::this_cluster().num_blocks();
@@ -277,6 +281,7 @@ fused_head_kernel(const bf16* __restrict__ x, const bf16* __restrict__ table,
         float l = 0.f;
 #pragma unroll
         for (int w = 0; w < NW; ++w) l += red[(w * BP + warp) * RRS + row];
+        if (cap > 0.f) l = tanhf(l / cap) * cap;
         if (vb + row < r1) top.insert(l, vb + row);
       }
     }
@@ -321,32 +326,33 @@ fused_head_kernel(const bf16* __restrict__ x, const bf16* __restrict__ table,
 template <int B>
 int launch(int G, int C, const bf16* x, const bf16* table, const float* ln,
            float* part_v, int* part_i, int* arrivals, float* out_v, int* out_i,
-           int D, int V, int K, float eps, cudaStream_t stream) {
+           int D, int V, int K, float eps, float cap, cudaStream_t stream) {
   const int st = stages(D);
   if (!st) return (int)cudaErrorInvalidValue;
   return (int)cluster::launch(fused_head_kernel<B>, dim3(G * C), NT,
                               Lay{D, st}.total(), stream, C, x, table, ln, D,
-                              V, K, st, eps, part_v, part_i, arrivals, out_v,
-                              out_i);
+                              V, K, st, eps, cap, part_v, part_i, arrivals,
+                              out_v, out_i);
 }
 
 }  // namespace
 
 // x [B, D] bf16, table [V, D] bf16, ln [D] f32; part_v / part_i [G, B, K]
 // (the clusters' candidates), arrivals ≥ C int32 zeros (left at zero);
-// out_v / out_i [B, K].  Every CTA of the G·C owns at least one row (the
-// wrapper's cluster_plan gives each at least 16).
+// out_v / out_i [B, K]; cap 0: no logit softcap.  Every CTA of the G·C
+// owns at least one row (the wrapper's cluster_plan gives each at least
+// 16).
 extern "C" int fused_head_launch(const void* x, const void* table,
                                  const void* ln, void* part_v, void* part_i,
                                  void* arrivals, void* out_v, void* out_i,
                                  int B, int D, int V, int K, int G, int C,
-                                 float eps, void* stream) {
+                                 float eps, float cap, void* stream) {
   if (D % 8 != 0 || K < 1 || K > TOPK_MAXK || G < 1 || C < 1 ||
       G * C > (V + 15) / 16)
     return (int)cudaErrorInvalidValue;
 #define ARGS G, C, (const bf16*)x, (const bf16*)table, (const float*)ln, \
     (float*)part_v, (int*)part_i, (int*)arrivals, (float*)out_v, (int*)out_i, \
-    D, V, K, eps, (cudaStream_t)stream
+    D, V, K, eps, cap, (cudaStream_t)stream
   switch (B) {
     case 1: return launch<1>(ARGS);
     case 2: return launch<2>(ARGS);

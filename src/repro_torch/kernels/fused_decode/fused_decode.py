@@ -3,9 +3,12 @@ per-head Output-Projection (``fuse_out="partial_o"``).
 
 Replaces ``repro/kernels/fused_decode/fused_decode.py:fused_decode_attention``
 (``pallas_call`` at line 374), in the mode the serving path runs: fused
-``ln1``, linear cache, no bias, window, ring or softcap, MHA, GQA or MQA
-at ``head_dim`` 128.  The other modes raise ``NotImplementedError``
-(ROADMAP.md, the Gemma-2 slice).
+``ln1``, no bias, ``fuse_out="partial_o"``, MHA, GQA or MQA at
+``head_dim`` 128, on a linear cache or — Gemma-2's local layers — a
+sliding window over a ring cache, with or without the attention
+softcap.  The other modes (``head_dim`` 256, ``bqkv``, ``pos_base``,
+``fuse_out`` ``True``/``False``) raise ``NotImplementedError``
+(ROADMAP.md, Queue B).
 
 CUDA kernel: ``csrc/fused_decode.cu``.  What bounds it on an H100: bytes.
 At Llama2-7B widths one layer streams ``wqkv`` (100.7 MB) and ``wo``
@@ -18,7 +21,9 @@ CTAs per kv head, holding its ``H`` = ``q_per_kv`` query heads
 (:func:`cluster_plan`: ``C`` 4 and ``H`` 1 at Llama2-7B, 128 CTAs; ``C``
 8 and ``H`` 4 and 3 at Granite-8B and Minitron-4B, 64 CTAs: clusters of
 16 or a kv head split over two clusters took a second wave and were
-slower, PERF.md §6).
+slower, PERF.md §6; ``C`` 4 and ``H`` 2 at Gemma-2 27B's 16 kv heads, 64
+CTAs of 1152 rows: its 16 clusters of 8 would be one more than the 15 an
+H100 runs at once, and were slower, PERF.md §6).
 Each rank projects its ``D/C`` rows of the cluster's ``wqkv`` columns
 (its query heads, then the kv head's k and v), the partials are summed over
 distributed shared memory in rank order, each rank attends its share of
@@ -26,8 +31,15 @@ every slot's live rows for the cluster's query heads (each K/V row read
 once for all of them), the ``(m, l, acc)`` partials merge on chip in
 rank order, and each rank projects every head through its ``D/C``
 columns of that head's ``wo``.
-Attention covers only each slot's live prefix (``cache_len`` ragged,
-``−1`` = free slot: no KV read at all).
+Attention covers only each slot's rows that may be live: the first
+``min(cache_len, S)`` (``cache_len`` ragged, ``−1`` = free slot: no KV
+read at all), each masked by its stored ``pos`` — ``0 ≤ pos <
+cache_len`` and, with a window, ``pos > cache_len − window``, which on
+a wrapped ring masks the row the coming append overwrites (it still
+holds ``cache_len − S``).  No row is culled by its offset (on a ring
+offsets are not positions).  The softcap ``tanh(s/cap)·cap`` applies
+to the f32 scores, the new token's included, before the online
+softmax (``fused_decode.py:163``, ``:188``).
 
 Numerics follow the Pallas kernel: x rounds to the model dtype after
 the norm (``fused_decode.py:100``); q/k/v stay f32; the new token
@@ -51,26 +63,33 @@ _MAX_B = 8           # slots per launch (the kernel's template range)
 _HEAD_DIMS = (128,)  # head dims the CUDA kernel is instantiated for
 _MAX_CLUSTER = 8     # the portable thread-block cluster size
 _TARGET_CTAS = 128   # about one CTA per SM of an H100 (132)
-_MAX_ROWS = 1024     # wqkv rows a rank may hold (csrc MAX_NTO · 64)
-_HEADS = (1, 3, 4)   # query heads a cluster the kernel is instantiated for
+_WAVE_CLUSTERS = _build.WAVE_CTAS // _MAX_CLUSTER   # clusters of 8 at once
+# wqkv rows a rank may hold (csrc MAX_NTO · 64), by query heads a
+# cluster: 1152 for two (Gemma-2 27B's 4608 over 4 ranks), else 1024
+_MAX_ROWS = {1: 1024, 2: 1152, 3: 1024, 4: 1024}
+_HEADS = (1, 2, 3, 4)   # query heads a cluster the kernel is instantiated for
 
 
-def _rows_ok(rows: int) -> bool:
+def _rows_ok(rows: int, q_per_kv: int) -> bool:
     """Rows of ``wqkv`` a rank may hold (csrc ``rows_ok``): a multiple of
-    64 (eight warps' 8-column tiles of ``wo``), 64 … 1024."""
-    return 64 <= rows <= _MAX_ROWS and rows % 64 == 0
+    64 (eight warps' 8-column tiles of ``wo``), 64 … 1152 for two query
+    heads a cluster, … 1024 for the others."""
+    return 64 <= rows <= _MAX_ROWS.get(q_per_kv, 0) and rows % 64 == 0
 
 
-def cluster_size(kv_heads: int, d_model: int) -> int:
+def cluster_size(kv_heads: int, d_model: int, q_per_kv: int = 1) -> int:
     """CTAs in the cluster of one kv head: the power of two ≤ 8 that
     brings the grid to about ``_TARGET_CTAS`` (Llama2-7B's 32 heads: 4;
-    8 kv heads: 8), halved until each rank's ``d_model / C`` rows are
-    ones the kernel takes; 0 if none is."""
+    8 kv heads: 8) — clusters of 8 only where all ``kv_heads`` of them
+    run at once (15 of 8 on an H100: Gemma-2 27B's 16 take 4) —,
+    halved until each rank's ``d_model / C`` rows are ones the kernel
+    takes; 0 if none is."""
     c = 1
-    while c < _MAX_CLUSTER and kv_heads * c < _TARGET_CTAS:
+    while (c < _MAX_CLUSTER and kv_heads * c < _TARGET_CTAS
+           and (2 * c < _MAX_CLUSTER or kv_heads <= _WAVE_CLUSTERS)):
         c *= 2
     while c >= 1:
-        if d_model % c == 0 and _rows_ok(d_model // c):
+        if d_model % c == 0 and _rows_ok(d_model // c, q_per_kv):
             return c
         c //= 2
     return 0
@@ -78,23 +97,22 @@ def cluster_size(kv_heads: int, d_model: int) -> int:
 
 def cluster_plan(q_heads: int, kv_heads: int, d_model: int):
     """``(C, H)`` from the shapes alone: ``H`` = ``q_per_kv`` query heads
-    a cluster (MHA 1, Minitron-4B 3, Granite-8B 4: the kernel's
-    instances), ``C`` CTAs a cluster for the ``kv_heads`` clusters
+    a cluster (MHA 1, Gemma-2 27B 2, Minitron-4B 3, Granite-8B 4: the
+    kernel's instances), ``C`` CTAs a cluster for the ``kv_heads`` clusters
     (:func:`cluster_size`); ``(0, 0)`` where no plan fits (another
     ``q_per_kv``: ROADMAP.md)."""
     if kv_heads < 1 or q_heads % kv_heads or q_heads // kv_heads not in _HEADS:
         return (0, 0)
-    c = cluster_size(kv_heads, d_model)
+    c = cluster_size(kv_heads, d_model, q_heads // kv_heads)
     return (c, q_heads // kv_heads) if c else (0, 0)
 
 
-def _check_mode(fuse_out, bqkv, window, ring, attn_softcap, norm_scale):
-    if (fuse_out != "partial_o" or bqkv is not None or window or ring
-            or attn_softcap or norm_scale is None):
+def _check_mode(fuse_out, bqkv, norm_scale):
+    if fuse_out != "partial_o" or bqkv is not None or norm_scale is None:
         raise NotImplementedError(
             "the port's fused_decode runs fuse_out='partial_o' with a fused "
-            "ln1 and no bias, window, ring or softcap; the other modes are "
-            "the Gemma-2 slice (ROADMAP.md)")
+            "ln1 and no bias; fuse_out True/False and bqkv are later "
+            "slices (ROADMAP.md, Queue B: B1)")
 
 
 def fused_decode_attention(
@@ -117,23 +135,25 @@ def fused_decode_attention(
     fuse_out="partial_o",
     bqkv: Optional[torch.Tensor] = None,
     window: int = 0,
-    ring: bool = False,
     attn_softcap: float = 0.0,
 ) -> Tuple[torch.Tensor, ...]:
     """Returns ``(o [B, q, D] f32, k_new [B, kv, hd], v_new [B, kv, hd],
     m [B, q] f32, l [B, q] f32)``: unnormalized per-head projected
-    partials, the new token's rounded k/v, and the softmax stats.
+    partials, the new token's rounded k/v, and the softmax stats.  The
+    reference's ``ring`` flag has no counterpart: it stops the Pallas
+    kernel culling blocks by their offset, and the port culls no row by
+    its offset (the mask by stored ``pos`` is exact on a ring or not).
 
     A CUDA tensor launches the kernel; a CPU tensor takes the plain
     version; any other device raises."""
-    _check_mode(fuse_out, bqkv, window, ring, attn_softcap, norm_scale)
+    _check_mode(fuse_out, bqkv, norm_scale)
     tracecount.call("fused_decode")
     hd = k_cache.shape[-1]
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
     args = (x, wqkv, wo, norm_scale, k_cache, v_cache, pos, cache_lens,
             include_new, cos, sin)
     kw = dict(q_heads=q_heads, kv_heads=kv_heads, scale=scale,
-              norm_eps=norm_eps)
+              norm_eps=norm_eps, window=window, attn_softcap=attn_softcap)
     if x.is_cuda:
         return fused_decode_cuda(*args, **kw)
     if x.device.type == "cpu":
@@ -143,10 +163,11 @@ def fused_decode_attention(
 
 def fused_decode_plain(x, wqkv, wo, norm_scale, k_cache, v_cache, pos,
                        cache_lens, include_new, cos, sin, *, q_heads,
-                       kv_heads, scale, norm_eps):
+                       kv_heads, scale, norm_eps, window=0, attn_softcap=0.0):
     """Plain PyTorch version (the reference's ``ref.py`` batched over
     slots): full f32 softmax over every cached position with
-    ``pos ≥ 0 and pos < cache_len``, plus the new token."""
+    ``pos ≥ 0 and pos < cache_len`` (and ``pos > cache_len − window``),
+    plus the new token, the scores softcapped first."""
     B, D = x.shape
     S, _, hd = k_cache.shape
     q_loc, kv_loc = q_heads, kv_heads
@@ -172,9 +193,14 @@ def fused_decode_plain(x, wqkv, wo, norm_scale, k_cache, v_cache, pos,
     qg = q.reshape(B, kv_loc, qpk, hd)
     s_cache = torch.einsum("bkqh,sbkh->bkqs", qg, kc) * scale
     s_self = torch.einsum("bkqh,bkh->bkq", qg, k_new) * scale
+    if attn_softcap > 0:
+        s_cache = torch.tanh(s_cache / attn_softcap) * attn_softcap
+        s_self = torch.tanh(s_self / attn_softcap) * attn_softcap
     # −1e30 (not −inf) keeps m finite for a free slot, as the reference
     s_self = torch.where(include_new[:, None, None] > 0, s_self, -1e30)
     valid = (pos >= 0) & (pos < cache_lens[None, :])           # [S, B]
+    if window > 0:
+        valid &= pos > cache_lens[None, :] - window
     s_cache = torch.where(valid.T[:, None, None, :], s_cache, -torch.inf)
     s_all = torch.cat([s_cache, s_self[..., None]], dim=-1)
     m = s_all.amax(dim=-1)
@@ -187,13 +213,13 @@ def fused_decode_plain(x, wqkv, wo, norm_scale, k_cache, v_cache, pos,
             m.reshape(B, q_loc), l.reshape(B, q_loc))
 
 
-_ARGTYPES = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 8 \
-    + [ctypes.c_float] * 2 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 9 \
+    + [ctypes.c_float] * 3 + [ctypes.c_void_p]
 
 
 def fused_decode_cuda(x, wqkv, wo, norm_scale, k_cache, v_cache, pos,
                       cache_lens, include_new, cos, sin, *, q_heads,
-                      kv_heads, scale, norm_eps):
+                      kv_heads, scale, norm_eps, window=0, attn_softcap=0.0):
     """Launch ``csrc/fused_decode.cu`` on the current stream (one launch
     for the whole batch, ``kv_heads`` clusters of ``C`` CTAs)."""
     B, D = x.shape
@@ -205,8 +231,8 @@ def fused_decode_cuda(x, wqkv, wo, norm_scale, k_cache, v_cache, pos,
         raise NotImplementedError(
             f"fused_decode CUDA kernel: head_dim in {_HEAD_DIMS}, "
             f"q_per_kv in {_HEADS}, B ≤ {_MAX_B}, d_model split "
-            f"into 64–{_MAX_ROWS} rows a rank (a multiple of 64); got x "
-            f"{tuple(x.shape)}, cache {tuple(k_cache.shape)}, wqkv "
+            f"into multiples of 64 rows a rank, at most {_MAX_ROWS} by "
+            f"q_per_kv; got x {tuple(x.shape)}, cache {tuple(k_cache.shape)}, wqkv "
             f"{tuple(wqkv.shape)}, heads {q_heads}/{kv_heads}, plan "
             f"{(C, H)} (other head dims and q_per_kv: ROADMAP.md)")
     bf, f32, i32 = torch.bfloat16, torch.float32, torch.int32
@@ -225,7 +251,8 @@ def fused_decode_cuda(x, wqkv, wo, norm_scale, k_cache, v_cache, pos,
     err = fn(*(t.data_ptr() for t in tensors.values()),
              o.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
              m.data_ptr(), l.data_ptr(), B, D, S, q_heads, kv_heads, hd, C,
-             H, scale, norm_eps, _build.stream_ptr(x))
+             H, int(window), scale, norm_eps, float(attn_softcap),
+             _build.stream_ptr(x))
     _build.check(err, "fused_decode")
     tracecount.launch("fused_decode")
     return o, k_new, v_new, m, l

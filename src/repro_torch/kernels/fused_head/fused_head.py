@@ -3,8 +3,12 @@ vocabulary, streaming top-k (value descending, ties to the lowest index).
 
 Replaces ``repro/kernels/fused_head/fused_head.py:fused_head_block``
 (``pallas_call`` at line 128) with ``topk.select_topk`` and
-``topk.topk_pair_merge``; no softcap (the Gemma-2 slice; it raises
-``NotImplementedError``), at most 8 slots and ``k`` ≤ 8.
+``topk.topk_pair_merge``, with or without the logit softcap
+``tanh(l/cap)·cap`` (Gemma-2's 30), at most 8 slots and ``k`` ≤ 8.  The
+cap applies to every f32 logit before it enters the running top-k
+(``fused_head.py:79–80``): f32 rounding can make two different logits
+equal after it, and the tie then goes to the lower index, which capping
+only the survivors would not reproduce.
 
 CUDA kernel: ``csrc/fused_head.cu``, one device launch.  What bounds it
 on an H100: bytes — the ``[V, D]`` bf16 table (262.1 MB at Llama2-7B) is
@@ -74,39 +78,47 @@ def fused_head_block(
     k: int = 8,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns ``(values [B, k] f32, indices [B, k] int32)`` sorted value
-    descending, ties to the lowest index.
+    descending, ties to the lowest index; the values softcapped.
 
     A CUDA tensor launches the kernel; a CPU tensor takes the plain
     version; any other device raises."""
-    if logit_softcap:
-        raise NotImplementedError(
-            "the port's fused_head has no logit softcap yet (the Gemma-2 "
-            "slice, ROADMAP.md)")
     tracecount.call("fused_head")
+    kw = dict(eps=eps, logit_softcap=logit_softcap, k=k)
     if x.is_cuda:
-        return fused_head_cuda(x, table, ln, eps=eps, k=k)
+        return fused_head_cuda(x, table, ln, **kw)
     if x.device.type == "cpu":
-        return fused_head_plain(x, table, ln, eps=eps, k=k)
+        return fused_head_plain(x, table, ln, **kw)
     raise ValueError(f"fused_head_block: unsupported device {x.device}")
 
 
-def fused_head_plain(x, table, ln, *, eps=1e-6, k=8):
+# vocabulary rows a tile of the plain version's f64 product: no f64
+# temporary is the table's size
+PLAIN_TILE_ROWS = 16384
+
+
+def fused_head_plain(x, table, ln, *, eps=1e-6, logit_softcap=0.0, k=8):
     """Plain PyTorch version (the reference's ``ref.py``): the rounded
-    norm, logits over the whole vocabulary, one ``select_topk``.  The
-    logits are the correctly rounded f32 values (summed in f64), so a
+    norm, logits over the whole vocabulary, the softcap on every logit in
+    f32, one ``select_topk``.  The logits are the correctly rounded f32
+    values (summed in f64, ``PLAIN_TILE_ROWS`` table rows at a time), so a
     kernel's own f32 summation error is held against the exact sum."""
     h = rms_norm(x, ln, eps).double()
-    logits = (h @ table.double().T).float()                      # [B, V]
+    logits = torch.cat([(h @ table[v0:v0 + PLAIN_TILE_ROWS].double().T)
+                        .float() for v0 in range(0, table.shape[0],
+                                                 PLAIN_TILE_ROWS)],
+                       dim=-1)                                   # [B, V]
+    if logit_softcap:
+        logits = torch.tanh(logits / logit_softcap) * logit_softcap
     ids = torch.arange(logits.shape[-1], dtype=torch.int32,
                        device=x.device).expand_as(logits)
     return select_topk(logits, ids, k)
 
 
 _ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 \
-    + [ctypes.c_float] + [ctypes.c_void_p]
+    + [ctypes.c_float] * 2 + [ctypes.c_void_p]
 
 
-def fused_head_cuda(x, table, ln, *, eps=1e-6, k=8):
+def fused_head_cuda(x, table, ln, *, eps=1e-6, logit_softcap=0.0, k=8):
     """Launch ``csrc/fused_head.cu`` on the current stream: one launch of
     ``cluster_plan`` clusters for the whole batch."""
     B, D = x.shape
@@ -133,7 +145,8 @@ def fused_head_cuda(x, table, ln, *, eps=1e-6, k=8):
     arrivals = _build.arrival_counters("fused_head", x.device)
     err = fn(*(t.data_ptr() for t in tensors.values()), part_v.data_ptr(),
              part_i.data_ptr(), arrivals.data_ptr(), vals.data_ptr(),
-             idx.data_ptr(), B, D, V, k, G, C, eps, _build.stream_ptr(x))
+             idx.data_ptr(), B, D, V, k, G, C, eps, float(logit_softcap),
+             _build.stream_ptr(x))
     _build.check(err, "fused_head")
     tracecount.launch("fused_head")
     return vals, idx

@@ -36,7 +36,8 @@ from repro_torch.models.transformer import init_params
 from repro_torch.serving.engine import (EngineOptions, ServeConfig,
                                         decode_step, init_decode_state)
 from repro_torch.serving.prefill import prefill
-from repro_torch.serving.prepack import prepack_for_serving
+from repro_torch.serving.prepack import (prepack_for_serving,
+                                         share_packed_qkv)
 from repro_torch.serving.sampling import (host_sampling_rows,
                                           reset_sampling_state)
 from repro_torch.serving.step_graph import StepGraph
@@ -45,8 +46,9 @@ from repro_torch.serving.step_graph import StepGraph
 class EngineHandle(NamedTuple):
     """Everything a serving loop needs.  ``params`` is the ``{"train",
     "serve"}`` pair (on ``"pallas"`` the serve tree aliases every train
-    tensor except the packed ``wqkv`` or MLA's ``wproj``; on ``"xla"`` it
-    is the train tree).
+    tensor but MLA's folded ``wproj``, the train tree's ``wq``, ``wk``
+    and ``wv`` being views of the packed ``wqkv``; on ``"xla"`` it is the
+    train tree).
 
     * ``prefill_fn(params["train"], state, tokens [B, S])``;
     * ``decode_fn(params["serve"], state, tokens [B])`` — on the card a
@@ -92,8 +94,10 @@ def build_engine_full(cfg: ModelConfig, *, max_seq: int, batch_global: int,
     backend, prepack = resolve_serving(cfg, opt.backend, opt.prepack)
     train = (train_params if train_params is not None
              else init_params(cfg, seed=seed, device=dev))
-    serve = (prepack_for_serving(cfg, train, backend=backend) if prepack
-             else train)
+    serve = train
+    if prepack:
+        serve = prepack_for_serving(cfg, train, backend=backend)
+        train = share_packed_qkv(train, serve)
     params = {"train": train, "serve": serve}
     scfg = ServeConfig(max_seq=max_seq, batch_local=batch_global,
                        backend=backend, prepack=prepack,

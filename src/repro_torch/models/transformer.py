@@ -12,7 +12,8 @@ Parameter tree (the train layout; leaves are tensors):
   embeddings, where the head reads ``embed``), ``final_norm [D]`` (f32);
 * ``blocks``: one dict per block-pattern position with the layer-group
   axis leading, as the reference's scanned groups: ``ln1``/``ln2
-  [G, D]`` f32, ``attn`` = ``wq [G, D, q, hd]``, ``wk``/``wv
+  [G, D]`` f32 (post-norm models also ``post_ln1``/``post_ln2``),
+  ``attn`` = ``wq [G, D, q, hd]``, ``wk``/``wv
   [G, D, kv, hd]``, ``wo [G, q·hd, D]`` — or, for MLA, ``wq [G, D, q,
   nope+rope]``, ``wdkv [G, D, l+rope]``, ``wuk [G, q, nope, l]``, ``wuv
   [G, q, l, v]``, ``wo [G, q·v, D]``; ``ffn`` = ``w_in``/``w_gate
@@ -49,22 +50,25 @@ def _check_supported(cfg: ModelConfig) -> None:
     """The port runs decoders whose layers are global attention — MHA or
     GQA (Llama-style, Granite-8B, Minitron-4B) or MLA (DeepSeek-V2-Lite)
     —, local (sliding-window) attention and RG-LRU blocks
-    (RecurrentGemma), with dense FFNs (gated or not) or MoE FFNs
-    (DeepSeek-V2-Lite's 64 experts), tied embeddings or not, and the
-    all-RWKV-6 pattern (RWKV-6 3B).  Post-norms, q/k/v biases, encoders
-    and frontends are later slices (ROADMAP.md)."""
+    (RecurrentGemma, Gemma-2), with dense FFNs (gated or not) or MoE FFNs
+    (DeepSeek-V2-Lite's 64 experts), tied embeddings or not, post-norms
+    on attention models or not (Gemma-2), and the all-RWKV-6 pattern
+    (RWKV-6 3B).  q/k/v biases, encoders and frontends are later slices
+    (ROADMAP.md)."""
     kinds = set(cfg.layer_kinds)
     if RWKV6 in kinds:
         if (cfg.block_pattern != (RWKV6,) or cfg.encoder or cfg.frontend
                 or cfg.tie_embeddings or cfg.use_post_norm or cfg.moe):
             raise NotImplementedError(
                 f"{cfg.name}: the port runs RWKV-6 as the only block kind, "
-                "with an untied head (ROADMAP.md item 15a)")
+                "with an untied head and no post-norms (ROADMAP.md item "
+                "15a)")
         return
-    if cfg.use_post_norm:
+    if cfg.use_post_norm and RECURRENT in kinds:
         raise NotImplementedError(
-            f"{cfg.name}: post-attention and post-FFN norms are ROADMAP "
-            "item 10 (the Gemma-2 features)")
+            f"{cfg.name}: post-norms beside RG-LRU layers (no registered "
+            "model has them; ROADMAP item 10 ported Gemma-2's, on "
+            "attention layers)")
     if cfg.encoder or cfg.frontend:
         raise NotImplementedError(
             f"{cfg.name}: encoders and frontends are ROADMAP item 14")
@@ -120,6 +124,9 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda",
 
         blk = {"ln1": torch.zeros(lead + (d,), device=dev),
                "ln2": torch.zeros(lead + (d,), device=dev)}
+        if cfg.use_post_norm:              # transformer.py:89–91
+            blk["post_ln1"] = torch.zeros(lead + (d,), device=dev)
+            blk["post_ln2"] = torch.zeros(lead + (d,), device=dev)
         if kind == RECURRENT:
             blk["rglru"] = rglru_mod.rglru_init(
                 gen, d, cfg.rglru_d_state or d, nq, cfg.conv1d_width,
@@ -265,8 +272,17 @@ def apply_block(cfg: ModelConfig, blk: Dict[str, Any], x: torch.Tensor, *,
     else:
         a, kv = attn_mod.attention_train(blk["attn"], h, cfg, kind,
                                          return_kv=return_kv)
-    x = x + a
-    return x + block_ffn(cfg, blk["ffn"], rms_norm(x, blk["ln2"], eps)), kv
+    x = x + post_norm(blk, "post_ln1", a, eps)
+    f = block_ffn(cfg, blk["ffn"], rms_norm(x, blk["ln2"], eps))
+    return x + post_norm(blk, "post_ln2", f, eps), kv
+
+
+def post_norm(blk: Dict[str, Any], key: str, t: torch.Tensor, eps: float
+              ) -> torch.Tensor:
+    """Gemma-2's post-attention (``post_ln1``) or post-FFN (``post_ln2``)
+    norm of a block's branch output before its residual add
+    (``transformer.py:491–503``); the identity on a block without it."""
+    return rms_norm(t, blk[key], eps) if key in blk else t
 
 
 def block_ffn(cfg: ModelConfig, ffn: Dict[str, Any], h: torch.Tensor

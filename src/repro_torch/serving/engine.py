@@ -96,7 +96,7 @@ from repro_torch.models.rglru import rglru_block_step, rglru_state_init
 from repro_torch.models.rwkv6 import (rwkv6_channel_step, rwkv6_state_init,
                                       rwkv6_step)
 from repro_torch.models.transformer import (block_ffn, embed_tokens,
-                                            head_table)
+                                            head_table, post_norm)
 from repro_torch.serving.sampling import (CAND_K, advance_sampling_step,
                                           finalize_candidates,
                                           head_candidates,
@@ -216,19 +216,28 @@ def _finite_violations(cfg: ModelConfig, resid: torch.Tensor,
     return (bad & active).to(torch.int32)
 
 
-def _fused_ffn_tail(cfg: ModelConfig, w: PackedFFNWeights, x: torch.Tensor,
+def _fused_ffn_tail(cfg: ModelConfig, blk: Dict[str, Any], x: torch.Tensor,
                     a: torch.Tensor, kernels: Kernels) -> torch.Tensor:
     """Block tail in one B2 launch: ``x + a + FFN(rms(x + a, ln2))``
-    (``add_r = 1`` on the single rank)."""
-    o, _ = kernels.ffn(x, a, w.w_in, w.w_gate, w.w_out, w.ln2, add_r=1.0,
+    (``add_r = 1`` on the single rank), ``a`` first normed by ``post_ln1``
+    inside the kernel where the bundle has it.  With ``post_ln2``
+    (Gemma-2) the kernel adds no residual (``add_r = 0``) and the second
+    add runs after it on its ``r``: ``r + rms(f, post_ln2)``
+    (``engine.py:339–373``)."""
+    w: PackedFFNWeights = blk["ffn"]
+    post2 = "post_ln2" in blk
+    o, r = kernels.ffn(x, a, w.w_in, w.w_gate, w.w_out, w.ln2,
+                       post_ln1=w.post_ln1, add_r=0.0 if post2 else 1.0,
                        act=cfg.ffn_act, eps=cfg.norm_eps)
-    return o
+    return r + post_norm(blk, "post_ln2", o, cfg.norm_eps) if post2 else o
 
 
 def _fused_head_tail(cfg: ModelConfig, w: PackedHeadWeights, x: torch.Tensor,
                      kernels: Kernels) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Final norm + LM head + top-``CAND_K`` in one B3 launch."""
-    return kernels.head(x, w.table, w.ln, eps=cfg.norm_eps, k=CAND_K)
+    """Final norm + LM head + logit softcap + top-``CAND_K`` in one B3
+    launch (``engine.py:531``)."""
+    return kernels.head(x, w.table, w.ln, eps=cfg.norm_eps,
+                        logit_softcap=cfg.logit_softcap, k=CAND_K)
 
 
 def _loose_head_tail(cfg: ModelConfig, params: Dict[str, Any],
@@ -283,15 +292,18 @@ def decode_block(cfg: ModelConfig, kind: str, blk: Dict[str, Any],
     at cluster size 1.
 
     Prepacked attention: B1 (attention with its fused ``ln1`` and
-    per-head output projection) — or B4 for MLA — with the cache append,
-    then B2 (both residual adds and the FFN); a MoE block (whose FFN the
+    per-head output projection; on a local layer its window over the
+    ring cache, and the attention softcap) — or B4 for MLA — with the
+    cache append, then B2 (both residual adds and the FFN, with Gemma-2's
+    ``post_ln1`` inside and ``post_ln2`` after it); a MoE block (whose FFN the
     pack leaves unbundled) falls through to ``x + a``, ``rms_norm(ln2)``
     and ``moe_apply``, as the reference does when the FFN is not packed.
     :class:`SplitTokenWeights` (the unfused ``"xla"`` path,
     ``engine.py:377–478``, after :func:`hoist_serve_weights`):
     ``rms_norm(ln1)``, :func:`split_token_attention` around B5,
     ``x + a``, ``rms_norm(ln2)``, the FFN (dense or MoE), ``x + f`` — on
-    a ring cache for a local-attention layer; :class:`MLAWeights` the
+    a ring cache for a local-attention layer, with the post-norms where
+    the block has them (:func:`_ffn_tail`); :class:`MLAWeights` the
     same around the unfused :func:`mla_attention`.  The MoE branch is
     the reference's ``engine.py:437–448`` without ``dff_shard`` (A.5): the
     slots' ``B`` tokens share one capacity.  RG-LRU (``engine.py:390–392``):
@@ -317,9 +329,9 @@ def decode_block(cfg: ModelConfig, kind: str, blk: Dict[str, Any],
         a, st = rglru_block_step(blk["rglru"], rms_norm(x, blk["ln1"], eps),
                                  cache, scan=kernels.rglru, h_out=cache.h)
         cache.conv.copy_(st.conv)
-        x = x + a
-        return x + block_ffn(cfg, blk["ffn"], rms_norm(x, blk["ln2"], eps))
+        return _ffn_tail(cfg, blk, x, a)
     w = blk["attn"]
+    window = cfg.sliding_window if kind == ATTN_LOCAL else 0
     if isinstance(w, PackedMLAWeights):
         a = mla_attention_packed(x, w, cache, cache_lens, cos, sin,
                                  nope_dim=cfg.mla.nope_head_dim,
@@ -327,6 +339,8 @@ def decode_block(cfg: ModelConfig, kind: str, blk: Dict[str, Any],
                                  norm_eps=eps, kernel=kernels.mla)
     elif isinstance(w, PackedSplitTokenWeights):
         a = split_token_attention_packed(x, w, cache, cache_lens, cos, sin,
+                                         window=window,
+                                         attn_softcap=cfg.attn_softcap,
                                          norm_eps=eps, kernel=kernels.decode)
     elif isinstance(w, MLAWeights):
         a = mla_attention(rms_norm(x, blk["ln1"], eps), w, cache,
@@ -336,12 +350,22 @@ def decode_block(cfg: ModelConfig, kind: str, blk: Dict[str, Any],
     else:
         a = split_token_attention(
             rms_norm(x, blk["ln1"], eps), w, cache, cache_lens, cos, sin,
-            window=cfg.sliding_window if kind == ATTN_LOCAL else 0,
-            attn_softcap=cfg.attn_softcap, kernel=kernels.flash)
+            window=window, attn_softcap=cfg.attn_softcap, kernel=kernels.flash)
     if isinstance(blk["ffn"], PackedFFNWeights):
-        return _fused_ffn_tail(cfg, blk["ffn"], x, a, kernels)
-    x = x + a
-    return x + block_ffn(cfg, blk["ffn"], rms_norm(x, blk["ln2"], eps))
+        return _fused_ffn_tail(cfg, blk, x, a, kernels)
+    return _ffn_tail(cfg, blk, x, a)
+
+
+def _ffn_tail(cfg: ModelConfig, blk: Dict[str, Any], x: torch.Tensor,
+              a: torch.Tensor) -> torch.Tensor:
+    """The unfused block tail (``engine.py:430–452``): ``x + a`` (``a``
+    normed by ``post_ln1`` first where the block has it),
+    ``rms_norm(ln2)``, the FFN (dense or MoE), ``post_ln2`` on its
+    output where the block has it, the second add."""
+    eps = cfg.norm_eps
+    x = x + post_norm(blk, "post_ln1", a, eps)
+    f = block_ffn(cfg, blk["ffn"], rms_norm(x, blk["ln2"], eps))
+    return x + post_norm(blk, "post_ln2", f, eps)
 
 
 def _check_not_param_pair(params: Any, want: str) -> None:

@@ -13,10 +13,12 @@ write ``h`` from the scan's LAST OUTPUT, rounded to the model dtype as
 the reference's scan returns it (``rglru.py:95``, ROADMAP C6), and the
 conv tail from the last ``width − 1`` conv inputs.  MoE FFNs
 (``prefill.py:140``) run ``moe_apply`` over the layer's whole token
-batch.  Local-attention
-layers fill their ring cache (``_fill_ring``).  The ``tail`` layers run
-after the groups, and with tied embeddings the input is scaled by
-``√d_model`` and the head reads ``embed``.
+batch.  Post-norm blocks (Gemma-2) norm each branch's output before its
+residual add (``apply_block``).  Local-attention layers fill their ring
+cache (``_fill_ring``), wrapping it when a prompt is longer than the
+ring.  The ``tail`` layers run after the groups, with tied embeddings
+the input is scaled by ``√d_model`` and the head reads ``embed``, and
+the logit softcap caps the first token's logits (Gemma-2's 30).
 
 Per-slot ``lengths`` make prefill a targeted insert on attention models:
 ``lengths[b] == 0`` leaves slot b untouched.  On a dense-FFN model rows

@@ -3,7 +3,9 @@
 
 At model size 1 there is no cluster gather: ``_pack_attn`` concatenates
 ``wq|wk|wv`` into one ``wqkv [D, (q + 2kv)·hd]`` (the one copy the pack
-makes) and views ``wo`` as per-head full-width rows ``[q, hd, D]``;
+makes; :func:`share_packed_qkv` then turns the train tree's ``wq``,
+``wk`` and ``wv`` into views of it, so the two layouts hold one copy)
+and views ``wo`` as per-head full-width rows ``[q, hd, D]``;
 ``_pack_mla`` views ``wq``, aliases ``wdkv``/``wuk`` and folds
 ``wproj = W_UV·W_O`` (its one copy); ``bundle_ffn`` and ``bundle_head``
 only alias train tensors.  RWKV-6 blocks ride through unpacked, as in
@@ -76,6 +78,31 @@ def bundle_ffn(blk: Dict[str, Any]) -> PackedFFNWeights:
                             post_ln1=blk.get("post_ln1"))
 
 
+def share_packed_qkv(train: Dict[str, Any], serve: Dict[str, Any]
+                     ) -> Dict[str, Any]:
+    """``train`` with every packed block's ``wq``, ``wk`` and ``wv``
+    replaced by views of the serve tree's ``wqkv`` (the same values), so
+    the train layout's own copies are released once nothing else holds
+    them: at Gemma-2 27B's width they are 3.47 GB, room the 8 slots'
+    caches need beside the 54.5 GB of weights on an 80 GB card.  Prefill
+    reads the views as it read the copies (a view's rows are strided
+    products, no copy)."""
+    def share(blk, packed):
+        a = packed.get("attn")
+        if not isinstance(a, PackedSplitTokenWeights):
+            return blk
+        views, c0 = {}, 0
+        for name in ("wq", "wk", "wv"):
+            shape = blk["attn"][name].shape           # [G, D, heads, hd]
+            n = shape[2] * shape[3]
+            views[name] = a.wqkv[:, :, c0:c0 + n].unflatten(-1, shape[2:])
+            c0 += n
+        return dict(blk, attn=dict(blk["attn"], **views))
+
+    return dict(train, blocks=[share(b, p) for b, p in
+                               zip(train["blocks"], serve["blocks"])])
+
+
 def bundle_head(cfg: ModelConfig, params: Dict[str, Any]) -> PackedHeadWeights:
     key = "embed" if cfg.tie_embeddings else "lm_head"
     return PackedHeadWeights(table=params[key], ln=params["final_norm"])
@@ -84,8 +111,11 @@ def bundle_head(cfg: ModelConfig, params: Dict[str, Any]) -> PackedHeadWeights:
 def prepack_for_serving(cfg: ModelConfig, params: Dict[str, Any], *,
                         backend: str = "pallas") -> Dict[str, Any]:
     """Serve tree.  ``"pallas"``: every attention block's ``attn`` packed,
-    its dense ``ffn`` bundled — a MoE ``ffn`` and ``ln2`` aliased as they
-    are —, every other block (RWKV-6) aliased as it is, plus
+    its dense ``ffn`` bundled (with ``post_ln1``) — a MoE ``ffn`` and
+    ``ln2`` aliased as they are —, a post-norm block's ``post_ln2``
+    aliased (the second residual add runs after B2), local- and
+    global-attention blocks alike, every other block (RWKV-6) aliased as
+    it is, plus
     the ``head`` bundle (B3's table); ``embed`` aliases the train tensor.
     ``"xla"``: ``params`` itself — its RG-LRU, local- and global-attention
     blocks and its ``tail`` ride through as the train tree, and the
@@ -96,7 +126,8 @@ def prepack_for_serving(cfg: ModelConfig, params: Dict[str, Any], *,
     if params.get("tail"):
         raise NotImplementedError(
             "the fused serve layout of tail layers (past the last whole "
-            "layer group) comes with the fused arm of ROADMAP item 10")
+            "layer group) comes with RecurrentGemma's fused arm (ROADMAP "
+            "A.4c, item 10)")
     pack_attn = _pack_mla if cfg.mla is not None else _pack_attn
 
     def pack_block(blk):
@@ -104,7 +135,8 @@ def prepack_for_serving(cfg: ModelConfig, params: Dict[str, Any], *,
             return blk
         ffn = ({"ffn": blk["ffn"], "ln2": blk["ln2"]} if is_moe(blk["ffn"])
                else {"ffn": bundle_ffn(blk)})
-        return {"attn": pack_attn(blk["attn"], blk["ln1"]), **ffn}
+        post = {"post_ln2": blk["post_ln2"]} if "post_ln2" in blk else {}
+        return {"attn": pack_attn(blk["attn"], blk["ln1"]), **ffn, **post}
 
     return {"embed": params["embed"],
             "blocks": [pack_block(b) for b in params["blocks"]], "tail": [],

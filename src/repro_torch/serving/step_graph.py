@@ -20,6 +20,7 @@ falls back to the eager step.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Callable, Dict, List
 
 import numpy as np
@@ -82,7 +83,8 @@ def _step_fn(cfg: ModelConfig, scfg: ServeConfig, params: Dict[str, Any],
 
 
 def _copy_tree(dst, src) -> None:
-    """Copy every tensor of ``src`` into the same leaf of ``dst``."""
+    """Copy every tensor of ``src`` into the same leaf of ``dst``
+    (broadcast where ``src``'s leaf has fewer rows)."""
     if torch.is_tensor(dst):
         dst.copy_(src)
     elif isinstance(dst, dict):
@@ -140,8 +142,12 @@ class StepGraph:
             self._replay = capture_graph(step, dev)
         self.launches = dict(counted)
         self.replays = 0
-        # the warm-up leaves no trace
-        _copy_tree(state, init_decode_state(cfg, scfg, device=dev))
+        # the warm-up leaves no trace: a fresh state of one cache row,
+        # broadcast along the rows (every cache row starts alike; a
+        # full-size fresh state would double the caches, 13.1 GB at
+        # Gemma-2 27B's width)
+        _copy_tree(state, init_decode_state(
+            cfg, dataclasses.replace(scfg, max_seq=1), device=dev))
         self._tokens.zero_()
         self._next.zero_()
 

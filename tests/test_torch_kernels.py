@@ -182,17 +182,33 @@ def test_fused_decode_plain_at_rank_split_edges(lens):
 
 
 def test_fused_decode_unported_modes_raise():
-    _, t = _b1_inputs((1, 2, 3, 4), "owner", "f32")
+    """``fuse_out`` True/False, ``bqkv`` and an unfused norm still raise;
+    the window and the softcap (Gemma-2's modes, ported) run and give
+    ``ref.py``'s result (their full cases: ``tests/test_torch_gemma2
+    .py``)."""
+    j, t = _b1_inputs((1, 2, 3, 30), "owner", "f32")
     args = (t["x"], t["wqkv"], t["wo"], t["ln1"], t["kc"], t["vc"],
             t["pos"], t["lens"], t["inc"], t["cos"], t["sin"])
     kw = dict(q_heads=4, kv_heads=4)
-    for bad in (dict(fuse_out=True), dict(fuse_out=False), dict(window=8),
-                dict(ring=True), dict(attn_softcap=30.0),
+    for bad in (dict(fuse_out=True), dict(fuse_out=False),
                 dict(bqkv=torch.zeros(12 * 16))):
         with pytest.raises(NotImplementedError):
             b1.fused_decode_attention(*args, **kw, **bad)
     with pytest.raises(NotImplementedError):
         b1.fused_decode_attention(*args[:3], None, *args[4:], **kw)
+    got = b1.fused_decode_attention(*args, **kw, window=8, attn_softcap=0.5)
+    plain = b1.fused_decode_attention(*args, **kw)
+    assert not torch.allclose(got[0], plain[0])
+    S, B, hd = 32, 4, 16
+    kc, vc = (j[k].reshape(S, B, 4, hd) for k in ("kc", "vc"))
+    want = jax.vmap(lambda *a: tuple(o[0] for o in fused_decode_attention_ref(
+        a[0][None], j["wqkv"], None, j["wo"], a[1], a[2], a[3], a[4], a[5],
+        q_heads=4, kv_heads=4, fuse_out="partial_o", pos=a[6],
+        include_new=a[7], norm_scale=j["ln1"], window=8, attn_softcap=0.5)),
+        in_axes=(0, 1, 1, 0, 0, 0, 1, 0))(
+        j["x"], kc, vc, j["lens"], j["cos"], j["sin"], j["pos"], j["inc"])
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(_np(g), _np(w), **_tol("f32"))
 
 
 # ---------------------------------------------------------------------------
@@ -507,19 +523,25 @@ def test_fused_ffn_plain_vs_pallas_and_ref(add_r, dt):
 
 
 def test_fused_ffn_unported_variants_raise():
-    """``post_ln1`` (gated or not: the Gemma-2 slice) and an activation
-    outside the reference's table raise; the ungated form and the table's
-    activations are ported (``tests/test_torch_gqa.py``)."""
-    x = torch.zeros(2, 8)
-    w = torch.zeros(8, 8)
-    with pytest.raises(NotImplementedError, match="post_ln1"):
-        b2.fused_ffn_block(x, x, w, None, w, torch.zeros(8),
-                           post_ln1=torch.zeros(8), act="relu2")
-    with pytest.raises(NotImplementedError, match="post_ln1"):
-        b2.fused_ffn_block(x, x, w, w, w, torch.zeros(8),
-                           post_ln1=torch.zeros(8))
+    """An activation outside the reference's table raises; ``post_ln1``
+    (Gemma-2's, gated or not) is ported and gives ``ref.py``'s result —
+    the ungated form and the table's activations too
+    (``tests/test_torch_gqa.py``, ``tests/test_torch_gemma2.py``)."""
+    rng = np.random.default_rng(12)
+    f = lambda *s: (rng.standard_normal(s) * 0.5).astype(np.float32)
+    x, a, w, p1 = f(2, 8), f(2, 8), f(8, 8), f(8)
+    t = [torch.from_numpy(v) for v in (x, a, w, p1)]
     with pytest.raises(NotImplementedError, match="geglu"):
-        b2.fused_ffn_block(x, x, w, w, w, torch.zeros(8), act="geglu")
+        b2.fused_ffn_block(t[0], t[1], t[2], t[2], t[2], torch.zeros(8),
+                           act="geglu")
+    for gate in (None, w):
+        got = b2.fused_ffn_block(t[0], t[1], t[2], None if gate is None
+                                 else t[2], t[2], torch.zeros(8),
+                                 post_ln1=t[3], act="relu2")
+        want = fused_ffn_block_ref(x, a, w, gate, w, np.zeros(8, np.float32),
+                                   p1, 1.0, act="relu2")
+        for g, wv in zip(got, want):
+            np.testing.assert_allclose(_np(g), _np(wv), **_tol("f32"))
 
 
 # ---------------------------------------------------------------------------
@@ -550,9 +572,21 @@ def test_fused_head_plain_vs_pallas_and_ref_with_ties(dt):
 
 
 def test_fused_head_softcap_raises():
-    with pytest.raises(NotImplementedError):
-        b3.fused_head_block(torch.zeros(1, 8), torch.zeros(4, 8),
-                            torch.zeros(8), logit_softcap=30.0)
+    """The logit softcap is ported (Gemma-2's 30: the capped values and
+    their order, ``tests/test_torch_gemma2.py``); what still raises on the
+    kernel's path is more than 8 slots or candidates."""
+    x = torch.ones(1, 8)
+    v, i = b3.fused_head_block(x, torch.eye(4, 8) * 40.0, torch.zeros(8),
+                               logit_softcap=30.0, k=2)
+    h = x * torch.rsqrt(torch.ones(()) + 1e-6)
+    assert torch.allclose(v, torch.tanh(h[0, 0] * 40.0 / 30.0) * 30.0)
+    assert i.tolist() == [[0, 1]]
+    bf = torch.bfloat16
+    for B, k in ((9, 8), (8, 9)):
+        with pytest.raises(NotImplementedError, match="fused_head"):
+            b3.fused_head_cuda(torch.zeros(B, 8, dtype=bf),
+                               torch.zeros(64, 8, dtype=bf), torch.zeros(8),
+                               logit_softcap=30.0, k=k)
 
 
 def test_select_topk_and_pair_merge_match_reference():
@@ -716,15 +750,18 @@ def test_flash_decode_wrapper_passes_no_workspace(monkeypatch, shape, plan):
     (32, 32, 4096, 4, 1),                   # Llama2-7B
     (32, 8, 4096, 8, 4),                    # Granite-8B
     (24, 8, 3072, 8, 3),                    # Minitron-4B
+    (32, 16, 4608, 4, 2),                   # Gemma-2 27B
     (8, 2, 256, 4, 4), (6, 2, 256, 4, 3)])  # reduced GQA 8/2 and 6/2
 def test_fused_decode_wrapper_cluster_size(monkeypatch, heads, kv, D, C, H):
     """The plan follows the heads and d_model alone: ``H`` = q_per_kv
-    query heads a cluster (a kv head's 1, 3 or 4), clusters of ``C`` ≤ 8
+    query heads a cluster (a kv head's 1, 2, 3 or 4), clusters of ``C`` ≤ 8
     CTAs bringing the grid to about 128 CTAs (Llama2-7B's 32 heads: 4; 8
-    kv heads: 8), each rank 64–1024 rows of wqkv.  One library call
-    carries the plan."""
+    kv heads: 8; clusters of 8 only where every kv head's runs at once,
+    15 on an H100: Gemma-2's 16 kv heads take 4), each rank 64–1024 rows
+    of wqkv, 1152 with two query heads.  One library call carries the
+    plan."""
     assert b1.cluster_plan(heads, kv, D) == (C, H)
-    assert b1.cluster_size(kv, D) == C
+    assert b1.cluster_size(kv, D, H) == C
     if D > 512:
         return                              # no 100 MB weights here
     calls = _record_launch(monkeypatch)
@@ -760,16 +797,19 @@ def _record_empty(monkeypatch):
 
 @pytest.mark.parametrize("D,F,plan", [(4096, 11008, (15, 8)),   # Llama2-7B
                                       (2048, 10944, (15, 8)),   # DeepSeek
+                                      (4608, 36864, (15, 8)),   # Gemma-2
                                       (64, 96, (6, 4)),
                                       (256, 1024, (15, 8))])
 def test_fused_ffn_wrapper_one_launch_with_cluster_workspace(
         monkeypatch, D, F, plan):
     """B2's plan follows (d_model, d_ff) alone: 15 clusters of 8 at both
-    paths' widths (no weights allocated there).  At a small width the
-    wrapper makes one library call with the ten pointers (x, a, w_in,
-    w_gate, w_out, ln2, the f32 ``[G, B, D]`` cluster partials, the
-    arrival counters, o, r) and that plan, and allocates no other
-    workspace: no per-tile ``[n_tiles, B, D]`` partials."""
+    paths' widths (no weights allocated there; Gemma-2's d_ff 36864 in
+    one wave too, each cluster's slice in chunks).  At a small width the
+    wrapper makes one library call with the eleven pointers (x, a, w_in,
+    w_gate, w_out, ln2, post_ln1 — null here —, the f32 ``[G, B, D]``
+    cluster partials, the arrival counters, o, r) and that plan, and
+    allocates no other workspace: no per-tile ``[n_tiles, B, D]``
+    partials."""
     assert b2.cluster_plan(D, F) == plan
     if D > 256:
         return                              # no 270 MB weights here
@@ -783,12 +823,13 @@ def test_fused_ffn_wrapper_one_launch_with_cluster_workspace(
     o, r = b2.fused_ffn_cuda(x, a, w_in, w_gate, w_out, ln2, add_r=1.0)
     (args,) = calls
     G, C = plan
-    ptrs, ints = args[:10], args[10:15]
+    ptrs, ints = args[:11], args[11:16]
     assert ptrs[:6] == tuple(t.data_ptr() for t in (x, a, w_in, w_gate,
                                                     w_out, ln2))
+    assert ptrs[6] is None
     arrivals = _build.arrival_counters("fused_ffn", x.device)
-    assert ptrs[7] == arrivals.data_ptr()
-    assert ptrs[8:] == (o.data_ptr(), r.data_ptr())
+    assert ptrs[8] == arrivals.data_ptr()
+    assert ptrs[9:] == (o.data_ptr(), r.data_ptr())
     assert ints == (B, D, F, G, C)
     assert made == [((G, B, D), torch.float32)]    # o, r: empty_like
     assert arrivals.dtype == torch.int32 and arrivals.numel() >= C
@@ -910,13 +951,13 @@ def test_rwkv6_scan_wrapper_passes_its_pointers(monkeypatch, alias):
 
 
 def test_cluster_kernels_refuse_unported_shapes(monkeypatch):
-    """B1 at head_dim 256 (GQA 8/2: the Gemma-2 slice's), a d_model no
-    cluster size splits into 64-row multiples, query heads that are no
-    multiple of the kv heads, and q_per_kv 2 and 8 (no instance) raise
-    before the library is reached; so
-    do B2 shapes its plan cannot
+    """B1 at head_dim 256 (GQA 8/2: RecurrentGemma's fused arm, A.4c), a
+    d_model no cluster size splits into 64-row multiples, query heads
+    that are no multiple of the kv heads, and q_per_kv 5 and 8 (no
+    instance) raise before the library is reached — q_per_kv 2
+    (Gemma-2's, ported) reaches it; so do B2 shapes its plan cannot
     split (d_ff not a multiple of 16, d_model not a multiple of 16 or
-    over 512 rows a rank) and B4 shapes outside MLA's geometry or with a
+    over 640 rows a rank) and B4 shapes outside MLA's geometry or with a
     d_model whose eighth is not a multiple of 64 up to 512."""
     def no_library(*_a, **_k):
         raise AssertionError("an unsupported input reached the library")
@@ -924,10 +965,13 @@ def test_cluster_kernels_refuse_unported_shapes(monkeypatch):
     monkeypatch.setattr(_build, "function", no_library)
     bf, f32, i32 = torch.bfloat16, torch.float32, torch.int32
     for heads, kv, D, hd in ((8, 2, 256, 256), (4, 4, 72, 128),
-                             (6, 4, 256, 128), (8, 4, 256, 128),
-                             (16, 2, 512, 128)):
+                             (6, 4, 256, 128), (10, 2, 256, 128),
+                             (16, 2, 512, 128), (8, 4, 256, 128)):
         B, S = 1, 4
-        with pytest.raises(NotImplementedError, match="fused_decode"):
+        ported = heads == 2 * kv                # Gemma-2's q_per_kv 2
+        with pytest.raises(AssertionError if ported
+                           else NotImplementedError,
+                           match="library" if ported else "fused_decode"):
             b1.fused_decode_cuda(
                 torch.zeros(B, D, dtype=bf),
                 torch.zeros(D, (heads + 2 * kv) * hd, dtype=bf),
@@ -938,7 +982,7 @@ def test_cluster_kernels_refuse_unported_shapes(monkeypatch):
                 torch.zeros(B, dtype=i32), torch.zeros(B, hd // 2, dtype=f32),
                 torch.zeros(B, hd // 2, dtype=f32), q_heads=heads,
                 kv_heads=kv, scale=hd ** -0.5, norm_eps=1e-6)
-    for D, F in ((64, 100), (8, 16), (5120, 13824)):
+    for D, F in ((64, 100), (8, 16), (6144, 16384)):
         assert b2.cluster_plan(D, F) == (0, 0)
         z = lambda *s: torch.zeros(s, dtype=bf)
         with pytest.raises(NotImplementedError, match="fused_ffn"):

@@ -37,8 +37,8 @@ from repro.serving.engine import EngineOptions as RefOptions
 
 from test_torch_layers import jax_tree_to_numpy
 
-from repro_torch.configs import (ATTN_LOCAL, RECURRENT, RWKV6, get_config,
-                                 reduced)
+from repro_torch.configs import (ATTN_GLOBAL, ATTN_LOCAL, RECURRENT, RWKV6,
+                                 get_config, reduced)
 from repro_torch.core import tracecount
 from repro_torch.launch.serve import build_engine_full, generate
 from repro_torch.models import layers, rwkv6
@@ -238,9 +238,11 @@ def test_prefill_logits_match_reference(reduced_model, bf16):
 
 def test_init_params_layout_and_unported_kinds():
     """Seeded init: the reference's leaves and dtypes with the group
-    axis leading; RWKV-6 beside other kinds, and the Gemma-2 post-norms,
-    raise naming ROADMAP (RG-LRU and local attention are ported:
-    ``tests/test_torch_rglru.py``)."""
+    axis leading; RWKV-6 beside other kinds, and post-norms beside RWKV-6
+    or RG-LRU layers, raise naming ROADMAP (RG-LRU and local attention
+    are ported: ``tests/test_torch_rglru.py``); post-norms on attention
+    layers are (Gemma-2's, ``tests/test_torch_gemma2.py``): zero
+    ``post_ln1``/``post_ln2`` beside ``ln1``/``ln2``."""
     cfg = reduced(get_config(ARCH))
     p = init_params(cfg, seed=1, device="cpu")
     ref = init_device_major(ref_reduced(ref_get_config(ARCH)), Layout(1),
@@ -255,11 +257,18 @@ def test_init_params_layout_and_unported_kinds():
     for bad, item in (
             (dataclasses.replace(cfg, block_pattern=(RWKV6, ATTN_LOCAL)),
              "item 15a"),
+            (dataclasses.replace(cfg, use_post_norm=True), "item 15a"),
             (dataclasses.replace(llama, block_pattern=(RECURRENT,
                                                        ATTN_LOCAL),
                                  use_post_norm=True), "item 10")):
         with pytest.raises(NotImplementedError, match=item):
             init_params(bad, device="cpu")
+    post = init_params(dataclasses.replace(
+        llama, block_pattern=(ATTN_LOCAL, ATTN_GLOBAL), use_post_norm=True),
+        device="cpu")
+    for blk in post["blocks"]:
+        assert torch.all(blk["post_ln1"] == 0) and torch.all(
+            blk["post_ln2"] == 0)
 
 
 # ---------------------------------------------------------------------------

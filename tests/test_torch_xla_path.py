@@ -343,11 +343,12 @@ def test_backend_and_prepack_resolve_as_the_reference(arch):
 
 
 def test_unservable_combinations_raise_naming_the_roadmap():
-    """MLA on ``"xla"`` is served now (item 4b, with MoE or without);
-    ``"pallas"`` with prepack off on an attention model (B1's and B4's
-    ``fuse_out=False`` modes, Queue B), post-norms (item 10), q/k/v
-    biases (item 11) and encoders (item 14) raise before any weight is
-    made; an attention-free model may turn prepack off."""
+    """MLA on ``"xla"`` is served now (item 4b, with MoE or without), and
+    post-norms (item 10, Gemma-2's) on both backends; ``"pallas"`` with
+    prepack off on an attention model (B1's and B4's ``fuse_out=False``
+    modes, Queue B), q/k/v biases (item 11) and encoders (item 14) raise
+    before any weight is made; an attention-free model may turn prepack
+    off."""
     mla = reduced(get_config("deepseek-v2-lite"))
     llama = reduced(get_config("llama2-7b"))
     for cfg in (mla, dense_mla(mla)):
@@ -360,8 +361,17 @@ def test_unservable_combinations_raise_naming_the_roadmap():
         build_engine_full(llama, max_seq=16, batch_global=2, device="cpu",
                           options=EngineOptions(backend="pallas",
                                                 prepack="off"))
-    for bad, item in (({"use_post_norm": True}, "item 10"),
-                      ({"qkv_bias": True}, "item 11"),
+    post = dataclasses.replace(llama, use_post_norm=True)
+    for backend in ("xla", "pallas"):
+        eng = build_engine_full(post, max_seq=16, batch_global=2,
+                                device="cpu",
+                                options=EngineOptions(backend=backend))
+        assert "post_ln1" in eng.params["train"]["blocks"][0]
+    with pytest.raises(NotImplementedError, match="Queue B"):
+        build_engine_full(post, max_seq=16, batch_global=2, device="cpu",
+                          options=EngineOptions(backend="pallas",
+                                                prepack="off"))
+    for bad, item in (({"qkv_bias": True}, "item 11"),
                       ({"encoder": EncoderConfig(2, 4, 4, 384)},
                        "item 14")):
         with pytest.raises(NotImplementedError, match=item):
