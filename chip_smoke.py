@@ -5,7 +5,7 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py
 
-It drives thirteen serving paths, each at full width and depth with
+It drives fourteen serving paths, each at full width and depth with
 seeded random bf16 weights and 8 slots.  Three run the fused ``backend="pallas"``
 kernels: Llama2-7B (32 layers; kernels B1 ``fused_decode``, B2
 ``fused_ffn``, B3 ``fused_head``) and the dense-MLA arm of
@@ -16,12 +16,16 @@ prefill and at every decode step, B3), served lockstep.  The fourth is
 Llama2-7B again, on the same weights, through the unfused
 ``backend="xla"`` dataflow (the paper's baseline: plain torch products,
 RoPE, append and head around B5 ``flash_decode``), so the fused and the
-unfused step are timed in one call.  The fifth is RecurrentGemma-9B (38
-layers: 26 RG-LRU and 12 local-attention, tied embeddings) on its only
-backend, ``"xla"`` with the default ``EngineOptions()``, served lockstep
-with ``max_seq`` 4096: B6 ``rglru_scan`` runs every RG-LRU recurrence at
-prefill and at every decode step, B5 every local layer's decode over a
-2048-row ring cache.  The last four are the GQA dense models, each on
+unfused step are timed in one call.  The fifth and sixth are
+RecurrentGemma-9B (38 layers: 26 RG-LRU and 12 local-attention with MQA
+16/1 of head dim 256, tied embeddings), served lockstep with ``max_seq``
+4096 on both backends: B6 ``rglru_scan`` runs every RG-LRU recurrence at
+prefill and at every decode step; on ``"pallas"`` (what ``"auto"``
+resolves to) every local layer's decode is B1's MQA 16/1 mode over its
+2048-row ring cache and B2, and the head B3 on ``embed`` (51 launches a
+step); on ``"xla"`` (the default ``EngineOptions()``) every local
+layer's decode is B5 over the ring and the head the loose one.  The
+next four are the GQA dense models, each on
 both backends like Llama2-7B: Granite-8B (36 layers, 32/8 heads, tied
 embeddings: B3 reads ``embed`` itself) and Minitron-4B (32 layers,
 24/8 heads, an ungated squared-ReLU FFN: B2's ungated ``relu2``
@@ -66,7 +70,11 @@ hand-written kernels from
    ``RGLRU_REL_TOL``, at the prefill shape ``[8, 2080, 4096]`` from a
    zero and a random ``h0`` and at the decode shape ``[8, 1, 4096]``
    (``log_a ≤ 0`` at the model's scale, the state updated in place as
-   the engine does); B5 at RecurrentGemma's shape, q ``[8, 16, 256]``
+   the engine does); B1's MQA 16/1 mode at ``head_dim`` 256 on wrapped
+   2048-row rings (a free slot, a short slot, slots below, at and past
+   the wrap and past the second: ``RGEMMA_LENS``), B2 at 4096 × 12288
+   ``gelu_tanh`` (and check-only with 5 slots), B3 on the tied
+   256000-row table; B5 at RecurrentGemma's shape, q ``[8, 16, 256]``
    against a full 2048-row ring ``[2048, 8, 1, 256]``, and check-only
    at ragged lengths on that ring (0, 1, the first batch's 128–160, the
    edges of 64-row tiles and of the 8 ranks' runs, 2047, 2048); B1
@@ -117,11 +125,13 @@ hand-written kernels from
    none outside them, tokens in the vocabulary, every row finite, and
    that the second batch's first tokens equal a prefill's from a fresh
    state; it prints the 512-token prefill's time (time to first token);
-   RecurrentGemma-9B runs the same two-batch loop (prompts of 128 then
-   2080 tokens, 32 new tokens each: the 2048-row rings wrap during the
-   second prefill and stay wrapped) and checks 26 B6 launches and no B5
-   per prefill, 26 B6 and 12 B5 per decode step and nothing else, and
-   prints the 2080-token prefill's time; MoE DeepSeek-V2-Lite runs the
+   RecurrentGemma-9B runs the same two-batch loop on each backend
+   (prompts of 128 then 2080 tokens, 32 new tokens each: the 2048-row
+   rings wrap during the second prefill and stay wrapped) and checks 26
+   B6 launches and nothing else per prefill, and per decode step 26 B6
+   and 12 B5 on ``"xla"``, 26 B6, 12 B1, 12 B2 and one B3 on
+   ``"pallas"``, and nothing else, and prints the 2080-token prefill's
+   time; MoE DeepSeek-V2-Lite runs the
    RWKV-6 loop (prompts of 128 then 512 tokens, 32 then 64 new tokens)
    and checks no launch per prefill, 27 B4 and one B3 (and no B2) per
    decode step on ``"pallas"`` and no launch at all on ``"xla"``;
@@ -153,7 +163,9 @@ hand-written kernels from
    a 2080-token prefill), and requires their greedy tokens to agree on at
    least 90 % of (step, slot) — each unfused path's tokens also against
    its fused path's; then traces a few replays of the engine's
-   graph on its own state with ``torch.profiler`` for the device time
+   graph on its own state with ``torch.profiler`` (after one replay as
+   the profiler's warm-up, finished before the window opens) for the
+   device time
    per kernel and the device's idle share, and requires exactly the
    device kernels that the step's port kernels run at decode
    (``DECODE_KERNELS``: both of B4's, B7's ``wkv_step_kernel``, one each
@@ -243,7 +255,8 @@ PATHS = (("llama2-7b", "pallas"),
          ("deepseek-v2-lite", "pallas"),   # its dense-MLA arm
          ("rwkv6-3b", "pallas"),
          ("llama2-7b", "xla"),             # the unfused baseline
-         ("recurrentgemma-9b", "xla"),     # its one backend
+         ("recurrentgemma-9b", "pallas"),  # MQA 16/1 of 256 on rings
+         ("recurrentgemma-9b", "xla"),
          ("granite-8b", "pallas"),         # GQA 32/8, tied embeddings
          ("granite-8b", "xla"),
          ("minitron-4b", "pallas"),        # GQA 24/8, ungated relu2 FFN
@@ -253,6 +266,7 @@ PATHS = (("llama2-7b", "pallas"),
          ("gemma2-27b", "pallas"),         # 32/16, rings, softcaps,
          ("gemma2-27b", "xla"))            # post-norms, tied
 GEMMA = "gemma2-27b"
+RGEMMA = "recurrentgemma-9b"
 SLOTS = 8
 MAX_SEQ = 1024
 SEED = 0
@@ -264,7 +278,7 @@ TRACE_MAX_SEQ = {GEMMA: 4608}
 # second RecurrentGemma prompt wraps the 2048-row rings during prefill;
 # MoE serves lockstep (the scheduler refuses it, as the reference's does)
 LOCKSTEP = {"rwkv6-3b": (MAX_SEQ, ((128, 32), (512, 64))),
-            "recurrentgemma-9b": (4096, ((128, 32), (2080, 32))),
+            RGEMMA: (4096, ((128, 32), (2080, 32))),
             MOE_PATH: (MAX_SEQ, ((128, 32), (512, 64)))}
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor rate
@@ -517,6 +531,11 @@ def gqa_case(cfg, gen, lens=None, *, S=MAX_SEQ, ring=False,
 GEMMA_LENS = [-1, 0, 37, 513, 4095, 4096, 4097, 8200]
 # on the 4608-row global layers: the last row, and no wrap
 GLOBAL_LENS = [-1, 0, 37, 513, 4095, 4096, 4097, 4607]
+# RecurrentGemma's B1 cache lengths on its 2048-row rings: a free slot, a
+# short slot, and slots below, at and past the wrap (row cache_len mod S
+# then still holds cache_len − S, outside the window), past the second
+# wrap, and two at the served batch's lengths (2080 + 32 tokens)
+RGEMMA_LENS = [-1, 37, 2047, 2048, 2049, 2080, 2111, 4100]
 
 
 def ring_positions(S: int, lens: torch.Tensor) -> torch.Tensor:
@@ -722,7 +741,10 @@ def kernel_cases(path, cfg, backend):
     attention kernel (B1, or B4 for MLA), B2 and B3 — or, on RWKV-6, B7
     at the prefill and the decode shape, and B3; with MoE none (its B4
     and B3 run at the dense-MLA arm's shapes, whose cases hold them; the
-    experts are torch and cuBLAS); on Gemma-2 B1 on a wrapped ring with
+    experts are torch and cuBLAS); on RecurrentGemma B6 at the prefill
+    and the decode shape, then B1 (MQA 16/1 of 256) on wrapped 2048-row
+    rings with ragged lengths and a free slot, B2 (4096 × 12288
+    ``gelu_tanh``) and B3 on ``embed``; on Gemma-2 B1 on a wrapped ring with
     the window and the softcap (check-only on a global layer's linear
     cache), B2 with ``post_ln1``, B3 with the logit softcap; on ``"xla"``
     B5 at the path's shape and at a GQA shape with a window and a
@@ -735,9 +757,17 @@ def kernel_cases(path, cfg, backend):
     B, D, F, V = SLOTS, cfg.d_model, cfg.d_ff, cfg.vocab_size
     if RECURRENT in cfg.block_pattern:
         n_prompt = LOCKSTEP[path][1][-1][0]
-        cases = [rglru_case(cfg, gen, n_prompt), rglru_case(cfg, gen, 1),
-                 ring_flash_case(cfg, gen)] + [
-            ring_flash_case(cfg, gen, lens) for lens in RING_EDGE_LENS]
+        cases = [rglru_case(cfg, gen, n_prompt), rglru_case(cfg, gen, 1)]
+        if backend == "pallas":
+            # B1's MQA 16/1 mode at head_dim 256 on the wrapped rings, B2
+            # at 4096 × 12288 gelu_tanh, B3 on the tied 256000-row table
+            cases += [gqa_case(cfg, gen, RGEMMA_LENS, ring=True,
+                               check_only=False),
+                      ffn_case(cfg, gen), head_case(cfg, gen),
+                      ffn_case(cfg, gen, slots=5)]
+        else:
+            cases += [ring_flash_case(cfg, gen)] + [
+                ring_flash_case(cfg, gen, lens) for lens in RING_EDGE_LENS]
     elif backend == "xla" and cfg.mla is not None:
         cases = []
     elif cfg.moe is not None:
@@ -1152,17 +1182,20 @@ def lockstep_launches(cfg, backend):
     """Launches one prefill and one decode step must make on a lockstep
     path: RWKV-6 ``L`` B7 per prefill, ``L`` B7 and one B3 per step;
     RecurrentGemma one B6 per RG-LRU layer per prefill, and per step one
-    B6 per RG-LRU layer and one B5 per local-attention layer; MoE
-    DeepSeek-V2-Lite none per prefill and ``decode_launches`` per step."""
+    B6 per RG-LRU layer and, per local-attention layer, one B5 on
+    ``"xla"`` or one B1 and one B2 on ``"pallas"`` (there also one B3:
+    26 + 12 + 12 + 1 = 51); MoE DeepSeek-V2-Lite none per prefill and
+    ``decode_launches`` per step."""
     if cfg.moe is not None:
         return {}, decode_launches(cfg, backend)
     if cfg.block_pattern == (RWKV6,):
         return ({"rwkv6_scan": cfg.n_layers},
                 {"rwkv6_scan": cfg.n_layers, "fused_head": 1})
     n_rec = cfg.layer_kinds.count(RECURRENT)
-    return ({"rglru_scan": n_rec},
-            {"rglru_scan": n_rec,
-             "flash_decode": cfg.layer_kinds.count(ATTN_LOCAL)})
+    n_loc = cfg.layer_kinds.count(ATTN_LOCAL)
+    attn = ({"flash_decode": n_loc} if backend == "xla" else
+            {"fused_decode": n_loc, "fused_ffn": n_loc, "fused_head": 1})
+    return {"rglru_scan": n_rec}, {"rglru_scan": n_rec, **attn}
 
 
 def serve_lockstep(path, cfg, eng):
@@ -1267,7 +1300,7 @@ def serve_lockstep(path, cfg, eng):
 # ---------------------------------------------------------------------------
 # lockstep paths' forced-decode prompt: RWKV-6 its first batch's, and
 # RecurrentGemma (past the ring) and MoE DeepSeek-V2-Lite their second's
-FORCED_PROMPT = {"rwkv6-3b": 128, "recurrentgemma-9b": 2080, MOE_PATH: 512}
+FORCED_PROMPT = {"rwkv6-3b": 128, RGEMMA: 2080, MOE_PATH: 512}
 
 
 # the fill lengths of a path whose slots do not all take 32–512 tokens:
@@ -1508,12 +1541,20 @@ def profile_steps(cfg, eng, state, per_step, steps: int = 4):
     their device kernels (``DECODE_KERNELS``), each with ``per_step``
     spans a step, and no other port kernel: the replays ran every
     captured launch on the device, and a renamed kernel cannot slip into
-    ``other``."""
-    from torch.profiler import ProfilerActivity, profile
+    ``other``.  Only device activity is traced (no host record is
+    read), and one replay runs first as the profiler's warm-up (its
+    schedule's ``warmup`` step: device tracing on, records discarded)
+    and ends on the device before the traced window opens: a window
+    opened with its first replay lost records at its edge (ROADMAP
+    C12)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
     tok = torch.zeros(SLOTS, dtype=torch.int32, device="cuda")
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+        tok, state = eng.decode_fn(eng.params["serve"], state, tok)
+        torch.cuda.synchronize()
+        prof.step()                 # the traced window opens
         for _ in range(steps):
             tok, state = eng.decode_fn(eng.params["serve"], state, tok)
         torch.cuda.synchronize()

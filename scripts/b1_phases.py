@@ -9,7 +9,9 @@ defined (thread 0 of every CTA records ``%globaltimer`` at the end of
 each phase), into ``DIR`` (default ``build/b1_phases``), runs the
 library's ``fused_decode_launch`` through the wrapper at the Llama2-7B,
 Granite-8B and Minitron-4B shapes of ``chip_smoke.gqa_case`` (its ragged
-lengths, and every slot free: no attention over the cache), and prints
+lengths, and every slot free: no attention over the cache) and at
+RecurrentGemma-9B's (MQA 16/1 of 256 on its wrapped 2048-row rings,
+``RGEMMA_LENS``), and prints
 one JSON line per case: the launch's span (first stamp to last, µs), and
 per phase the median and the largest time a CTA spent in it (µs):
 
@@ -75,8 +77,9 @@ def phases(lib, b1, a, kw, cfg) -> dict:
     for _ in range(5):
         b1.fused_decode_cuda(*a.values(), **kw)
     torch.cuda.synchronize()
-    C, H = b1.cluster_plan(cfg.n_heads, cfg.n_kv_heads, cfg.d_model)
-    ctas = cfg.n_kv_heads * C
+    C, H = b1.cluster_plan(cfg.n_heads, cfg.n_kv_heads, cfg.d_model,
+                           cfg.resolved_head_dim)
+    ctas = cfg.n_heads // H * C
     buf = (ctypes.c_ulonglong * (MAX_CTAS * 8))()
     assert lib.fd_read_stamps(buf, MAX_CTAS) == 0
     st = [[buf[c * 8 + i] for i in range(8)] for c in range(ctas)]
@@ -117,11 +120,13 @@ def main() -> int:
     print(json.dumps(dict(card=smi.splitlines()[0])), flush=True)
     lib = build(opt.out)
     use(lib, b1)
-    for arch in ("llama2-7b", "granite-8b", "minitron-4b"):
+    for arch in ("llama2-7b", "granite-8b", "minitron-4b", cs.RGEMMA):
         cfg = cs.path_config(arch)
         gen = torch.Generator(device="cuda")
         gen.manual_seed(cs.SEED + 1)
-        case = cs.gqa_case(cfg, gen)
+        case = (cs.gqa_case(cfg, gen, cs.RGEMMA_LENS, ring=True,
+                            check_only=False) if arch == cs.RGEMMA
+                else cs.gqa_case(cfg, gen))
         args, kw = case["args"], case["kw"]
         free = dict(args, cache_lens=torch.full_like(args["cache_lens"], -1),
                     include_new=torch.zeros_like(args["include_new"]))

@@ -3,8 +3,8 @@ serving path it runs so far: Llama2-7B (the paper's primary model),
 DeepSeek-V2-Lite (its MLA model, with its MoE layers, and its dense-MLA
 arm),
 RWKV-6 3B (attention-free; lockstep serving through the WKV scan),
-RecurrentGemma-9B (RG-LRU and local attention; lockstep serving on the
-unfused backend), and, on both backends, the GQA dense models
+and, on both backends, RecurrentGemma-9B (RG-LRU and local attention;
+lockstep serving), the GQA dense models
 Granite-8B (32/8 heads, tied embeddings) and Minitron-4B (24/8 heads, an
 ungated squared-ReLU FFN) and Gemma-2 27B (32/16 heads, local and global
 attention in turn, both softcaps, post-norms, tied embeddings)."""

@@ -9,24 +9,23 @@
   latent attention in torch and cuBLAS, with no kernel of the port's;
 * ``"pallas"``: the fused kernels on the prepacked serve layout (B1 or
   B4, B2, B3; a MoE FFN stays the expert dispatch in torch and cuBLAS,
-  as the reference's does);
+  and an RG-LRU layer the unfused recurrent block around B6, as the
+  reference's do);
 * ``"auto"``: ``"pallas"`` for models with attention layers, ``"xla"``
   for attention-free ones (the fusion scope the paper targets does not
   apply, DESIGN.md §4) — so the dense MHA and GQA models (Llama2-7B,
-  Granite-8B, Minitron-4B), Gemma-2 27B (local and global attention)
-  and DeepSeek-V2-Lite (MoE or its dense-MLA arm) resolve to the fused
-  kernels, and RecurrentGemma, which has local-attention layers,
-  resolves to ``"pallas"`` as in the reference and raises: its fused arm
-  is not ported (ROADMAP A.4c, item 10).
+  Granite-8B, Minitron-4B), Gemma-2 27B (local and global attention),
+  DeepSeek-V2-Lite (MoE or its dense-MLA arm) and RecurrentGemma-9B
+  (its local-attention layers through B1 and B2, as in the reference)
+  resolve to the fused kernels.
 
-Every model the port registers serves on ``"xla"``; all but
-RecurrentGemma also on ``"pallas"``.
+Every model the port registers serves on both backends.
 """
 from __future__ import annotations
 
 from typing import Tuple
 
-from repro_torch.configs.base import RECURRENT, ModelConfig
+from repro_torch.configs.base import ModelConfig
 
 BACKENDS = ("xla", "pallas")
 
@@ -57,22 +56,15 @@ def _prepack_for(backend_resolved: str, prepack) -> bool:
 
 def resolve_serving(cfg: ModelConfig, backend: str, prepack
                     ) -> Tuple[str, bool]:
-    """``(backend, prepack)`` for ``cfg``, raising on the combinations the
-    port cannot serve yet (never falling back to another backend): the
-    fused arm of RG-LRU models (RecurrentGemma, ROADMAP A.4c, item 10)
-    and ``"pallas"`` with prepack off on an attention model (B1's and
-    B4's ``fuse_out=False``).  Dense MHA and GQA models, gated or
-    ungated, tied or not, with local (sliding-window) layers or not
-    (Gemma-2), and MLA models with a dense or a MoE FFN serve on both
-    backends."""
+    """``(backend, prepack)`` for ``cfg``, raising on the combination the
+    port cannot serve yet (never falling back to another backend):
+    ``"pallas"`` with prepack off on an attention model (B1's and B4's
+    ``fuse_out=False``).  Dense MHA and GQA models, gated or ungated,
+    tied or not, with local (sliding-window) layers or not (Gemma-2),
+    with RG-LRU layers (RecurrentGemma), and MLA models with a dense or
+    a MoE FFN serve on both backends."""
     b = _backend_for(cfg, backend)
     pp = _prepack_for(b, prepack)
-    if b == "pallas" and RECURRENT in cfg.layer_kinds:
-        raise NotImplementedError(
-            f"backend='pallas' for {cfg.name}: the fused arm of RG-LRU "
-            "models needs B1's head_dim 256 with MQA 16/1 (q_per_kv 16) "
-            "and the serve layout of tail layers (ROADMAP A.4c, item 10); "
-            "serve it on backend='xla'")
     if b == "pallas" and not pp and not cfg.is_attention_free:
         raise NotImplementedError(
             "backend='pallas' with prepack off needs B1's fuse_out=False "

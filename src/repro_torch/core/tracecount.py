@@ -11,8 +11,11 @@ two numbers per kernel:
   and one ``fused_ffn`` per layer, one ``fused_head`` per step), ``L``
   on the unfused ``backend="xla"`` path (one ``flash_decode`` per
   layer), ``L + 1`` on RWKV-6 (one ``rwkv6_scan`` per layer, one
-  ``fused_head``), ``L`` on RecurrentGemma (one ``rglru_scan`` per
-  recurrent layer, one ``flash_decode`` per local-attention layer),
+  ``fused_head``), ``L`` on RecurrentGemma's unfused path (one
+  ``rglru_scan`` per recurrent layer, one ``flash_decode`` per
+  local-attention layer) and ``L_rec + 2·L_local + 1`` on its fused
+  path (``fused_decode`` and ``fused_ffn`` per local-attention layer,
+  ``rglru_scan`` per recurrent one, one ``fused_head``),
   ``L + 1`` on MoE DeepSeek-V2-Lite's fused path (one
   ``fused_mla_decode`` per layer and one ``fused_head``: its FFN is the
   expert dispatch in torch) and none on its unfused path (its MLA

@@ -4,36 +4,44 @@
 // Replaces repro/kernels/fused_decode/fused_decode.py:fused_decode_attention
 // (the Pallas kernel at its pallas_call, line 374) in the serving mode:
 // fused ln1, no bias, q_per_kv = nq / nkv query heads a kv head (1 = MHA;
-// GQA and MQA above), hd 128, on a linear cache or a sliding window over
-// a ring cache (Gemma-2's local layers), with or without the attention
-// softcap.
+// GQA and MQA above), hd 128 — or hd 256 at MQA 16/1 (RecurrentGemma-9B's
+// local layers) —, on a linear cache or a sliding window over a ring
+// cache (Gemma-2's and RecurrentGemma's local layers), with or without
+// the attention softcap.
 //
 // Bound on an H100: bytes.  Per layer the weights (wqkv + wo: 134 MB at
-// Llama2-7B, 84 MB at Granite-8B) and each slot's live KV are read once;
-// the arithmetic is a few FLOPs per byte.  Design, the paper's (Alg.
-// 1-3): one thread-block cluster of C CTAs per kv head g, holding its
-// H = q_per_kv query heads (the wrapper's plan: C = 4, H = 1 at
-// Llama2-7B, 128 CTAs; C = 8, H = 4 and 3 at Granite-8B and Minitron-4B,
-// 64 CTAs; C = 4, H = 2 at Gemma-2 27B, 64 CTAs: its 16 clusters of 8
-// would be one more than the 15 an H100 runs at once, and measured
-// slower), the grid and the buffers laid out by kv head.
-// Rank r of the cluster of kv head g
+// Llama2-7B, 84 MB at Granite-8B, 71 MB at RecurrentGemma-9B) and each
+// slot's live KV are read once; the arithmetic is a few FLOPs per byte.
+// Design, the paper's (Alg. 1-3): one thread-block cluster of C CTAs per
+// group of H query heads of kv head g — at hd 128 H = q_per_kv, one
+// cluster per kv head (the wrapper's plan: C = 4, H = 1 at Llama2-7B, 128
+// CTAs; C = 8, H = 4 and 3 at Granite-8B and Minitron-4B, 64 CTAs; C = 4,
+// H = 2 at Gemma-2 27B, 64 CTAs: its 16 clusters of 8 would be one more
+// than the 15 an H100 runs at once, and measured slower); at hd 256 and
+// MQA 16/1 H = 2 of the kv head's 16 query heads, 8 clusters of 8 (64
+// CTAs): one cluster for all 16 would need ~740 KB of shared memory for
+// its wqkv ring, and 8 CTAs could not stream the layer; each of the 8
+// clusters projects the kv head's k and v again and attends the same
+// rows (the second reads mostly hit L2, PERF.md §6) —, the grid and the
+// buffers laid out by query-head group.
+// Rank r of the cluster of query heads qb .. qb + H − 1 (kv head g)
 //   1. normalizes x for all B slots (the sum of squares over the whole
 //      row, redundant per rank: 64 KB from L2) and keeps its rows
 //      [r·D/C, (r+1)·D/C) in shared memory, rounded to bf16 as the
 //      reference rounds before the projection;
 //   2. streams those rows of the group's wqkv columns — its H query heads,
-//      then k and v of head g: (H + 2)·hd columns — ONCE through a 5-stage
-//      cp.async ring (16-byte copies, four tiles in flight while one is
+//      then k and v of head g: (H + 2)·hd columns — ONCE through a
+//      cp.async ring of 16-row tiles (five stages, three at hd 256 with
+//      two heads: 16-byte copies, the other tiles in flight while one is
 //      computed) and multiplies them on the tensor cores (mma.sync
 //      m16n8k16; H = 1: the B ≤ 8 normed rows, exact in bf16, as the
-//      16-row A operand, each warp 48 columns; H > 1: the weight tile as A
-//      and the slots as n, so no MMA row is padding);
+//      16-row A operand, each warp (H + 2)·hd / 8 columns; H > 1: the
+//      weight tile as A and the slots as n, so no MMA row is padding);
 //   3. ClusterReduce: the [B, (H + 2)·hd] f32 partials are summed in rank
 //      order, each rank its slice over DSMEM (cluster::sum), then gathered
 //      (cluster::gather), so every rank holds the same q, k and v;
-//   4. applies RoPE in f32; rank 0 writes the rounded
-//      k_new/v_new;
+//   4. applies RoPE in f32; rank 0 of the kv head's first cluster writes
+//      the rounded k_new/v_new;
 //   5. attends over its share of the rows [0, min(cache_len, S)) of all
 //      slots laid end to end (C runs of equal length, in tiles that stop
 //      at a slot's edge), rows with pos in [0, cache_len) and, with a
@@ -43,11 +51,12 @@
 //      scores softcapped (tanh(s/cap)·cap) before the softmax; streaming K/V
 //      and pos through a cp.async ring (its first tiles load during step
 //      3); a tile holds one slot's rows, which that slot's H query heads
-//      attend: each warp scores 8 keys of a tile for all H heads (each K
-//      and V element read once from shared memory for the H heads) and
-//      keeps its own online softmax per head from m = -1e30, the eight
-//      warps' partials merging in warp order at a slot's end (no barrier
-//      inside a tile);
+//      attend: each warp scores 32 / (hd / 32) keys of a tile (hd / 32
+//      lanes a key: 8 keys of a 64-row tile at hd 128, 4 of a 32-row one
+//      at hd 256) for all H heads (each K and V element read once from
+//      shared memory for the H heads) and keeps its own online softmax
+//      per head from m = -1e30, the eight warps' partials merging in warp
+//      order at a slot's end (no barrier inside a tile);
 //   6. ClusterReduce with the flash-merge operator: the ranks' (m, l, acc)
 //      of every (slot, head) merge in rank order over DSMEM, identically
 //      on every rank (H = 1: cluster::flash_merge; H > 1: each rank merges
@@ -81,12 +90,21 @@ DEVI float softcap(float s, float cap) {
 
 constexpr int NT = 256;        // 8 warps
 constexpr int NW = NT / 32;
-constexpr int HD = 128;
 constexpr int BP = 8;          // slots as laid out in shared memory
 constexpr int TRW = 16;        // wqkv rows a tile: one k16 step
-constexpr int WST = 5;         // wqkv ring stages
-constexpr int TRA = 64;        // cache rows a tile
-constexpr int RSA = HD + 8;    // padded cache row (bf16)
+// wqkv ring stages: five; three at hd 256 with two heads a cluster, whose
+// 1024-column tiles leave room for no more beside the other buffers
+template <int H, int HD>
+constexpr int WST = HD == 256 && H > 1 ? 3 : 5;
+// lanes that score one cache row (each 32 of its hd elements): 4 at hd
+// 128, 8 at hd 256; a warp scores 32 / LPK rows of a tile, so a tile
+// holds NT / LPK rows: 64 at hd 128, 32 at hd 256
+template <int HD>
+constexpr int LPK = HD / 32;
+template <int HD>
+constexpr int TRA = NT / LPK<HD>;   // cache rows a tile
+template <int HD>
+constexpr int RSA = HD + 8;         // padded cache row (bf16)
 // cache ring stages: two for one head; three for H heads, whose tiles
 // take longer to score (the ring fits in region 0 beside the larger wqkv
 // ring)
@@ -102,6 +120,7 @@ constexpr int TRO = H == 1 ? 16 : 32;
 // 1152 rows (Gemma-2 27B: four such stages would not fit)
 template <int H>
 constexpr int OST = H <= 2 ? 2 : 4;
+template <int HD>
 constexpr int ACS = HD + 4;    // acc row stride (f32)
 // wo n tiles a warp: Dr ≤ 1152 (Gemma-2 27B's 4608 / 4) for two heads,
 // ≤ 1024 for the others
@@ -114,8 +133,9 @@ __host__ __device__ constexpr size_t smax(size_t a, size_t b) {
 }
 
 // Shared-memory layout for Dr = D / C rows a rank and H query heads a
-// cluster: NC = (H + 2)·hd columns of wqkv (the H heads' q, then k, v).
-template <int B, int H>
+// cluster of head dim HD: NC = (H + 2)·HD columns of wqkv (the H heads'
+// q, then k, v).
+template <int B, int H, int HD>
 struct Lay {
   static constexpr int NC = (H + 2) * HD;
   static constexpr int NCP = NC + 8;        // padded wqkv tile row (bf16)
@@ -125,8 +145,8 @@ struct Lay {
   // region 0, reused phase by phase: the wqkv ring, the cache ring, the
   // wo ring
   __host__ __device__ size_t r0() const {
-    size_t s = (size_t)WST * TRW * NCP * 2;
-    s = smax(s, (size_t)AST<H> * 2 * TRA * RSA * 2);
+    size_t s = (size_t)WST<H, HD> * TRW * NCP * 2;
+    s = smax(s, (size_t)AST<H> * 2 * TRA<HD> * RSA<HD> * 2);
     return smax(s, (size_t)OST<H> * TRO<H> * xrow() * 2);
   }
   // the normed rows bf16 [BP][xrow], then the projection's partial f32
@@ -143,21 +163,21 @@ struct Lay {
     return apart() + (size_t)(cluster::acc_offset(R) + R * HD) * 4;
   }
   __host__ __device__ size_t misc() const {
-    return acc2() + (size_t)BP * H * ACS * 4;
+    return acc2() + (size_t)BP * H * ACS<HD> * 4;
   }
   // misc: red_ss[NW·BP] inv[BP] mfin lfin cn pn [BP·H]; ints sa se clen
   //       [BP] first[BP + 1] pos tiles [AST][TRA]
   __host__ __device__ size_t total() const {
     return misc() + (size_t)(NW * BP + BP + 4 * BP * H) * 4
-         + (size_t)(4 * BP + 4 + AST<H> * TRA) * 4;
+         + (size_t)(4 * BP + 4 + AST<H> * TRA<HD>) * 4;
   }
 };
 
-// one head a cluster: at most 128 registers (two CTAs an SM fit); more
-// heads: the per-head attention state and one CTA an SM (its shared
-// memory holds no second one)
-template <int B, int H>
-__global__ void __launch_bounds__(NT, H == 1 ? 2 : 1)
+// one head a cluster at hd 128: at most 128 registers (two CTAs an SM
+// fit); more heads, or hd 256: the per-head attention state and one CTA
+// an SM (its shared memory holds no second one)
+template <int B, int H, int HD>
+__global__ void __launch_bounds__(NT, H == 1 && HD == 128 ? 2 : 1)
 fused_decode_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wqkv,
                     const bf16* __restrict__ wo, const float* __restrict__ ln1,
                     const bf16* __restrict__ kc, const bf16* __restrict__ vc,
@@ -168,13 +188,17 @@ fused_decode_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wqkv,
                     bf16* __restrict__ v_new, float* __restrict__ m_out,
                     float* __restrict__ l_out, int D, int S, int nq, int nkv,
                     int window, float scale, float eps, float cap) {
-  using L_ = Lay<B, H>;
+  using L_ = Lay<B, H, HD>;
   constexpr int NC = L_::NC, NCP = L_::NCP, R = L_::R;
   constexpr int NTW = NC / 8 / NW;   // 8-column n tiles a warp projects
   constexpr int AS = AST<H>;
+  constexpr int WS = WST<H, HD>;
+  constexpr int TA = TRA<HD>, RS = RSA<HD>, AC = ACS<HD>;
   const int C = (int)cooperative_groups::this_cluster().num_blocks();
-  // kv head g, whose query heads are qb .. qb + H − 1
-  const int rank = blockIdx.x % C, g = blockIdx.x / C, qb = g * H;
+  // cluster ci holds query heads qb .. qb + H − 1 of kv head g (at hd
+  // 128 H = q_per_kv: ci = g)
+  const int rank = blockIdx.x % C, ci = blockIdx.x / C, qb = ci * H;
+  const int g = qb / (nq / nkv);
   const L_ L{D / C};
   const int Dr = L.Dr, d0 = rank * Dr, xrow = L.xrow();
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -198,7 +222,7 @@ fused_decode_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wqkv,
   int* se = sa + BP;
   int* clen = se + BP;
   int* first = clen + BP;            // [BP + 1] prefix of tiles by slot
-  int* posb = first + BP + 4;        // [AS][TRA]
+  int* posb = first + BP + 4;        // [AS][TA]
   FD_STAMP(0);
 
   // ---- phase 2 prologue: the first wqkv tiles go in flight at once ----
@@ -206,7 +230,7 @@ fused_decode_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wqkv,
   const int ntw = Dr / TRW;
   bf16* ring_w = reinterpret_cast<bf16*>(r0);
   auto load_w = [&](int t) {
-    bf16* dst = ring_w + (size_t)(t % WST) * TRW * NCP;
+    bf16* dst = ring_w + (size_t)(t % WS) * TRW * NCP;
     const int rb = t * TRW;
     for (int i = tid; i < TRW * (NC / 8); i += NT) {
       const int p = i / (NC / 8), j = i % (NC / 8), c = j * 8;
@@ -218,14 +242,14 @@ fused_decode_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wqkv,
     }
   };
 #pragma unroll
-  for (int t = 0; t < WST - 1; ++t) {
+  for (int t = 0; t < WS - 1; ++t) {
     if (t < ntw) load_w(t);
     cp_async_commit();
   }
 
   // this rank's share of the live rows: slot by slot, the rows [0, L_b)
   // laid end to end and cut into C runs of equal length, each run in
-  // tiles of TRA rows that stop at a slot's edge
+  // tiles of TA rows that stop at a slot's edge
   if (tid < BP) clen[tid] = tid < B ? cache_lens[tid] : 0;
   __syncthreads();
   if (tid == 0) {
@@ -242,7 +266,7 @@ fused_decode_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wqkv,
       sa[b] = min(Lb[b], max(0, R0 - off));
       se[b] = min(Lb[b], max(0, R1 - off));
       first[b] = f;
-      f += (se[b] - sa[b] + TRA - 1) / TRA;
+      f += (se[b] - sa[b] + TA - 1) / TA;
       off += Lb[b];
     }
     first[BP] = f;
@@ -313,12 +337,12 @@ fused_decode_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wqkv,
       for (int j = 0; j < 4; ++j) cw[n][j] = 0.f;
     for (int t = 0; t < ntw; ++t) {
       // tile t has landed, and no thread still reads the stage that tile
-      // t + WST - 1 overwrites
-      cp_async_wait<WST - 2>();
+      // t + WS - 1 overwrites
+      cp_async_wait<WS - 2>();
       __syncthreads();
-      if (t + WST - 1 < ntw) load_w(t + WST - 1);
+      if (t + WS - 1 < ntw) load_w(t + WS - 1);
       cp_async_commit();
-      const bf16* tile = ring_w + (size_t)(t % WST) * TRW * NCP;
+      const bf16* tile = ring_w + (size_t)(t % WS) * TRW * NCP;
       const bf16* xa = xs + gi * xrow + t * TRW + ti * 2;
       const uint32_t af[4] = {lds32(xa), 0u, lds32(xa + 8), 0u};
       const bf16* tb = tile + ((lane & 7) + (mi & 1) * 8) * NCP
@@ -347,11 +371,11 @@ fused_decode_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wqkv,
 #pragma unroll
       for (int q = 0; q < 4; ++q) cp[j][q] = 0.f;
     for (int t = 0; t < ntw; ++t) {
-      cp_async_wait<WST - 2>();
+      cp_async_wait<WS - 2>();
       __syncthreads();
-      if (t + WST - 1 < ntw) load_w(t + WST - 1);
+      if (t + WS - 1 < ntw) load_w(t + WS - 1);
       cp_async_commit();
-      const bf16* tile = ring_w + (size_t)(t % WST) * TRW * NCP;
+      const bf16* tile = ring_w + (size_t)(t % WS) * TRW * NCP;
       const bf16* xb = xs + gi * xrow + t * TRW + ti * 2;
       const uint32_t b0 = lds32(xb), b1 = lds32(xb + 8);
 #pragma unroll
@@ -390,18 +414,18 @@ fused_decode_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wqkv,
     return b;
   };
   auto load_a = [&](int f) {
-    const int b = slot_of(f), s0 = sa[b] + (f - first[b]) * TRA;
-    const int nv = min(TRA, se[b] - s0);
-    bf16* ks = ring_a + (size_t)(f % AS) * 2 * TRA * RSA;
-    bf16* vs = ks + TRA * RSA;
+    const int b = slot_of(f), s0 = sa[b] + (f - first[b]) * TA;
+    const int nv = min(TA, se[b] - s0);
+    bf16* ks = ring_a + (size_t)(f % AS) * 2 * TA * RS;
+    bf16* vs = ks + TA * RS;
     const size_t col = ((size_t)b * nkv + g) * HD;
     for (int i = tid; i < nv * (HD / 8); i += NT) {
       const int p = i / (HD / 8), j = (i % (HD / 8)) * 8;
       const size_t off = (size_t)(s0 + p) * srow + col + j;
-      cp_async16(ks + p * RSA + j, kc + off);
-      cp_async16(vs + p * RSA + j, vc + off);
+      cp_async16(ks + p * RS + j, kc + off);
+      cp_async16(vs + p * RS + j, vc + off);
     }
-    if (tid < nv) cp_async4(posb + (f % AS) * TRA + tid, pos + (size_t)(s0 + tid) * B + b);
+    if (tid < nv) cp_async4(posb + (f % AS) * TA + tid, pos + (size_t)(s0 + tid) * B + b);
   };
 #pragma unroll
   for (int f = 0; f < AS - 1; ++f) {
@@ -433,7 +457,7 @@ fused_decode_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wqkv,
   for (int i = tid; i < R * HD; i += NT) aacc[i] = 0.f;
   if (tid < R) { am[tid] = -1e30f; al[tid] = 0.f; }
   __syncthreads();
-  if (rank == 0) {
+  if (rank == 0 && qb % (nq / nkv) == 0) {   // the kv head's first cluster
     for (int idx = tid; idx < B * HD; idx += NT) {
       const int b = idx / HD, d = idx % HD;
       k_new[((size_t)b * nkv + g) * HD + d] = f2bf(qkv[b * NC + H * HD + d]);
@@ -442,19 +466,29 @@ fused_decode_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wqkv,
   }
 
   // ---- phase 4: online softmax over this rank's share of each slot ----
-  // warp-split: warp w scores keys 8w .. 8w + 7 of a tile (four lanes a
-  // key) for the H heads and keeps its own running m, l and acc per head
-  // (its lane's four columns), so a tile needs no barrier of its own; at
-  // a slot's last tile the eight warps' partials merge in warp order
-  static_assert(TRA == 8 * NW && HD == 4 * 32, "warp-split geometry");
+  // warp-split: warp w scores keys KW·w .. KW·w + KW − 1 of a tile (LK
+  // lanes a key: KW = 8 at hd 128, 4 at hd 256) for the H heads and keeps
+  // its own running m, l and acc per head (its lane's VL = hd / 32
+  // columns), so a tile needs no barrier of its own; at a slot's last
+  // tile the eight warps' partials merge in warp order
+  constexpr int LK = LPK<HD>, KW = 32 / LK, VL = HD / 32;
+  static_assert(TA == KW * NW && HD == LK * 32 && (VL == 4 || VL == 8),
+                "warp-split geometry");
   float* wpart = reinterpret_cast<float*>(smem + L.xs());   // [NW][H][4 + HD]
-  float wm[H], wl[H], wacc[H][4];
+  // hd 256: this lane's q columns of the slot's H heads in registers,
+  // loaded when the slot changes (its loop was issue-bound on the
+  // shared-memory reads of q: 20 % of the phase, PERF.md §6); hd 128
+  // reads q from shared memory
+  constexpr int NU = HD / (8 * LK);
+  float qv[HD == 256 ? H : 1][NU][8];
+  int qslot = -1;
+  float wm[H], wl[H], wacc[H][VL];
 #pragma unroll
   for (int h = 0; h < H; ++h) {
     wm[h] = -1e30f;
     wl[h] = 0.f;
 #pragma unroll
-    for (int u = 0; u < 4; ++u) wacc[h][u] = 0.f;
+    for (int u = 0; u < VL; ++u) wacc[h][u] = 0.f;
   }
   for (int f = 0; f < ntot; ++f) {
     cp_async_wait<AS - 2>();
@@ -462,68 +496,88 @@ fused_decode_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wqkv,
     if (f + AS - 1 < ntot) load_a(f + AS - 1);
     cp_async_commit();
     const int b = slot_of(f), t = f - first[b];
-    const int s0 = sa[b] + t * TRA, nv = min(TRA, se[b] - s0);
+    const int s0 = sa[b] + t * TA, nv = min(TA, se[b] - s0);
     const int cl = clen[b];
-    const bf16* ks = ring_a + (size_t)(f % AS) * 2 * TRA * RSA;
-    const bf16* vs = ks + TRA * RSA;
-    // scores: four lanes a cache row, each K element read once for the H
+    const bf16* ks = ring_a + (size_t)(f % AS) * 2 * TA * RS;
+    const bf16* vs = ks + TA * RS;
+    // scores: LK lanes a cache row, each K element read once for the H
     // heads
-    const int p = tid >> 2, l4 = tid & 3;
+    const int p = tid / LK, l4 = tid % LK;
+    if constexpr (HD == 256) {
+      if (b != qslot) {
+        qslot = b;
+#pragma unroll
+        for (int h = 0; h < H; ++h)
+#pragma unroll
+          for (int u = 0; u < NU; ++u)
+#pragma unroll
+            for (int k = 0; k < 8; ++k)
+              qv[h][u][k] = qkv[b * NC + h * HD + l4 * 8 + 8 * LK * u + k];
+      }
+    }
     bool valid = false;
     float d[H];
 #pragma unroll
     for (int h = 0; h < H; ++h) d[h] = 0.f;
     if (p < nv) {
-      const int ps_ = posb[(f % AS) * TRA + p];
+      const int ps_ = posb[(f % AS) * TA + p];
       valid = ps_ >= 0 && ps_ < cl && (window <= 0 || ps_ > cl - window);
       const float* qr = qkv + b * NC;
 #pragma unroll
-      for (int u = 0; u < HD / 32; ++u) {
-        const int j = l4 * 8 + 32 * u;
+      for (int u = 0; u < NU; ++u) {
+        const int j = l4 * 8 + 8 * LK * u;
         float k8[8];
-        smem_bf16x8(ks + p * RSA + j, k8);
+        smem_bf16x8(ks + p * RS + j, k8);
 #pragma unroll
         for (int h = 0; h < H; ++h) {
-          const float4 qa = *reinterpret_cast<const float4*>(qr + h * HD + j);
-          const float4 qb4 = *reinterpret_cast<const float4*>(qr + h * HD + j + 4);
-          d[h] += qa.x * k8[0] + qa.y * k8[1] + qa.z * k8[2] + qa.w * k8[3]
-                + qb4.x * k8[4] + qb4.y * k8[5] + qb4.z * k8[6] + qb4.w * k8[7];
+          if constexpr (HD == 256) {
+            const float* q8 = qv[h][u];
+            d[h] += q8[0] * k8[0] + q8[1] * k8[1] + q8[2] * k8[2] + q8[3] * k8[3]
+                  + q8[4] * k8[4] + q8[5] * k8[5] + q8[6] * k8[6] + q8[7] * k8[7];
+          } else {
+            const float4 qa = *reinterpret_cast<const float4*>(qr + h * HD + j);
+            const float4 qb4 = *reinterpret_cast<const float4*>(qr + h * HD + j + 4);
+            d[h] += qa.x * k8[0] + qa.y * k8[1] + qa.z * k8[2] + qa.w * k8[3]
+                  + qb4.x * k8[4] + qb4.y * k8[5] + qb4.z * k8[6] + qb4.w * k8[7];
+          }
         }
       }
     }
-    // the warp's online softmax over its eight keys, per head
+    // the warp's online softmax over its KW keys, per head
     float pv[H];
 #pragma unroll
     for (int h = 0; h < H; ++h) {
       float dh = d[h];
-      dh += __shfl_xor_sync(0xffffffffu, dh, 1);
-      dh += __shfl_xor_sync(0xffffffffu, dh, 2);
+#pragma unroll
+      for (int u = 1; u < LK; u <<= 1) dh += __shfl_xor_sync(0xffffffffu, dh, u);
       const float sv = valid ? softcap(dh * scale, cap) : -INFINITY;
       float mx = sv;
 #pragma unroll
-      for (int u = 4; u < 32; u <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, u));
+      for (int u = LK; u < 32; u <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, u));
       const float m_new = fmaxf(wm[h], mx), c = expf(wm[h] - m_new);
       pv[h] = valid ? expf(sv - m_new) : 0.f;
       float sum = pv[h];
 #pragma unroll
-      for (int u = 4; u < 32; u <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, u);
+      for (int u = LK; u < 32; u <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, u);
       wl[h] = wl[h] * c + sum;
       wm[h] = m_new;
 #pragma unroll
-      for (int u = 0; u < 4; ++u) wacc[h][u] *= c;
+      for (int u = 0; u < VL; ++u) wacc[h][u] *= c;
     }
-    // p·v, p in f32: key kk's p from lane 4·kk; lane owns columns 4·lane ..
+    // p·v, p in f32: key kk's p from lane LK·kk; lane owns columns
+    // VL·lane .. VL·lane + VL − 1
 #pragma unroll
-    for (int kk = 0; kk < 8; ++kk) {
-      const int row = warp * 8 + kk;
+    for (int kk = 0; kk < KW; ++kk) {
+      const int row = warp * KW + kk;
       if (row >= nv) break;
-      float v4[4];
-      load_bf16x4_smem(vs + row * RSA + lane * 4, v4);
+      float vv[VL];
+      if constexpr (VL == 4) load_bf16x4_smem(vs + row * RS + lane * 4, vv);
+      else smem_bf16x8(vs + row * RS + lane * 8, vv);
 #pragma unroll
       for (int h = 0; h < H; ++h) {
-        const float pk = __shfl_sync(0xffffffffu, pv[h], kk * 4);
+        const float pk = __shfl_sync(0xffffffffu, pv[h], kk * LK);
 #pragma unroll
-        for (int u = 0; u < 4; ++u) wacc[h][u] += pk * v4[u];
+        for (int u = 0; u < VL; ++u) wacc[h][u] += pk * vv[u];
       }
     }
     if (t == first[b + 1] - first[b] - 1) {   // the slot's last tile
@@ -531,12 +585,14 @@ fused_decode_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wqkv,
       for (int h = 0; h < H; ++h) {
         float* wp = wpart + (warp * H + h) * (4 + HD);
         if (lane == 0) { wp[0] = wm[h]; wp[1] = wl[h]; }
-        *reinterpret_cast<float4*>(wp + 4 + lane * 4) =
-            make_float4(wacc[h][0], wacc[h][1], wacc[h][2], wacc[h][3]);
+#pragma unroll
+        for (int u = 0; u < VL; u += 4)
+          *reinterpret_cast<float4*>(wp + 4 + lane * VL + u) =
+              make_float4(wacc[h][u], wacc[h][u + 1], wacc[h][u + 2], wacc[h][u + 3]);
         wm[h] = -1e30f;
         wl[h] = 0.f;
 #pragma unroll
-        for (int u = 0; u < 4; ++u) wacc[h][u] = 0.f;
+        for (int u = 0; u < VL; ++u) wacc[h][u] = 0.f;
       }
       __syncthreads();
       for (int e = tid; e < H * HD; e += NT) {
@@ -562,7 +618,7 @@ fused_decode_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wqkv,
 
   // the first wo tiles go in flight before the merge: the H heads' rows
   // of wo, head by head, TR rows a tile; with H > 1 rank r starts at head
-  // r mod H and cluster g at row tile g mod 4 of each head, so the
+  // r mod H and cluster ci at row tile ci mod TPH of each head, so the
   // clusters' and ranks' reads spread over the heads' rows instead of
   // moving through them in step.  A thread copies one 16-byte column
   // chunk of every rpp-th row of a tile (its offsets set once here).
@@ -570,7 +626,7 @@ fused_decode_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wqkv,
   constexpr int TPH = HD / TR;       // wo tiles a head
   constexpr int OS = OST<H>;
   auto head_of = [&](int t) { return H == 1 ? 0 : (t / TPH + rank) % H; };
-  auto rows_of = [&](int t) { return H == 1 ? t % TPH : (t + g) % TPH; };
+  auto rows_of = [&](int t) { return H == 1 ? t % TPH : (t + ci) % TPH; };
   bf16* ring_o = reinterpret_cast<bf16*>(r0);
   const int cpr = Dr / 8, rpp = NT / cpr;      // chunks a row, rows a pass
   const int oj = (tid % cpr) * 8, op0 = tid / cpr;
@@ -600,7 +656,7 @@ fused_decode_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wqkv,
     cluster::flash_merge(am, R, HD, 0, R * HD,
                          [&](int e, float m, float l, float4 a) {
       const int r = e / HD, d = e % HD;
-      *reinterpret_cast<float4*>(acc2 + r * ACS + d) = a;
+      *reinterpret_cast<float4*>(acc2 + r * AC + d) = a;
       if (d == 0) { mfin[r] = m; lfin[r] = l; }
     });
   } else {
@@ -684,10 +740,10 @@ fused_decode_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wqkv,
   }
   __syncthreads();
   const float* am2 = H == 1 ? acc2 : accm;   // the merged acc
-  const int ams = H == 1 ? ACS : HD;
+  const int ams = H == 1 ? AC : HD;
   for (int idx = tid; idx < BP * H * HD; idx += NT) {
     const int r = idx / HD, d = idx % HD;
-    acc2[r * ACS + d] = r < R ? am2[r * ams + d] * cn[r]
+    acc2[r * AC + d] = r < R ? am2[r * ams + d] * cn[r]
                                 + pn[r] * qkv[(r / H) * NC + (H + 1) * HD + d]
                               : 0.f;
   }
@@ -715,7 +771,7 @@ fused_decode_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wqkv,
       cp_async_commit();
       const int h = head_of(t), tt = rows_of(t);
       const bf16* tile = ring_o + (size_t)(t % OS) * TR * xrow;
-      const float* ar = acc2 + (gi * H + h) * ACS + tt * TR + ti * 2;
+      const float* ar = acc2 + (gi * H + h) * AC + tt * TR + ti * 2;
       uint32_t ahi[4] = {0u, 0u, 0u, 0u}, alo[4] = {0u, 0u, 0u, 0u};
       split_bf16(*reinterpret_cast<const float2*>(ar), ahi[0], alo[0]);
       split_bf16(*reinterpret_cast<const float2*>(ar + 8), ahi[2], alo[2]);
@@ -768,7 +824,7 @@ fused_decode_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wqkv,
       const bf16* tile = ring_o + (size_t)(t % OS) * TR * xrow;
 #pragma unroll
       for (int ks = 0; ks < TR / 16; ++ks) {   // the tile's k16 steps
-        const float* br = acc2 + (gi * H + h) * ACS + tt * TR + ks * 16 + ti * 2;
+        const float* br = acc2 + (gi * H + h) * AC + tt * TR + ks * 16 + ti * 2;
         uint32_t bhi0, blo0, bhi1, blo1;
         split_bf16(*reinterpret_cast<const float2*>(br), bhi0, blo0);
         split_bf16(*reinterpret_cast<const float2*>(br + 8), bhi1, blo1);
@@ -818,10 +874,10 @@ fused_decode_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wqkv,
 template <int H>
 bool rows_ok(int Dr) { return Dr >= 64 && Dr <= 64 * MAX_NTO<H> && Dr % 64 == 0; }
 
-template <int B, int H>
-size_t smem_bytes(int D, int C) { return Lay<B, H>{D / C}.total(); }
+template <int B, int H, int HD>
+size_t smem_bytes(int D, int C) { return Lay<B, H, HD>{D / C}.total(); }
 
-template <int B, int H>
+template <int B, int H, int HD>
 int launch(int C, const bf16* x, const bf16* wqkv, const bf16* wo,
            const float* ln1, const bf16* kc, const bf16* vc, const int* pos,
            const int* cache_lens, const int* include_new, const float* cosv,
@@ -829,12 +885,13 @@ int launch(int C, const bf16* x, const bf16* wqkv, const bf16* wo,
            float* l, int D, int S, int nq, int nkv, int window, float scale,
            float eps, float cap, cudaStream_t stream) {
   return (int)cluster::launch(
-      fused_decode_kernel<B, H>, dim3(nq / H * C), NT, smem_bytes<B, H>(D, C),
-      stream, C, x, wqkv, wo, ln1, kc, vc, pos, cache_lens, include_new, cosv,
-      sinv, o, k_new, v_new, m, l, D, S, nq, nkv, window, scale, eps, cap);
+      fused_decode_kernel<B, H, HD>, dim3(nq / H * C), NT,
+      smem_bytes<B, H, HD>(D, C), stream, C, x, wqkv, wo, ln1, kc, vc, pos,
+      cache_lens, include_new, cosv, sinv, o, k_new, v_new, m, l, D, S, nq,
+      nkv, window, scale, eps, cap);
 }
 
-template <int H>
+template <int H, int HD>
 int launch_b(int B, int C, const bf16* x, const bf16* wqkv, const bf16* wo,
              const float* ln1, const bf16* kc, const bf16* vc, const int* pos,
              const int* cache_lens, const int* include_new, const float* cosv,
@@ -844,14 +901,14 @@ int launch_b(int B, int C, const bf16* x, const bf16* wqkv, const bf16* wo,
 #define ARGS C, x, wqkv, wo, ln1, kc, vc, pos, cache_lens, include_new, cosv, \
     sinv, o, k_new, v_new, m, l, D, S, nq, nkv, window, scale, eps, cap, stream
   switch (B) {
-    case 1: return launch<1, H>(ARGS);
-    case 2: return launch<2, H>(ARGS);
-    case 3: return launch<3, H>(ARGS);
-    case 4: return launch<4, H>(ARGS);
-    case 5: return launch<5, H>(ARGS);
-    case 6: return launch<6, H>(ARGS);
-    case 7: return launch<7, H>(ARGS);
-    case 8: return launch<8, H>(ARGS);
+    case 1: return launch<1, H, HD>(ARGS);
+    case 2: return launch<2, H, HD>(ARGS);
+    case 3: return launch<3, H, HD>(ARGS);
+    case 4: return launch<4, H, HD>(ARGS);
+    case 5: return launch<5, H, HD>(ARGS);
+    case 6: return launch<6, H, HD>(ARGS);
+    case 7: return launch<7, H, HD>(ARGS);
+    case 8: return launch<8, H, HD>(ARGS);
     default: return (int)cudaErrorInvalidValue;
   }
 #undef ARGS
@@ -860,18 +917,26 @@ int launch_b(int B, int C, const bf16* x, const bf16* wqkv, const bf16* wo,
 // The shared memory a CTA may use (227 KB on an H100).
 constexpr size_t SMEM_MAX = 232448;
 
+// The instances: (H, hd) = (q_per_kv, 128) for q_per_kv 1-4, and (2, 256)
+// for q_per_kv 16 (RecurrentGemma-9B: 8 clusters of two query heads)
+bool instance_ok(int qpk, int hd, int H) {
+  if (hd == 128) return H == qpk && H >= 1 && H <= 4;
+  return hd == 256 && qpk == 16 && H == 2;
+}
+
 // The plan the kernel takes: C ranks (a power of two up to 8) that split
-// d_model into rows_ok runs, and H = q_per_kv query heads a cluster, H in
-// {1, 2, 3, 4}, within the shared memory a CTA has.
+// d_model into rows_ok runs, H query heads a cluster of an instance,
+// within the shared memory a CTA has.
 bool plan_ok(int nq, int nkv, int hd, int D, int C, int H) {
-  if (!(hd == HD && nkv >= 1 && nq == nkv * H && H >= 1 && H <= 4 &&
+  if (!(nkv >= 1 && nq % nkv == 0 && instance_ok(nq / nkv, hd, H) &&
         C >= 1 && C <= MAX_C && D % C == 0 &&
         (H == 2 ? rows_ok<2>(D / C) : rows_ok<1>(D / C))))
     return false;
-  const size_t smem = H == 1 ? smem_bytes<BP, 1>(D, C)
-                    : H == 2 ? smem_bytes<BP, 2>(D, C)
-                    : H == 3 ? smem_bytes<BP, 3>(D, C)
-                             : smem_bytes<BP, 4>(D, C);
+  const size_t smem = hd == 256 ? smem_bytes<BP, 2, 256>(D, C)
+                    : H == 1 ? smem_bytes<BP, 1, 128>(D, C)
+                    : H == 2 ? smem_bytes<BP, 2, 128>(D, C)
+                    : H == 3 ? smem_bytes<BP, 3, 128>(D, C)
+                             : smem_bytes<BP, 4, 128>(D, C);
   return smem <= SMEM_MAX;
 }
 
@@ -890,11 +955,12 @@ extern "C" int fused_decode_launch(
     (const int*)cache_lens, (const int*)include_new, (const float*)cosv,         \
     (const float*)sinv, (float*)o, (bf16*)k_new, (bf16*)v_new, (float*)m,        \
     (float*)l, D, S, nq, nkv, window, scale, eps, cap, (cudaStream_t)stream
+  if (hd == 256) return launch_b<2, 256>(ARGS);
   switch (H) {
-    case 1: return launch_b<1>(ARGS);
-    case 2: return launch_b<2>(ARGS);
-    case 3: return launch_b<3>(ARGS);
-    case 4: return launch_b<4>(ARGS);
+    case 1: return launch_b<1, 128>(ARGS);
+    case 2: return launch_b<2, 128>(ARGS);
+    case 3: return launch_b<3, 128>(ARGS);
+    case 4: return launch_b<4, 128>(ARGS);
     default: return (int)cudaErrorInvalidValue;
   }
 #undef ARGS

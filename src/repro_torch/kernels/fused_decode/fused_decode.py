@@ -3,10 +3,12 @@ per-head Output-Projection (``fuse_out="partial_o"``).
 
 Replaces ``repro/kernels/fused_decode/fused_decode.py:fused_decode_attention``
 (``pallas_call`` at line 374), in the mode the serving path runs: fused
-``ln1``, no bias, ``fuse_out="partial_o"``, MHA, GQA or MQA at
-``head_dim`` 128, on a linear cache or — Gemma-2's local layers — a
-sliding window over a ring cache, with or without the attention
-softcap.  The other modes (``head_dim`` 256, ``bqkv``, ``pos_base``,
+``ln1``, no bias, ``fuse_out="partial_o"``, MHA, GQA or MQA up to 4
+query heads a kv head at ``head_dim`` 128, and MQA 16/1 at ``head_dim``
+256 (RecurrentGemma-9B's local layers), on a linear cache or — the
+local layers of Gemma-2 and RecurrentGemma — a sliding window over a
+ring cache, with or without the attention softcap.  The other modes
+(other ``head_dim``/``q_per_kv`` pairs, ``bqkv``, ``pos_base``,
 ``fuse_out`` ``True``/``False``) raise ``NotImplementedError``
 (ROADMAP.md, Queue B).
 
@@ -17,13 +19,20 @@ a few FLOPs per byte, far under the ~295 FLOP/byte ridge.  The design
 reads every weight byte ONCE per launch for the whole batch (the JAX
 path vmaps the Pallas kernel per slot, so on the TPU each slot re-reads
 ``wqkv``/``wo``), and is the paper's: one thread-block cluster of ``C``
-CTAs per kv head, holding its ``H`` = ``q_per_kv`` query heads
-(:func:`cluster_plan`: ``C`` 4 and ``H`` 1 at Llama2-7B, 128 CTAs; ``C``
-8 and ``H`` 4 and 3 at Granite-8B and Minitron-4B, 64 CTAs: clusters of
-16 or a kv head split over two clusters took a second wave and were
-slower, PERF.md §6; ``C`` 4 and ``H`` 2 at Gemma-2 27B's 16 kv heads, 64
-CTAs of 1152 rows: its 16 clusters of 8 would be one more than the 15 an
-H100 runs at once, and were slower, PERF.md §6).
+CTAs per group of ``H`` query heads of one kv head (:func:`cluster_plan`).
+At ``head_dim`` 128 ``H`` = ``q_per_kv``, one cluster a kv head: ``C`` 4
+and ``H`` 1 at Llama2-7B, 128 CTAs; ``C`` 8 and ``H`` 4 and 3 at
+Granite-8B and Minitron-4B, 64 CTAs: clusters of 16 or a kv head split
+over two clusters took a second wave and were slower, PERF.md §6; ``C``
+4 and ``H`` 2 at Gemma-2 27B's 16 kv heads, 64 CTAs of 1152 rows: its 16
+clusters of 8 would be one more than the 15 an H100 runs at once, and
+were slower, PERF.md §6.  At ``head_dim`` 256 and MQA 16/1
+(RecurrentGemma-9B) one cluster for all 16 query heads would need about
+740 KB of shared memory for its ``wqkv`` ring and stream the layer on 8
+SMs, so the kv head's heads split into 8 clusters of 8 CTAs holding 2
+heads each (64 CTAs, 512 rows a rank): each cluster projects the kv
+head's k and v again and attends the same rows, reads that mostly hit
+L2 (the plans measured: PERF.md §6).
 Each rank projects its ``D/C`` rows of the cluster's ``wqkv`` columns
 (its query heads, then the kv head's k and v), the partials are summed over
 distributed shared memory in rank order, each rank attends its share of
@@ -60,51 +69,62 @@ from repro_torch.kernels import _build
 from repro_torch.models.layers import rope_freqs
 
 _MAX_B = 8           # slots per launch (the kernel's template range)
-_HEAD_DIMS = (128,)  # head dims the CUDA kernel is instantiated for
 _MAX_CLUSTER = 8     # the portable thread-block cluster size
 _TARGET_CTAS = 128   # about one CTA per SM of an H100 (132)
 _WAVE_CLUSTERS = _build.WAVE_CTAS // _MAX_CLUSTER   # clusters of 8 at once
-# wqkv rows a rank may hold (csrc MAX_NTO · 64), by query heads a
-# cluster: 1152 for two (Gemma-2 27B's 4608 over 4 ranks), else 1024
-_MAX_ROWS = {1: 1024, 2: 1152, 3: 1024, 4: 1024}
-_HEADS = (1, 2, 3, 4)   # query heads a cluster the kernel is instantiated for
+# the kernel's instances: head dim → {q_per_kv: query heads a cluster}
+# (hd 128: a kv head's 1-4 query heads in one cluster; hd 256: MQA 16/1,
+# RecurrentGemma-9B's, in clusters of two query heads)
+_HEADS = {128: {1: 1, 2: 2, 3: 3, 4: 4}, 256: {16: 2}}
+# wqkv rows a rank may hold, by (head dim, query heads a cluster): csrc
+# MAX_NTO · 64 — 1152 for two heads (Gemma-2 27B's 4608 over 4 ranks),
+# else 1024 — and at hd 256 1024, what the shared memory leaves room for
+_MAX_ROWS = {(128, 1): 1024, (128, 2): 1152, (128, 3): 1024,
+             (128, 4): 1024, (256, 2): 1024}
 
 
-def _rows_ok(rows: int, q_per_kv: int) -> bool:
-    """Rows of ``wqkv`` a rank may hold (csrc ``rows_ok``): a multiple of
-    64 (eight warps' 8-column tiles of ``wo``), 64 … 1152 for two query
-    heads a cluster, … 1024 for the others."""
-    return 64 <= rows <= _MAX_ROWS.get(q_per_kv, 0) and rows % 64 == 0
+def _rows_ok(rows: int, heads: int, head_dim: int = 128) -> bool:
+    """Rows of ``wqkv`` a rank may hold (csrc ``rows_ok`` and the shared
+    memory's room): a multiple of 64 (eight warps' 8-column tiles of
+    ``wo``) up to ``_MAX_ROWS``."""
+    return (64 <= rows <= _MAX_ROWS.get((head_dim, heads), 0)
+            and rows % 64 == 0)
 
 
-def cluster_size(kv_heads: int, d_model: int, q_per_kv: int = 1) -> int:
-    """CTAs in the cluster of one kv head: the power of two ≤ 8 that
-    brings the grid to about ``_TARGET_CTAS`` (Llama2-7B's 32 heads: 4;
-    8 kv heads: 8) — clusters of 8 only where all ``kv_heads`` of them
-    run at once (15 of 8 on an H100: Gemma-2 27B's 16 take 4) —,
-    halved until each rank's ``d_model / C`` rows are ones the kernel
-    takes; 0 if none is."""
+def cluster_size(clusters: int, d_model: int, heads: int = 1,
+                 head_dim: int = 128) -> int:
+    """CTAs in each of ``clusters`` clusters of ``heads`` query heads: the
+    power of two ≤ 8 that brings the grid to about ``_TARGET_CTAS``
+    (Llama2-7B's 32 heads: 4; 8 clusters: 8) — clusters of 8 only where
+    all of them run at once (15 of 8 on an H100: Gemma-2 27B's 16 take
+    4) —, halved until each rank's ``d_model / C`` rows are ones the
+    kernel takes; 0 if none is."""
     c = 1
-    while (c < _MAX_CLUSTER and kv_heads * c < _TARGET_CTAS
-           and (2 * c < _MAX_CLUSTER or kv_heads <= _WAVE_CLUSTERS)):
+    while (c < _MAX_CLUSTER and clusters * c < _TARGET_CTAS
+           and (2 * c < _MAX_CLUSTER or clusters <= _WAVE_CLUSTERS)):
         c *= 2
     while c >= 1:
-        if d_model % c == 0 and _rows_ok(d_model // c, q_per_kv):
+        if d_model % c == 0 and _rows_ok(d_model // c, heads, head_dim):
             return c
         c //= 2
     return 0
 
 
-def cluster_plan(q_heads: int, kv_heads: int, d_model: int):
-    """``(C, H)`` from the shapes alone: ``H`` = ``q_per_kv`` query heads
-    a cluster (MHA 1, Gemma-2 27B 2, Minitron-4B 3, Granite-8B 4: the
-    kernel's instances), ``C`` CTAs a cluster for the ``kv_heads`` clusters
-    (:func:`cluster_size`); ``(0, 0)`` where no plan fits (another
-    ``q_per_kv``: ROADMAP.md)."""
-    if kv_heads < 1 or q_heads % kv_heads or q_heads // kv_heads not in _HEADS:
+def cluster_plan(q_heads: int, kv_heads: int, d_model: int,
+                 head_dim: int = 128):
+    """``(C, H)`` from the shapes alone: ``H`` query heads a cluster — at
+    ``head_dim`` 128 a kv head's ``q_per_kv`` (MHA 1, Gemma-2 27B 2,
+    Minitron-4B 3, Granite-8B 4), at 256 two of MQA 16/1's sixteen
+    (RecurrentGemma-9B: 8 clusters) —, ``C`` CTAs a cluster
+    (:func:`cluster_size` of the ``q_heads / H`` clusters); ``(0, 0)``
+    where no plan fits (another ``q_per_kv`` or head dim: ROADMAP.md)."""
+    if kv_heads < 1 or q_heads % kv_heads:
         return (0, 0)
-    c = cluster_size(kv_heads, d_model, q_heads // kv_heads)
-    return (c, q_heads // kv_heads) if c else (0, 0)
+    h = _HEADS.get(head_dim, {}).get(q_heads // kv_heads)
+    if h is None:
+        return (0, 0)
+    c = cluster_size(q_heads // h, d_model, h, head_dim)
+    return (c, h) if c else (0, 0)
 
 
 def _check_mode(fuse_out, bqkv, norm_scale):
@@ -221,18 +241,19 @@ def fused_decode_cuda(x, wqkv, wo, norm_scale, k_cache, v_cache, pos,
                       cache_lens, include_new, cos, sin, *, q_heads,
                       kv_heads, scale, norm_eps, window=0, attn_softcap=0.0):
     """Launch ``csrc/fused_decode.cu`` on the current stream (one launch
-    for the whole batch, ``kv_heads`` clusters of ``C`` CTAs)."""
+    for the whole batch, ``q_heads / H`` clusters of ``C`` CTAs)."""
     B, D = x.shape
     S, rows, hd = k_cache.shape
-    C, H = cluster_plan(q_heads, kv_heads, D)
-    if (hd not in _HEAD_DIMS or B > _MAX_B or rows != B * kv_heads
+    C, H = cluster_plan(q_heads, kv_heads, D, hd)
+    if (B > _MAX_B or rows != B * kv_heads
             or not C or wqkv.shape != (D, (q_heads + 2 * kv_heads) * hd)
             or wo.shape != (q_heads, hd, D) or pos.shape != (S, B)):
         raise NotImplementedError(
-            f"fused_decode CUDA kernel: head_dim in {_HEAD_DIMS}, "
-            f"q_per_kv in {_HEADS}, B ≤ {_MAX_B}, d_model split "
-            f"into multiples of 64 rows a rank, at most {_MAX_ROWS} by "
-            f"q_per_kv; got x {tuple(x.shape)}, cache {tuple(k_cache.shape)}, wqkv "
+            f"fused_decode CUDA kernel: (head_dim, q_per_kv) in "
+            f"{[(d, q) for d, qs in _HEADS.items() for q in qs]}, "
+            f"B ≤ {_MAX_B}, d_model split into multiples of 64 rows a "
+            f"rank, at most {_MAX_ROWS} by (head_dim, heads a cluster); "
+            f"got x {tuple(x.shape)}, cache {tuple(k_cache.shape)}, wqkv "
             f"{tuple(wqkv.shape)}, heads {q_heads}/{kv_heads}, plan "
             f"{(C, H)} (other head dims and q_per_kv: ROADMAP.md)")
     bf, f32, i32 = torch.bfloat16, torch.float32, torch.int32

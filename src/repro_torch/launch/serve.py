@@ -81,9 +81,8 @@ def build_engine_full(cfg: ModelConfig, *, max_seq: int, batch_global: int,
     raises when no card is present and the CPU was not asked for).
 
     ``options.backend``/``options.prepack`` resolve as in the reference
-    (``core/autotune.py``); ``"pallas"`` with prepack off and ``"pallas"``
-    (or ``"auto"``) for RecurrentGemma raise ``NotImplementedError``
-    naming their ROADMAP items.
+    (``core/autotune.py``); ``"pallas"`` with prepack off raises
+    ``NotImplementedError`` naming its ROADMAP item.
     Prefill does not depend on the backend.  ``train_params``:
     train-layout weights to serve (e.g. from ``from_reference_params``);
     default: :func:`init_params` from ``seed``.  On a CUDA device

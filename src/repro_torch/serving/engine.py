@@ -43,15 +43,17 @@ every layer, not a KV cache; it is served lockstep
 (``launch/serve.py:generate``) and does not mask free slots, as the
 reference does not.
 
-RecurrentGemma serves on ``"xla"`` only (``"pallas"`` raises, ROADMAP
-item 10): the embedding times ``√d_model`` (tied embeddings), then per
-RG-LRU layer the reference's ``rglru_block_step`` in plain torch around
-one B6 launch (``rglru_scan`` at ``S = 1``) and the FFN, per local
-attention layer the unfused layer above on a ring cache of
-``min(window, max_seq)`` rows, the ``tail`` layers after the groups,
-and the loose head on the embedding table: ``L`` kernel calls.  Its
-RG-LRU state is ``h`` and the conv tail of every recurrent layer; it is
-served lockstep like RWKV-6.
+On RecurrentGemma a step is the embedding times ``√d_model`` (tied
+embeddings), then per RG-LRU layer the reference's ``rglru_block_step``
+in plain torch around one B6 launch (``rglru_scan`` at ``S = 1``) and
+the unfused FFN on both backends, per local-attention layer — on a ring
+cache of ``min(window, max_seq)`` rows — B1 (its window over the ring,
+``head_dim`` 256, MQA 16/1) and B2 on ``"pallas"`` or the unfused layer
+above on ``"xla"``, the ``tail`` layers after the groups, and B3 or the
+loose head on the embedding table: ``L_rec + 2·L_local + 1`` kernel
+calls fused (51 at full depth), ``L`` unfused.  Its RG-LRU state is
+``h`` and the conv tail of every recurrent layer; it is served lockstep
+like RWKV-6.
 
 Decode is ragged on attention models: ``state["cache_lens"] [B]`` lets
 every slot advance on its own, and ``−1`` marks a free slot (no KV

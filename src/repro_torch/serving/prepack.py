@@ -5,11 +5,16 @@ At model size 1 there is no cluster gather: ``_pack_attn`` concatenates
 ``wq|wk|wv`` into one ``wqkv [D, (q + 2kv)·hd]`` (the one copy the pack
 makes; :func:`share_packed_qkv` then turns the train tree's ``wq``,
 ``wk`` and ``wv`` into views of it, so the two layouts hold one copy)
-and views ``wo`` as per-head full-width rows ``[q, hd, D]``;
+and views ``wo`` as per-head full-width rows ``[q, hd, D]`` — for the
+layer groups' stacked blocks and the unstacked ``tail`` blocks alike;
 ``_pack_mla`` views ``wq``, aliases ``wdkv``/``wuk`` and folds
 ``wproj = W_UV·W_O`` (its one copy); ``bundle_ffn`` and ``bundle_head``
 only alias train tensors.  RWKV-6 blocks ride through unpacked, as in
-the reference (``prepack.py:280–293``): the serve tree aliases them.  A
+the reference (``prepack.py:280–293``): the serve tree aliases them, and
+so do RG-LRU blocks (``_ffn_packable``, ``prepack.py:166–177``, packs only
+attention-bearing blocks) — RecurrentGemma's groups and its two RG-LRU
+``tail`` layers, which the reference's ``map_blocks`` walks like the
+groups (``prepack.py:150–163``).  A
 MoE block's FFN is not packable (``_ffn_packable``, ``prepack.py:167``:
 the fused block tail has no expert dispatch), so its experts, router
 and ``ln2`` ride through as the train tensors, aliased, while its
@@ -80,8 +85,9 @@ def bundle_ffn(blk: Dict[str, Any]) -> PackedFFNWeights:
 
 def share_packed_qkv(train: Dict[str, Any], serve: Dict[str, Any]
                      ) -> Dict[str, Any]:
-    """``train`` with every packed block's ``wq``, ``wk`` and ``wv``
-    replaced by views of the serve tree's ``wqkv`` (the same values), so
+    """``train`` with every packed block's (groups' and tail's) ``wq``,
+    ``wk`` and ``wv`` replaced by views of the serve tree's ``wqkv`` (the
+    same values), so
     the train layout's own copies are released once nothing else holds
     them: at Gemma-2 27B's width they are 3.47 GB, room the 8 slots'
     caches need beside the 54.5 GB of weights on an 80 GB card.  Prefill
@@ -93,14 +99,15 @@ def share_packed_qkv(train: Dict[str, Any], serve: Dict[str, Any]
             return blk
         views, c0 = {}, 0
         for name in ("wq", "wk", "wv"):
-            shape = blk["attn"][name].shape           # [G, D, heads, hd]
-            n = shape[2] * shape[3]
-            views[name] = a.wqkv[:, :, c0:c0 + n].unflatten(-1, shape[2:])
+            shape = blk["attn"][name].shape     # [G, D, heads, hd]; tail [D, …]
+            n = shape[-2] * shape[-1]
+            views[name] = a.wqkv[..., c0:c0 + n].unflatten(-1, shape[-2:])
             c0 += n
         return dict(blk, attn=dict(blk["attn"], **views))
 
-    return dict(train, blocks=[share(b, p) for b, p in
-                               zip(train["blocks"], serve["blocks"])])
+    return dict(train, **{part: [share(b, p) for b, p in
+                                 zip(train[part], serve[part])]
+                          for part in ("blocks", "tail")})
 
 
 def bundle_head(cfg: ModelConfig, params: Dict[str, Any]) -> PackedHeadWeights:
@@ -114,20 +121,16 @@ def prepack_for_serving(cfg: ModelConfig, params: Dict[str, Any], *,
     its dense ``ffn`` bundled (with ``post_ln1``) — a MoE ``ffn`` and
     ``ln2`` aliased as they are —, a post-norm block's ``post_ln2``
     aliased (the second residual add runs after B2), local- and
-    global-attention blocks alike, every other block (RWKV-6) aliased as
-    it is, plus
-    the ``head`` bundle (B3's table); ``embed`` aliases the train tensor.
-    ``"xla"``: ``params`` itself — its RG-LRU, local- and global-attention
-    blocks and its ``tail`` ride through as the train tree, and the
-    engine names the attention weights per step
-    (``engine.py:hoist_serve_weights``)."""
+    global-attention blocks alike, every other block (RWKV-6, RG-LRU)
+    aliased as it is, in the layer groups and the ``tail`` alike (a tail
+    block has no group axis: an attention block there is packed as a
+    group of one, then unstacked), plus the ``head`` bundle (B3's
+    table); ``embed`` aliases the train tensor.  ``"xla"``: ``params``
+    itself — its RG-LRU, local- and global-attention blocks and its
+    ``tail`` ride through as the train tree, and the engine names the
+    attention weights per step (``engine.py:hoist_serve_weights``)."""
     if backend != "pallas":
         return params
-    if params.get("tail"):
-        raise NotImplementedError(
-            "the fused serve layout of tail layers (past the last whole "
-            "layer group) comes with RecurrentGemma's fused arm (ROADMAP "
-            "A.4c, item 10)")
     pack_attn = _pack_mla if cfg.mla is not None else _pack_attn
 
     def pack_block(blk):
@@ -138,6 +141,23 @@ def prepack_for_serving(cfg: ModelConfig, params: Dict[str, Any], *,
         post = {"post_ln2": blk["post_ln2"]} if "post_ln2" in blk else {}
         return {"attn": pack_attn(blk["attn"], blk["ln1"]), **ffn, **post}
 
+    def pack_tail(blk):
+        if "attn" not in blk:
+            return blk
+        return _map(pack_block(_map(blk, lambda t: t[None])),
+                    lambda t: t[0])
+
     return {"embed": params["embed"],
-            "blocks": [pack_block(b) for b in params["blocks"]], "tail": [],
+            "blocks": [pack_block(b) for b in params["blocks"]],
+            "tail": [pack_tail(b) for b in params["tail"]],
             "head": bundle_head(cfg, params)}
+
+
+def _map(tree, fn):
+    """``fn`` on every tensor of a dict or NamedTuple of tensors (None
+    kept), as views: a block with or without its group axis."""
+    if isinstance(tree, dict):
+        return {k: _map(v, fn) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return type(tree)(*(_map(t, fn) for t in tree))
+    return None if tree is None else fn(tree)

@@ -3,7 +3,8 @@ package (``repro``) on the same numpy inputs and the same weights: B6's
 plain version against the Pallas RG-LRU scan in interpret mode and its
 ``ref.py``; the RG-LRU layer functions; the ring-cache attention layer
 and the ring fill; the forward; and the lockstep engine on the unfused
-``backend="xla"`` path against the JAX XLA engine, at the reduced
+``backend="xla"`` path against the JAX XLA engine (the fused arm:
+``tests/test_torch_rglru_fused.py``), at the reduced
 RecurrentGemma-9B config with ``n_layers=5`` (kinds R, R, L and a tail
 of R, R; ``d_model`` 128, 4 query heads over 1 KV head of 32, window 64,
 ``max_seq`` 128).  On the CPU B5 and B6 take their plain versions.
@@ -622,10 +623,24 @@ def test_admit_raises_as_the_reference_does(engines):
 
 @pytest.mark.parametrize("backend", ["pallas", "auto"])
 def test_fused_backend_raises_naming_item_10(backend):
-    """``"auto"`` resolves to ``"pallas"`` as in the reference (the model
-    has attention layers), and the fused arm raises before any weight is
-    made; it never falls back to ``"xla"``."""
+    """Item 10 (RecurrentGemma's fused arm) is served: ``"auto"`` resolves
+    to ``"pallas"`` as in the reference (the model has attention layers),
+    both build and serve a lockstep batch through the fused kernels'
+    plain versions (B1 and B2 on the local layer, B6, B3), and
+    ``"pallas"`` with prepack off still raises before any weight is made
+    — never falling back to ``"xla"``."""
     cfg = reduced(get_config(ARCH), n_layers=N_LAYERS)
-    with pytest.raises(NotImplementedError, match="item 10"):
+    eng = build_engine_full(cfg, max_seq=16, batch_global=2, device="cpu",
+                            options=EngineOptions(backend=backend))
+    assert (eng.scfg.backend, eng.scfg.prepack) == ("pallas", True)
+    tracecount.reset()
+    toks, _ = generate(eng.params, eng.prefill_fn, eng.decode_fn, eng.state,
+                       torch.ones((2, 6), dtype=torch.int32), 3)
+    assert toks.shape == (2, 3)
+    calls = tracecount.calls()
+    assert (calls["fused_decode"], calls["fused_ffn"], calls["fused_head"],
+            calls["flash_decode"]) == (2, 2, 2, 0)
+    with pytest.raises(NotImplementedError, match="prepack off"):
         build_engine_full(cfg, max_seq=16, batch_global=2, device="cpu",
-                          options=EngineOptions(backend=backend))
+                          options=EngineOptions(backend=backend,
+                                                prepack="off"))

@@ -15,7 +15,7 @@ Graphed and eager engines are built from the same seed and must give
 the same tokens and the same state bit for bit: on a staggered
 ``SlotScheduler`` trace on fused Llama (``"pallas"``), its dense-MLA
 DeepSeek-V2-Lite arm and unfused Llama (``"xla"``), and on two
-``generate`` batches on RWKV-6 and RecurrentGemma.  One test holds the
+``generate`` batches on RWKV-6 and on RecurrentGemma's both backends.  One test holds the
 graphed unfused engine against the JAX package's XLA engine on the same
 weights, as ``tests/test_torch_xla_path.py`` holds the eager one.
 """
@@ -196,7 +196,8 @@ def test_graphed_trace_equals_eager(arch, backend, check_finite,
 @pytest.mark.parametrize("arch,backend,batches", [
     ("rwkv6-3b", "pallas", ((10, 5), (12, 7))),
     # the second prompt wraps the 64-row ring of the local layer
-    ("recurrentgemma-9b", "xla", ((10, 4), (70, 6)))])
+    ("recurrentgemma-9b", "xla", ((10, 4), (70, 6))),
+    ("recurrentgemma-9b", "pallas", ((10, 4), (70, 6)))])
 def test_graphed_generate_equals_eager(arch, backend, batches):
     """Two lockstep ``generate`` batches on one engine: the same tokens
     and, at the end, the same state bit for bit."""
