@@ -5,7 +5,7 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py
 
-It drives fourteen serving paths, each at full width and depth with
+It drives eighteen serving paths, each at full width and depth with
 seeded random bf16 weights and 8 slots.  Three run the fused ``backend="pallas"``
 kernels: Llama2-7B (32 layers; kernels B1 ``fused_decode``, B2
 ``fused_ffn``, B3 ``fused_head``) and the dense-MLA arm of
@@ -42,7 +42,17 @@ global attention in turn, 32/16 heads, window 4096, attention softcap
 the local layers hold 4096-row rings and the global ones 4608-row
 caches) on ``"pallas"`` (B1's window, ring and softcap modes at 2 query
 heads a KV head, B2 with ``post_ln1``, B3 with the logit softcap) and
-``"xla"`` (B5 with the softcap on the rings).  It builds the
+``"xla"`` (B5 with the softcap on the rings).  The last four are the
+modality models, lockstep with seeded random frontend embeddings
+``[8, num_positions, feature_dim]`` (``frontend_embeds``):
+SeamlessM4T-medium (12 decoder layers of MHA 16/16 at head dim 64 over
+a 12-layer encoder of 1024 frames, vocabulary 256206) on ``"pallas"``
+(B1's MHA mode at head dim 64; the cross-attention and the FFN in torch
+and cuBLAS, as the reference keeps them outside its kernels; B3: 13
+launches a step) and ``"xla"`` (B5: 12), and InternVL2-2B (24 layers,
+GQA 16/8, 256 patch embeddings spliced into prompts of 320 and 768
+tokens, vocabulary 92553) on ``"pallas"`` (B1, B2 at 2048 × 8192, B3:
+49) and ``"xla"`` (B5: 24).  It builds the
 hand-written kernels from
 ``src/repro_torch/csrc`` with ``nvcc`` and then, one line per phase:
 
@@ -95,7 +105,13 @@ hand-written kernels from
    with ``post_ln1`` (and check-only with 5 slots), B3 at 256000 rows
    with the logit softcap (two of slot 2's logits the cap makes equal:
    the lower index must win), B5 at 32/16 on the ring with the softcap
-   (check-only on the global cache);
+   (check-only on the global cache); at SeamlessM4T's widths B1's MHA
+   mode at head dim 64 (and check-only at lengths on its 4 ranks' run
+   and 128-row tile edges, ``HD64_EDGE_LENS``), B3 at 256206 rows and B5
+   at 16/16 of 64; at InternVL2's B1 at 16/8, B2 at 2048 × 8192 gated
+   ``silu`` (and check-only with 5 slots), B3 at 92553 rows and B5 at
+   16/8 — both vocabularies no multiple of 16 rows, each head case with
+   a best row planted in the last, partial unit;
    check-only, the unfused paths' loose head
    (``models/layers.py:lm_head_logits``, no kernel of its own) on a
    random table of each path's shape (32000, 49152, 102400 and 256000
@@ -134,7 +150,13 @@ hand-written kernels from
    time; MoE DeepSeek-V2-Lite runs the
    RWKV-6 loop (prompts of 128 then 512 tokens, 32 then 64 new tokens)
    and checks no launch per prefill, 27 B4 and one B3 (and no B2) per
-   decode step on ``"pallas"`` and no launch at all on ``"xla"``;
+   decode step on ``"pallas"`` and no launch at all on ``"xla"``; the
+   modality models run it too (SeamlessM4T 128 + 32 and 512 + 64
+   tokens, InternVL2 320 + 32 and 768 + 64) with their frontend
+   embeddings passed to every prefill, no launch per prefill, and per
+   decode step 12 B1 and one B3 or 12 B5 (SeamlessM4T), 24 B1, 24 B2
+   and one B3 or 24 B5 (InternVL2), and nothing else; SeamlessM4T's
+   prefill writes the encoder's k/v into the state the graph reads;
    Gemma-2 serves the 12-request trace with two long requests
    (``LONG_REQUESTS``: a 4200-token prompt, whose prefill wraps the
    rings, and a 4080-token one that wraps them in decode), each checked
@@ -264,9 +286,15 @@ PATHS = (("llama2-7b", "pallas"),
          (MOE_PATH, "pallas"),             # as registered: 64 experts
          (MOE_PATH, "xla"),                # and its unfused MLA
          ("gemma2-27b", "pallas"),         # 32/16, rings, softcaps,
-         ("gemma2-27b", "xla"))            # post-norms, tied
+         ("gemma2-27b", "xla"),            # post-norms, tied
+         ("seamless-m4t-medium", "pallas"),  # encoder-decoder, MHA of 64
+         ("seamless-m4t-medium", "xla"),
+         ("internvl2-2b", "pallas"),       # patch embeddings spliced in,
+         ("internvl2-2b", "xla"))          # GQA 16/8, vocabulary 92553
 GEMMA = "gemma2-27b"
 RGEMMA = "recurrentgemma-9b"
+SEAMLESS = "seamless-m4t-medium"
+INTERNVL = "internvl2-2b"
 SLOTS = 8
 MAX_SEQ = 1024
 SEED = 0
@@ -279,7 +307,12 @@ TRACE_MAX_SEQ = {GEMMA: 4608}
 # MoE serves lockstep (the scheduler refuses it, as the reference's does)
 LOCKSTEP = {"rwkv6-3b": (MAX_SEQ, ((128, 32), (512, 64))),
             RGEMMA: (4096, ((128, 32), (2080, 32))),
-            MOE_PATH: (MAX_SEQ, ((128, 32), (512, 64)))}
+            MOE_PATH: (MAX_SEQ, ((128, 32), (512, 64))),
+            # the modality models serve lockstep (the scheduler refuses
+            # them, as the reference's does); InternVL2's prompts hold its
+            # 256 patch positions
+            SEAMLESS: (MAX_SEQ, ((128, 32), (512, 64))),
+            INTERNVL: (MAX_SEQ, ((320, 32), (768, 64)))}
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor rate
 F32_FLOPS = 67e12              # H100 SXM f32 on the CUDA cores
@@ -315,6 +348,19 @@ def say(phase: str, **kv) -> None:
 def randn(gen, shape, scale, dtype=torch.bfloat16):
     return (torch.randn(shape, generator=gen, device="cuda")
             * scale).to(dtype)
+
+
+def frontend_embeds(cfg, seed: int = SEED):
+    """A modality model's stub frontend output for the ``SLOTS`` slots,
+    ``[SLOTS, num_positions, feature_dim]`` bf16 N(0, 1) from ``seed``
+    (the reference's ``launch/serve.py:389`` draws them likewise); None
+    for a text model."""
+    if cfg.frontend is None:
+        return None
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    f = cfg.frontend
+    return randn(gen, (SLOTS, f.num_positions, f.feature_dim), 1.0)
 
 
 def close_bf16(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
@@ -471,6 +517,10 @@ B1_EDGE_LENS = [63, 64, 65, 255, 256, 257, 513, MAX_SEQ - 1]
 # a slot's edge (128, 256), one row inside a slot (512) or in a slot's
 # middle (384, 640, 768, 896), in 64-row tiles that stop at slot edges
 GQA_EDGE_LENS = [64, 64, 128, 192, 63, 65, 255, 193]
+# B1 at head dim 64 (SeamlessM4T-medium's 4 ranks, 128-row tiles): 3200
+# live rows cut into runs of 800 that start and end inside slots, and
+# lengths on 128-row tile edges ± 1
+HD64_EDGE_LENS = [127, 128, 129, 383, 384, 385, 641, MAX_SEQ - 1]
 
 
 def gqa_case(cfg, gen, lens=None, *, S=MAX_SEQ, ring=False,
@@ -751,7 +801,10 @@ def kernel_cases(path, cfg, backend):
     softcap — on Gemma-2 its 4096-row ring and (check-only) its global
     cache with the softcap, or, on RecurrentGemma, B6 at the prefill and
     the decode shape and B5 on a full ring; the unfused MLA path runs no
-    kernel (only its loose head is checked)."""
+    kernel (only its loose head is checked); on SeamlessM4T B1's MHA mode
+    at head dim 64 and B3 at 256206 rows (no B2: its FFN is unfused) or
+    B5 at 16/16 of 64; InternVL2 as the GQA paths (B1 at 2 query heads a
+    kv head, B2 at 2048 × 8192, B3 at 92553 rows; B5 at 16/8)."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED + 1)
     B, D, F, V = SLOTS, cfg.d_model, cfg.d_ff, cfg.vocab_size
@@ -770,6 +823,13 @@ def kernel_cases(path, cfg, backend):
                 ring_flash_case(cfg, gen, lens) for lens in RING_EDGE_LENS]
     elif backend == "xla" and cfg.mla is not None:
         cases = []
+    elif cfg.encoder is not None:
+        # SeamlessM4T: B1's MHA mode at head dim 64 (its edges check-only)
+        # and B3 on the 256206-row table on "pallas" — its FFN stays
+        # unfused, so no B2 —; B5 at 16/16 of 64 on "xla"
+        cases = ([gqa_case(cfg, gen), head_case(cfg, gen),
+                  gqa_case(cfg, gen, HD64_EDGE_LENS)]
+                 if backend == "pallas" else [flash_case(cfg, gen)])
     elif cfg.moe is not None:
         # B4 and B3 at the dense-MLA arm's shapes: its cases hold them
         cases = []
@@ -1063,12 +1123,14 @@ def check_graph(graph, want, step_replays):
 
 def decode_launches(cfg, backend):
     """Launches one decode step must make on an attention path: ``L`` of
-    the attention kernel, ``L`` of B2 (none with MoE) and one of B3 on
-    ``"pallas"``; ``L`` of B5 on ``"xla"`` (none for MLA)."""
+    the attention kernel, ``L`` of B2 (none with MoE or an encoder, whose
+    FFN stays unfused) and one of B3 on ``"pallas"``; ``L`` of B5 on
+    ``"xla"`` (none for MLA)."""
     if backend == "xla":
         return {} if cfg.mla is not None else {"flash_decode": cfg.n_layers}
     attn = "fused_mla_decode" if cfg.mla is not None else "fused_decode"
-    ffn = {} if cfg.moe is not None else {"fused_ffn": cfg.n_layers}
+    ffn = ({} if cfg.moe is not None or cfg.encoder is not None
+           else {"fused_ffn": cfg.n_layers})
     return {attn: cfg.n_layers, **ffn, "fused_head": 1}
 
 
@@ -1184,9 +1246,10 @@ def lockstep_launches(cfg, backend):
     RecurrentGemma one B6 per RG-LRU layer per prefill, and per step one
     B6 per RG-LRU layer and, per local-attention layer, one B5 on
     ``"xla"`` or one B1 and one B2 on ``"pallas"`` (there also one B3:
-    26 + 12 + 12 + 1 = 51); MoE DeepSeek-V2-Lite none per prefill and
-    ``decode_launches`` per step."""
-    if cfg.moe is not None:
+    26 + 12 + 12 + 1 = 51); MoE DeepSeek-V2-Lite and the modality models
+    none per prefill (it is torch and cuBLAS) and ``decode_launches`` per
+    step (SeamlessM4T 12 + 1 or 12, InternVL2 24 + 24 + 1 or 24)."""
+    if cfg.moe is not None or cfg.frontend is not None:
         return {}, decode_launches(cfg, backend)
     if cfg.block_pattern == (RWKV6,):
         return ({"rwkv6_scan": cfg.n_layers},
@@ -1207,14 +1270,14 @@ def serve_lockstep(path, cfg, eng):
     calls = {"prefill": [], "decode": []}
 
     def counted(fn, stage):
-        def run(p, st, tok):
+        def run(p, st, tok, *fe):
             before = tracecount.launches()
             replays = (tracecount.replays(), eng.decode_fn.replays)
             e0 = torch.cuda.Event(enable_timing=True)
             e1 = torch.cuda.Event(enable_timing=True)
             e0.record()
             t0 = time.perf_counter()
-            nxt, st = fn(p, st, tok)
+            nxt, st = fn(p, st, tok, *fe)
             host = 1e3 * (time.perf_counter() - t0)
             e1.record()
             e1.synchronize()
@@ -1232,6 +1295,7 @@ def serve_lockstep(path, cfg, eng):
 
     plan = LOCKSTEP[path][1]
     state, batches = eng.state, []
+    fe = frontend_embeds(cfg)
     tracecount.reset()
     t0 = time.perf_counter()
     for n_prompt, n_new in plan:
@@ -1240,7 +1304,7 @@ def serve_lockstep(path, cfg, eng):
         toks, state = generate(eng.params,
                                counted(eng.prefill_fn, "prefill"),
                                counted(eng.decode_fn, "decode"), state,
-                               prompts, n_new)
+                               prompts, n_new, fe)
         toks = toks.cpu().numpy()
         if toks.shape != (SLOTS, n_new) or toks.min() < 0 \
                 or toks.max() >= cfg.vocab_size:
@@ -1273,7 +1337,7 @@ def serve_lockstep(path, cfg, eng):
     # fresh state's (launches of this check are not counted)
     prompts, toks = batches[-1]
     fresh = init_decode_state(cfg, eng.scfg, device="cuda")
-    first, _ = eng.prefill_fn(eng.params["train"], fresh, prompts)
+    first, _ = eng.prefill_fn(eng.params["train"], fresh, prompts, fe)
     if not np.array_equal(first.cpu().numpy(), toks[:, 0]):
         raise AssertionError("the second prefill did not start afresh")
     dec = calls["decode"]
@@ -1300,7 +1364,8 @@ def serve_lockstep(path, cfg, eng):
 # ---------------------------------------------------------------------------
 # lockstep paths' forced-decode prompt: RWKV-6 its first batch's, and
 # RecurrentGemma (past the ring) and MoE DeepSeek-V2-Lite their second's
-FORCED_PROMPT = {"rwkv6-3b": 128, RGEMMA: 2080, MOE_PATH: 512}
+FORCED_PROMPT = {"rwkv6-3b": 128, RGEMMA: 2080, MOE_PATH: 512,
+                 SEAMLESS: 512, INTERNVL: 768}
 
 
 # the fill lengths of a path whose slots do not all take 32–512 tokens:
@@ -1325,7 +1390,7 @@ def fill_state(path, cfg, eng, state, rng):
                         ).astype(np.int32)
     if n_prompt:                            # lockstep: one prompt length
         _, state = eng.prefill_fn(eng.params["train"], state,
-                                  toks[:, :n_prompt])
+                                  toks[:, :n_prompt], frontend_embeds(cfg))
         return state
     long = lens > ALONE
     groups = [np.arange(SLOTS) == b for b in np.nonzero(long)[0]]
@@ -1617,7 +1682,9 @@ def step_weights(cfg, eng):
     its tail included) and the head table; on the unfused path the train
     tree's attention weights (MLA: ``wq``, ``wdkv``, ``wuk``, ``wuv``,
     ``wo``; on ``"pallas"`` B4 reads ``wproj`` in place of the last two)
-    and the ``lm_head`` (tied: ``embed``) the loose head reads."""
+    and the ``lm_head`` (tied: ``embed``) the loose head reads; with an
+    encoder also every layer's cross-attention ``wq`` and ``wo`` (its k
+    and v were projected at prefill: the step reads ``enc_kv``)."""
     serve = eng.params["serve"]
     table = (serve["head"].table if "head" in serve else
              serve["embed" if cfg.tie_embeddings else "lm_head"])
@@ -1639,6 +1706,9 @@ def step_weights(cfg, eng):
         block_w += tuple(t for t in (ffn.values() if isinstance(ffn, dict)
                                      else (ffn.w_in, ffn.w_gate, ffn.w_out))
                          if t is not None)
+    if cfg.encoder is not None:
+        cross = serve["cross_attn"]["attn"]
+        block_w += (cross["wq"], cross["wo"])
     return sum(t.numel() * t.element_size() for t in block_w + (table,))
 
 
@@ -1705,6 +1775,12 @@ def serve_path(path, cfg, backend, peers):
     weight_bytes = step_weights(cfg, eng)
     serve["step_weights_gb"] = round(weight_bytes / 1e9, 3)
     serve["weights_bound_ms"] = round(1e3 * weight_bytes / HBM_BYTES_PER_S, 3)
+    if "enc_kv" in eng.state:
+        # the encoder's k/v every step reads beside the weights
+        enc_bytes = tree_bytes(eng.state["enc_kv"])
+        serve["enc_kv_gb"] = round(enc_bytes / 1e9, 3)
+        serve["weights_and_enc_kv_bound_ms"] = round(
+            1e3 * (weight_bytes + enc_bytes) / HBM_BYTES_PER_S, 3)
     say("serve", **tag, **serve)
     say("serve", **tag, first_tokens=first)
     vs_eager = graph_vs_eager(path, cfg, eng)

@@ -7,12 +7,16 @@ and, on both backends, RecurrentGemma-9B (RG-LRU and local attention;
 lockstep serving), the GQA dense models
 Granite-8B (32/8 heads, tied embeddings) and Minitron-4B (24/8 heads, an
 ungated squared-ReLU FFN) and Gemma-2 27B (32/16 heads, local and global
-attention in turn, both softcaps, post-norms, tied embeddings)."""
+attention in turn, both softcaps, post-norms, tied embeddings), and the
+two modality models: SeamlessM4T-medium (an encoder over stub audio
+frames, cross-attended by every decoder layer) and InternVL2-2B (stub
+patch embeddings spliced into the prompt)."""
 from repro_torch.configs.base import (  # noqa: F401
     ATTN_GLOBAL, ATTN_LOCAL, RECURRENT, RWKV6,
     EncoderConfig, FrontendConfig, MLAConfig, MoEConfig, ModelConfig,
     get_config, reduced, register,
 )
 from repro_torch.configs import (deepseek_v2_lite, gemma2_27b,  # noqa: F401
-                                  granite_8b, llama2_7b, minitron_4b,
-                                  recurrentgemma_9b, rwkv6_3b)
+                                  granite_8b, internvl2_2b, llama2_7b,
+                                  minitron_4b, recurrentgemma_9b, rwkv6_3b,
+                                  seamless_m4t_medium)

@@ -15,9 +15,13 @@
   for attention-free ones (the fusion scope the paper targets does not
   apply, DESIGN.md §4) — so the dense MHA and GQA models (Llama2-7B,
   Granite-8B, Minitron-4B), Gemma-2 27B (local and global attention),
-  DeepSeek-V2-Lite (MoE or its dense-MLA arm) and RecurrentGemma-9B
+  DeepSeek-V2-Lite (MoE or its dense-MLA arm), RecurrentGemma-9B
   (its local-attention layers through B1 and B2, as in the reference)
-  resolve to the fused kernels.
+  and the modality models — SeamlessM4T-medium (its decoder's
+  self-attention through B1's MHA mode at ``head_dim`` 64; the
+  cross-attention and the FFN stay in torch and cuBLAS, as the
+  reference's stay in XLA) and InternVL2-2B (B1, B2, B3 once its prefill
+  has spliced the patch embeddings in) — resolve to the fused kernels.
 
 Every model the port registers serves on both backends.
 """
@@ -61,8 +65,9 @@ def resolve_serving(cfg: ModelConfig, backend: str, prepack
     ``"pallas"`` with prepack off on an attention model (B1's and B4's
     ``fuse_out=False``).  Dense MHA and GQA models, gated or ungated,
     tied or not, with local (sliding-window) layers or not (Gemma-2),
-    with RG-LRU layers (RecurrentGemma), and MLA models with a dense or
-    a MoE FFN serve on both backends."""
+    with RG-LRU layers (RecurrentGemma), with a frontend spliced into the
+    prompt (InternVL2-2B) or feeding an encoder (SeamlessM4T-medium), and
+    MLA models with a dense or a MoE FFN serve on both backends."""
     b = _backend_for(cfg, backend)
     pp = _prepack_for(b, prepack)
     if b == "pallas" and not pp and not cfg.is_attention_free:

@@ -5,7 +5,8 @@
 // (the Pallas kernel at its pallas_call, line 374) in the serving mode:
 // fused ln1, no bias, q_per_kv = nq / nkv query heads a kv head (1 = MHA;
 // GQA and MQA above), hd 128 — or hd 256 at MQA 16/1 (RecurrentGemma-9B's
-// local layers) —, on a linear cache or a sliding window over a ring
+// local layers), or hd 64 at MHA (SeamlessM4T-medium's decoder) —, on a
+// linear cache or a sliding window over a ring
 // cache (Gemma-2's and RecurrentGemma's local layers), with or without
 // the attention softcap.
 //
@@ -22,8 +23,10 @@
 // CTAs): one cluster for all 16 would need ~740 KB of shared memory for
 // its wqkv ring, and 8 CTAs could not stream the layer; each of the 8
 // clusters projects the kv head's k and v again and attends the same
-// rows (the second reads mostly hit L2, PERF.md §6) —, the grid and the
-// buffers laid out by query-head group.
+// rows (the second reads mostly hit L2, PERF.md §6); at hd 64 and MHA
+// H = 1, one cluster a head (SeamlessM4T-medium's 16/16 at D 1024: 16
+// clusters of 4, 64 CTAs, 256 rows a rank) —, the grid and the buffers
+// laid out by query-head group.
 // Rank r of the cluster of query heads qb .. qb + H − 1 (kv head g)
 //   1. normalizes x for all B slots (the sum of squares over the whole
 //      row, redundant per rank: 64 KB from L2) and keeps its rows
@@ -35,7 +38,8 @@
 //      two heads: 16-byte copies, the other tiles in flight while one is
 //      computed) and multiplies them on the tensor cores (mma.sync
 //      m16n8k16; H = 1: the B ≤ 8 normed rows, exact in bf16, as the
-//      16-row A operand, each warp (H + 2)·hd / 8 columns; H > 1: the
+//      16-row A operand, each warp (H + 2)·hd / 8 columns — 24 at hd 64,
+//      three n tiles, the last loaded alone; H > 1: the
 //      weight tile as A and the slots as n, so no MMA row is padding);
 //   3. ClusterReduce: the [B, (H + 2)·hd] f32 partials are summed in rank
 //      order, each rank its slice over DSMEM (cluster::sum), then gathered
@@ -53,7 +57,8 @@
 //      3); a tile holds one slot's rows, which that slot's H query heads
 //      attend: each warp scores 32 / (hd / 32) keys of a tile (hd / 32
 //      lanes a key: 8 keys of a 64-row tile at hd 128, 4 of a 32-row one
-//      at hd 256) for all H heads (each K and V element read once from
+//      at hd 256, 16 of a 128-row one at hd 64) for all H heads (each K
+//      and V element read once from
 //      shared memory for the H heads) and keeps its own online softmax
 //      per head from m = -1e30, the eight warps' partials merging in warp
 //      order at a slot's end (no barrier inside a tile);
@@ -96,9 +101,9 @@ constexpr int TRW = 16;        // wqkv rows a tile: one k16 step
 // 1024-column tiles leave room for no more beside the other buffers
 template <int H, int HD>
 constexpr int WST = HD == 256 && H > 1 ? 3 : 5;
-// lanes that score one cache row (each 32 of its hd elements): 4 at hd
-// 128, 8 at hd 256; a warp scores 32 / LPK rows of a tile, so a tile
-// holds NT / LPK rows: 64 at hd 128, 32 at hd 256
+// lanes that score one cache row (each 32 of its hd elements): 2 at hd
+// 64, 4 at hd 128, 8 at hd 256; a warp scores 32 / LPK rows of a tile, so
+// a tile holds NT / LPK rows: 128 at hd 64, 64 at hd 128, 32 at hd 256
 template <int HD>
 constexpr int LPK = HD / 32;
 template <int HD>
@@ -349,10 +354,16 @@ fused_decode_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wqkv,
                      + warp * NTW * 8 + (mi >> 1) * 8;
 #pragma unroll
       for (int n = 0; n < NTW; n += 2) {
-        uint32_t bq[4];
-        ldsm_x4_t(tb + n * 8, bq);
-        mma_bf16(cw[n], af, bq[0], bq[1]);
-        mma_bf16(cw[n + 1], af, bq[2], bq[3]);
+        if (n + 1 < NTW) {
+          uint32_t bq[4];
+          ldsm_x4_t(tb + n * 8, bq);
+          mma_bf16(cw[n], af, bq[0], bq[1]);
+          mma_bf16(cw[n + 1], af, bq[2], bq[3]);
+        } else {                     // an odd last n tile (hd 64: NTW 3)
+          uint32_t bq[2];
+          ldsm_x2_t(tb + n * 8, bq);
+          mma_bf16(cw[n], af, bq[0], bq[1]);
+        }
       }
     }
     cp_async_wait<0>();
@@ -467,13 +478,14 @@ fused_decode_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wqkv,
 
   // ---- phase 4: online softmax over this rank's share of each slot ----
   // warp-split: warp w scores keys KW·w .. KW·w + KW − 1 of a tile (LK
-  // lanes a key: KW = 8 at hd 128, 4 at hd 256) for the H heads and keeps
+  // lanes a key: KW = 16 at hd 64, 8 at hd 128, 4 at hd 256) for the H
+  // heads and keeps
   // its own running m, l and acc per head (its lane's VL = hd / 32
   // columns), so a tile needs no barrier of its own; at a slot's last
   // tile the eight warps' partials merge in warp order
   constexpr int LK = LPK<HD>, KW = 32 / LK, VL = HD / 32;
-  static_assert(TA == KW * NW && HD == LK * 32 && (VL == 4 || VL == 8),
-                "warp-split geometry");
+  static_assert(TA == KW * NW && HD == LK * 32 &&
+                (VL == 2 || VL == 4 || VL == 8), "warp-split geometry");
   float* wpart = reinterpret_cast<float*>(smem + L.xs());   // [NW][H][4 + HD]
   // hd 256: this lane's q columns of the slot's H heads in registers,
   // loaded when the slot changes (its loop was issue-bound on the
@@ -571,8 +583,15 @@ fused_decode_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wqkv,
       const int row = warp * KW + kk;
       if (row >= nv) break;
       float vv[VL];
-      if constexpr (VL == 4) load_bf16x4_smem(vs + row * RS + lane * 4, vv);
-      else smem_bf16x8(vs + row * RS + lane * 8, vv);
+      if constexpr (VL == 2) {
+        const uint32_t u2 = lds32(vs + row * RS + lane * 2);
+        vv[0] = lo_bf(u2);
+        vv[1] = hi_bf(u2);
+      } else if constexpr (VL == 4) {
+        load_bf16x4_smem(vs + row * RS + lane * 4, vv);
+      } else {
+        smem_bf16x8(vs + row * RS + lane * 8, vv);
+      }
 #pragma unroll
       for (int h = 0; h < H; ++h) {
         const float pk = __shfl_sync(0xffffffffu, pv[h], kk * LK);
@@ -585,10 +604,16 @@ fused_decode_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wqkv,
       for (int h = 0; h < H; ++h) {
         float* wp = wpart + (warp * H + h) * (4 + HD);
         if (lane == 0) { wp[0] = wm[h]; wp[1] = wl[h]; }
+        if constexpr (VL == 2) {
+          *reinterpret_cast<float2*>(wp + 4 + lane * 2) =
+              make_float2(wacc[h][0], wacc[h][1]);
+        } else {
 #pragma unroll
-        for (int u = 0; u < VL; u += 4)
-          *reinterpret_cast<float4*>(wp + 4 + lane * VL + u) =
-              make_float4(wacc[h][u], wacc[h][u + 1], wacc[h][u + 2], wacc[h][u + 3]);
+          for (int u = 0; u < VL; u += 4)
+            *reinterpret_cast<float4*>(wp + 4 + lane * VL + u) =
+                make_float4(wacc[h][u], wacc[h][u + 1], wacc[h][u + 2],
+                            wacc[h][u + 3]);
+        }
         wm[h] = -1e30f;
         wl[h] = 0.f;
 #pragma unroll
@@ -917,10 +942,12 @@ int launch_b(int B, int C, const bf16* x, const bf16* wqkv, const bf16* wo,
 // The shared memory a CTA may use (227 KB on an H100).
 constexpr size_t SMEM_MAX = 232448;
 
-// The instances: (H, hd) = (q_per_kv, 128) for q_per_kv 1-4, and (2, 256)
-// for q_per_kv 16 (RecurrentGemma-9B: 8 clusters of two query heads)
+// The instances: (H, hd) = (q_per_kv, 128) for q_per_kv 1-4, (2, 256)
+// for q_per_kv 16 (RecurrentGemma-9B: 8 clusters of two query heads) and
+// (1, 64) for MHA (SeamlessM4T-medium: a cluster a head)
 bool instance_ok(int qpk, int hd, int H) {
   if (hd == 128) return H == qpk && H >= 1 && H <= 4;
+  if (hd == 64) return qpk == 1 && H == 1;
   return hd == 256 && qpk == 16 && H == 2;
 }
 
@@ -933,6 +960,7 @@ bool plan_ok(int nq, int nkv, int hd, int D, int C, int H) {
         (H == 2 ? rows_ok<2>(D / C) : rows_ok<1>(D / C))))
     return false;
   const size_t smem = hd == 256 ? smem_bytes<BP, 2, 256>(D, C)
+                    : hd == 64 ? smem_bytes<BP, 1, 64>(D, C)
                     : H == 1 ? smem_bytes<BP, 1, 128>(D, C)
                     : H == 2 ? smem_bytes<BP, 2, 128>(D, C)
                     : H == 3 ? smem_bytes<BP, 3, 128>(D, C)
@@ -956,6 +984,7 @@ extern "C" int fused_decode_launch(
     (const float*)sinv, (float*)o, (bf16*)k_new, (bf16*)v_new, (float*)m,        \
     (float*)l, D, S, nq, nkv, window, scale, eps, cap, (cudaStream_t)stream
   if (hd == 256) return launch_b<2, 256>(ARGS);
+  if (hd == 64) return launch_b<1, 64>(ARGS);
   switch (H) {
     case 1: return launch_b<1, 128>(ARGS);
     case 2: return launch_b<2, 128>(ARGS);

@@ -4,8 +4,9 @@ per-head Output-Projection (``fuse_out="partial_o"``).
 Replaces ``repro/kernels/fused_decode/fused_decode.py:fused_decode_attention``
 (``pallas_call`` at line 374), in the mode the serving path runs: fused
 ``ln1``, no bias, ``fuse_out="partial_o"``, MHA, GQA or MQA up to 4
-query heads a kv head at ``head_dim`` 128, and MQA 16/1 at ``head_dim``
-256 (RecurrentGemma-9B's local layers), on a linear cache or — the
+query heads a kv head at ``head_dim`` 128, MQA 16/1 at ``head_dim``
+256 (RecurrentGemma-9B's local layers) and MHA at ``head_dim`` 64
+(SeamlessM4T-medium's decoder), on a linear cache or — the
 local layers of Gemma-2 and RecurrentGemma — a sliding window over a
 ring cache, with or without the attention softcap.  The other modes
 (other ``head_dim``/``q_per_kv`` pairs, ``bqkv``, ``pos_base``,
@@ -32,7 +33,9 @@ were slower, PERF.md §6.  At ``head_dim`` 256 and MQA 16/1
 SMs, so the kv head's heads split into 8 clusters of 8 CTAs holding 2
 heads each (64 CTAs, 512 rows a rank): each cluster projects the kv
 head's k and v again and attends the same rows, reads that mostly hit
-L2 (the plans measured: PERF.md §6).
+L2 (the plans measured: PERF.md §6).  At ``head_dim`` 64 and MHA
+(SeamlessM4T-medium, 16/16 at ``D`` 1024) one cluster a head: 16 clusters
+of 4 CTAs, 64 CTAs of 256 rows.
 Each rank projects its ``D/C`` rows of the cluster's ``wqkv`` columns
 (its query heads, then the kv head's k and v), the partials are summed over
 distributed shared memory in rank order, each rank attends its share of
@@ -74,13 +77,14 @@ _TARGET_CTAS = 128   # about one CTA per SM of an H100 (132)
 _WAVE_CLUSTERS = _build.WAVE_CTAS // _MAX_CLUSTER   # clusters of 8 at once
 # the kernel's instances: head dim → {q_per_kv: query heads a cluster}
 # (hd 128: a kv head's 1-4 query heads in one cluster; hd 256: MQA 16/1,
-# RecurrentGemma-9B's, in clusters of two query heads)
-_HEADS = {128: {1: 1, 2: 2, 3: 3, 4: 4}, 256: {16: 2}}
+# RecurrentGemma-9B's, in clusters of two query heads; hd 64: MHA,
+# SeamlessM4T-medium's, a cluster a head)
+_HEADS = {64: {1: 1}, 128: {1: 1, 2: 2, 3: 3, 4: 4}, 256: {16: 2}}
 # wqkv rows a rank may hold, by (head dim, query heads a cluster): csrc
 # MAX_NTO · 64 — 1152 for two heads (Gemma-2 27B's 4608 over 4 ranks),
 # else 1024 — and at hd 256 1024, what the shared memory leaves room for
-_MAX_ROWS = {(128, 1): 1024, (128, 2): 1152, (128, 3): 1024,
-             (128, 4): 1024, (256, 2): 1024}
+_MAX_ROWS = {(64, 1): 1024, (128, 1): 1024, (128, 2): 1152,
+             (128, 3): 1024, (128, 4): 1024, (256, 2): 1024}
 
 
 def _rows_ok(rows: int, heads: int, head_dim: int = 128) -> bool:
@@ -115,7 +119,8 @@ def cluster_plan(q_heads: int, kv_heads: int, d_model: int,
     """``(C, H)`` from the shapes alone: ``H`` query heads a cluster — at
     ``head_dim`` 128 a kv head's ``q_per_kv`` (MHA 1, Gemma-2 27B 2,
     Minitron-4B 3, Granite-8B 4), at 256 two of MQA 16/1's sixteen
-    (RecurrentGemma-9B: 8 clusters) —, ``C`` CTAs a cluster
+    (RecurrentGemma-9B: 8 clusters), at 64 MHA's one (SeamlessM4T-medium:
+    16 clusters of 4) —, ``C`` CTAs a cluster
     (:func:`cluster_size` of the ``q_heads / H`` clusters); ``(0, 0)``
     where no plan fits (another ``q_per_kv`` or head dim: ROADMAP.md)."""
     if kv_heads < 1 or q_heads % kv_heads:

@@ -20,7 +20,13 @@ called directly on the card.  Models with recurrent layers
 take a per-slot insert).  MoE models (DeepSeek-V2-Lite as registered)
 are served lockstep too: their ``admit_fn`` runs, as the reference's
 does, but ``serving/scheduler.py:SlotScheduler`` refuses them (the
-experts' capacity couples the slots).
+experts' capacity couples the slots).  The modality models
+(SeamlessM4T-medium, InternVL2-2B) are served lockstep: ``prefill_fn``
+and :func:`generate` take the stub frontend's embeddings with the
+prompts, the encoder-decoder's ``admit_fn`` raises (its encoder's k/v
+are the whole batch's, as the reference's prefill asserts), a VLM's
+raises for want of the embeddings (the reference's admit passes none),
+and ``SlotScheduler`` refuses both, as the reference asserts.
 """
 from __future__ import annotations
 
@@ -50,7 +56,8 @@ class EngineHandle(NamedTuple):
     and ``wv`` being views of the packed ``wqkv``; on ``"xla"`` it is the
     train tree).
 
-    * ``prefill_fn(params["train"], state, tokens [B, S])``;
+    * ``prefill_fn(params["train"], state, tokens [B, S], fe=None)`` —
+      ``fe [B, P, F]``, the frontend's embeddings of a modality model;
     * ``decode_fn(params["serve"], state, tokens [B])`` — on the card a
       :class:`~repro_torch.serving.step_graph.StepGraph`, bound to
       ``params["serve"]`` and to ``state``'s caches;
@@ -103,8 +110,8 @@ def build_engine_full(cfg: ModelConfig, *, max_seq: int, batch_global: int,
                        check_finite=opt.check_finite)
     state = init_decode_state(cfg, scfg, device=dev)
 
-    def prefill_fn(p, st, tokens):
-        return prefill(cfg, scfg, p, st, tokens)
+    def prefill_fn(p, st, tokens, fe=None):
+        return prefill(cfg, scfg, p, st, tokens, fe)
 
     def decode_fn(p, st, tokens):
         return decode_step(cfg, scfg, p, st, tokens)
@@ -132,12 +139,13 @@ def build_engine_full(cfg: ModelConfig, *, max_seq: int, batch_global: int,
                         state, scfg, cfg, batch_global)
 
 
-def generate(params, pf, dec, state, prompts, n_new: int):
-    """prompts ``[B, S]`` → greedy tokens ``[B, n_new]`` and the state: a
+def generate(params, pf, dec, state, prompts, n_new: int, fe=None):
+    """prompts ``[B, S]`` (and a modality model's frontend embeddings
+    ``fe [B, P, F]``) → greedy tokens ``[B, n_new]`` and the state: a
     lockstep batch, one prefill of every slot and ``n_new − 1`` decode
     steps (the reference's ``generate``; the one serving loop of the
-    recurrent and the MoE models)."""
-    nxt, state = pf(params["train"], state, prompts)
+    recurrent, the MoE and the modality models)."""
+    nxt, state = pf(params["train"], state, prompts, fe)
     out = [nxt]
     for _ in range(n_new - 1):
         nxt, state = dec(params["serve"], state, nxt)

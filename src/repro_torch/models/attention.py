@@ -73,10 +73,12 @@ def _flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def attention_train(p: dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
-                    *, return_kv: bool = False
+                    *, causal: bool = True, return_kv: bool = False
                     ) -> Tuple[torch.Tensor,
                                Optional[Tuple[torch.Tensor, torch.Tensor]]]:
-    """Dense GQA attention block over a full sequence (prefill)."""
+    """Dense GQA attention block over a full sequence (prefill); with
+    ``causal=False`` bidirectional, still with RoPE (the encoder's,
+    ``attention.py:135``)."""
     B, S, D = x.shape
     q_loc, hd = p["wq"].shape[1], p["wq"].shape[2]
     kv_loc = p["wk"].shape[1]
@@ -91,7 +93,7 @@ def attention_train(p: dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
     k = apply_rope(k, cos, sin)
     kv_out = (k, v) if return_kv else None
     qg = q.reshape(B, S, kv_loc, qpk, hd)
-    out = _flash(qg, k, v, q_offset=0, causal=True, window=window,
+    out = _flash(qg, k, v, q_offset=0, causal=causal, window=window,
                  cap=cfg.attn_softcap, scale=1.0 / math.sqrt(hd))
     y = out.reshape(B, S, q_loc * hd) @ p["wo"]
     return y, kv_out

@@ -25,12 +25,22 @@ Parameter tree (the train layout; leaves are tensors):
   fields, ``models/rwkv6.py``) and no ``attn`` or ``ffn``;
 * ``tail``: the layers past the last whole group (RecurrentGemma-9B's
   38 = 12·3 + 2), one unstacked block dict each, as the reference's
-  ``tail`` list; empty for the other models.
+  ``tail`` list; empty for the other models;
+* with a frontend (SeamlessM4T-medium, InternVL2-2B) ``frontend_proj
+  [F, D]``, which takes the stub frontend's ``[B, P, F]`` embeddings to
+  the model width;
+* with an encoder (SeamlessM4T-medium) ``encoder``: one block dict
+  stacked over the encoder's layers (``ln1``/``ln2``, ``attn`` with the
+  encoder's heads of ``D / n_heads``, ``ffn``), ``enc_final_norm [D]``,
+  and ``cross_attn``: ``ln [L, D]`` and ``attn`` (``wq [L, D, q, hd]``,
+  ``wk``/``wv [L, D, kv, hd]``, ``wo [L, q·hd, D]``), one per decoder
+  layer (``transformer.py:193–219``).
 """
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -53,8 +63,13 @@ def _check_supported(cfg: ModelConfig) -> None:
     (RecurrentGemma, Gemma-2), with dense FFNs (gated or not) or MoE FFNs
     (DeepSeek-V2-Lite's 64 experts), tied embeddings or not, post-norms
     on attention models or not (Gemma-2), and the all-RWKV-6 pattern
-    (RWKV-6 3B).  q/k/v biases, encoders and frontends are later slices
-    (ROADMAP.md)."""
+    (RWKV-6 3B); a frontend that splices its embeddings into the prompt
+    (InternVL2-2B) or feeds an encoder whose output every decoder layer
+    cross-attends (SeamlessM4T-medium: global attention, dense FFNs, no
+    post-norms).  q/k/v biases are a later slice (ROADMAP.md); an encoder
+    without a frontend has no input (``encode`` projects the frontend's
+    embeddings), and an encoder beside other layer kinds, MLA or MoE is a
+    combination no registered model has."""
     kinds = set(cfg.layer_kinds)
     if RWKV6 in kinds:
         if (cfg.block_pattern != (RWKV6,) or cfg.encoder or cfg.frontend
@@ -69,9 +84,15 @@ def _check_supported(cfg: ModelConfig) -> None:
             f"{cfg.name}: post-norms beside RG-LRU layers (no registered "
             "model has them; ROADMAP item 10 ported Gemma-2's, on "
             "attention layers)")
-    if cfg.encoder or cfg.frontend:
+    if cfg.encoder is not None and (
+            cfg.frontend is None or kinds != {ATTN_GLOBAL}
+            or cfg.mla is not None or cfg.moe is not None
+            or cfg.use_post_norm):
         raise NotImplementedError(
-            f"{cfg.name}: encoders and frontends are ROADMAP item 14")
+            f"{cfg.name}: the port runs an encoder fed by a frontend beside "
+            "global-attention decoder layers with dense FFNs and no "
+            "post-norms (SeamlessM4T-medium); no registered model has "
+            "another combination")
     if cfg.qkv_bias or (cfg.mla is not None and kinds != {ATTN_GLOBAL}):
         raise NotImplementedError(
             f"{cfg.name}: q/k/v biases (ROADMAP item 11, with qwen2-72b) "
@@ -95,7 +116,10 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda",
     ``init_logical_block`` (:133–135).  RG-LRU: ``rglru_init``'s scales
     with the model's heads as gate blocks.  RWKV-6: ``rwkv6_init``'s
     scales per layer, zero ``ln1``/``ln2``, an untied ``lm_head``.  With
-    tied embeddings there is no ``lm_head``."""
+    tied embeddings there is no ``lm_head``.  Frontend: ``frontend_proj``
+    at 1/√F; encoder blocks at the decoder's scales with the encoder's
+    heads (``init_logical_encoder_block``), cross-attention at the
+    decoder attention's (``transformer.py:193–219``)."""
     _check_supported(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
@@ -167,6 +191,29 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda",
         params["lm_head"] = dense((cfg.vocab_size, d), s_in)
     params.update(final_norm=torch.zeros((d,), device=dev), blocks=blocks,
                   tail=tail)
+    if cfg.frontend is not None:
+        f_dim = cfg.frontend.feature_dim
+        params["frontend_proj"] = dense((f_dim, d), 1.0 / math.sqrt(f_dim))
+    if cfg.encoder is not None:
+        e = cfg.encoder
+        lead, ehd, eF = (e.n_layers,), d // e.n_heads, e.d_ff
+        ffn = {"w_in": dense(lead + (d, eF), s_in)}
+        if cfg.ffn_gated:
+            ffn["w_gate"] = dense(lead + (d, eF), s_in)
+        ffn["w_out"] = dense(lead + (eF, d), 1.0 / math.sqrt(eF))
+        params["encoder"] = {
+            "ln1": torch.zeros(lead + (d,), device=dev),
+            "ln2": torch.zeros(lead + (d,), device=dev),
+            "attn": {"wq": dense(lead + (d, e.n_heads, ehd), s_in),
+                     "wk": dense(lead + (d, e.n_kv_heads, ehd), s_in),
+                     "wv": dense(lead + (d, e.n_kv_heads, ehd), s_in),
+                     "wo": dense(lead + (e.n_heads * ehd, d),
+                                 1.0 / math.sqrt(e.n_heads * ehd))},
+            "ffn": ffn}
+        params["enc_final_norm"] = torch.zeros((d,), device=dev)
+        params["cross_attn"] = {
+            "ln": torch.zeros((L, d), device=dev),
+            "attn": block(ATTN_GLOBAL, (L,))["attn"]}
     return params
 
 
@@ -222,7 +269,9 @@ def from_reference_params(cfg: ModelConfig, tree: Dict[str, Any], *,
         return _leaf_to_torch(node[0], dev)
 
     keys = ("embed", "final_norm", "blocks", "tail") + (
-        () if cfg.tie_embeddings else ("lm_head",))
+        () if cfg.tie_embeddings else ("lm_head",)) + tuple(
+        k for k in ("frontend_proj", "encoder", "enc_final_norm",
+                    "cross_attn") if k in tree)
     out = conv({k: tree[k] for k in keys})
     for k in ("embed", "lm_head"):
         if k in out:
@@ -233,6 +282,13 @@ def from_reference_params(cfg: ModelConfig, tree: Dict[str, Any], *,
 # ---------------------------------------------------------------------------
 # Forward (train / prefill)
 # ---------------------------------------------------------------------------
+def _pick(node, g):
+    """Layer ``g`` of a stacked dict of tensors, as views."""
+    if isinstance(node, dict):
+        return {k: _pick(v, g) for k, v in node.items()}
+    return node[g]
+
+
 def layer_params(params: Dict[str, Any], cfg: ModelConfig
                  ) -> List[Dict[str, Any]]:
     """Per-layer views of the stacked block tree, in layer order (the
@@ -240,24 +296,33 @@ def layer_params(params: Dict[str, Any], cfg: ModelConfig
     period = len(cfg.block_pattern)
     n_groups = cfg.n_layers // period
     out: List[Dict[str, Any]] = []
-
-    def pick(node, g):
-        if isinstance(node, dict):
-            return {k: pick(v, g) for k, v in node.items()}
-        return node[g]
-
     for g in range(n_groups):
         for p in range(period):
-            out.append(pick(params["blocks"][p], g))
+            out.append(_pick(params["blocks"][p], g))
     return out + list(params["tail"])
 
 
+def cross_params(params: Dict[str, Any], cfg: ModelConfig
+                 ) -> List[Optional[Dict[str, Any]]]:
+    """Per-layer views of ``cross_attn``, parallel to
+    :func:`layer_params`; ``None`` for every layer of a model without an
+    encoder."""
+    if cfg.encoder is None:
+        return [None] * cfg.n_layers
+    return [_pick(params["cross_attn"], i) for i in range(cfg.n_layers)]
+
+
 def apply_block(cfg: ModelConfig, blk: Dict[str, Any], x: torch.Tensor, *,
-                kind: str = ATTN_GLOBAL, return_kv: bool = False):
+                kind: str = ATTN_GLOBAL, return_kv: bool = False,
+                enc_out: Optional[torch.Tensor] = None,
+                cross_blk: Optional[Dict[str, Any]] = None):
     """One layer of the train-path forward.  With ``return_kv`` the
     second result is what prefill caches: ``(k, v)`` of GQA attention,
     or MLA's latent entries ``[B, S, l + rope]`` (None for RWKV-6 and
-    RG-LRU, whose prefill states come from ``serving/prefill.py``)."""
+    RG-LRU, whose prefill states come from ``serving/prefill.py``).
+    With ``enc_out [B, P, D]`` and ``cross_blk`` the layer cross-attends
+    the encoder's output between the self-attention's residual add and
+    ``ln2`` (``transformer.py:494–497``)."""
     eps = cfg.norm_eps
     if "rwkv" in blk:                  # transformer.py:473–479
         return rwkv_mod.rwkv6_block(blk["rwkv"], x, cfg.rwkv_head_dim,
@@ -273,6 +338,10 @@ def apply_block(cfg: ModelConfig, blk: Dict[str, Any], x: torch.Tensor, *,
         a, kv = attn_mod.attention_train(blk["attn"], h, cfg, kind,
                                          return_kv=return_kv)
     x = x + post_norm(blk, "post_ln1", a, eps)
+    if cross_blk is not None and enc_out is not None:
+        x = x + cross_attention(cross_blk["attn"],
+                                rms_norm(x, cross_blk["ln"], eps), enc_out,
+                                cfg)
     f = block_ffn(cfg, blk["ffn"], rms_norm(x, blk["ln2"], eps))
     return x + post_norm(blk, "post_ln2", f, eps), kv
 
@@ -295,10 +364,89 @@ def block_ffn(cfg: ModelConfig, ffn: Dict[str, Any], h: torch.Tensor
     return ffn_apply(ffn, h, cfg.ffn_act)
 
 
-def forward(cfg: ModelConfig, params: Dict[str, Any], tokens: torch.Tensor
-            ) -> torch.Tensor:
-    """Tokens [B, S] → final normed hidden states [B, S, D]."""
-    x = embed_tokens(cfg, params["embed"], tokens)
-    for kind, blk in zip(cfg.layer_kinds, layer_params(params, cfg)):
-        x, _ = apply_block(cfg, blk, x, kind=kind)
+def cross_attention(p: Dict[str, torch.Tensor], x: torch.Tensor,
+                    enc_out: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Decoder cross-attention over a whole sequence (train and prefill,
+    ``transformer.py:507``): q from ``x [B, S, D]``, k and v projected
+    from ``enc_out [B, P, D]``, no RoPE and no mask, every query row
+    attending all ``P`` frames."""
+    B, S, _ = x.shape
+    q_loc, hd = p["wq"].shape[1], p["wq"].shape[2]
+    kv_loc = p["wk"].shape[1]
+    q = torch.einsum("bsd,dqh->bsqh", x, p["wq"])
+    k = torch.einsum("bpd,dkh->bpkh", enc_out, p["wk"])
+    v = torch.einsum("bpd,dkh->bpkh", enc_out, p["wv"])
+    qg = q.reshape(B, S, kv_loc, q_loc // kv_loc, hd)
+    out = attn_mod._flash(qg, k, v, q_offset=0, causal=False, window=0,
+                          cap=0.0, scale=1.0 / math.sqrt(hd))
+    return out.reshape(B, S, q_loc * hd) @ p["wo"]
+
+
+def _enc_view(cfg: ModelConfig) -> ModelConfig:
+    """Config view of the encoder blocks (``transformer.py:538``): the
+    encoder's heads of ``d_model / n_heads``, no softcap, no bias, no
+    MLA."""
+    e = cfg.encoder
+    return dataclasses.replace(cfg, n_heads=e.n_heads, n_kv_heads=e.n_kv_heads,
+                               attn_softcap=0.0, qkv_bias=False, mla=None,
+                               head_dim=cfg.d_model // e.n_heads)
+
+
+def encode(cfg: ModelConfig, params: Dict[str, Any],
+           frontend_embeds: torch.Tensor) -> torch.Tensor:
+    """The encoder stack over the stub frontend's embeddings ``[B, P, F]``
+    → ``[B, P, D]`` (``transformer.py:547``): the projection, then per
+    block bidirectional attention (RoPE, no mask) and the FFN, each with
+    its residual add, then ``enc_final_norm``."""
+    if frontend_embeds is None:
+        raise ValueError(f"{cfg.name}: the encoder's frontend embeddings "
+                         "are required")
+    proj = params["frontend_proj"]
+    x = frontend_embeds.to(proj.dtype) @ proj
+    ecfg = _enc_view(cfg)
+    eps = cfg.norm_eps
+    for i in range(cfg.encoder.n_layers):
+        blk = _pick(params["encoder"], i)
+        a, _ = attn_mod.attention_train(blk["attn"],
+                                        rms_norm(x, blk["ln1"], eps), ecfg,
+                                        ATTN_GLOBAL, causal=False)
+        x = x + a
+        x = x + ffn_apply(blk["ffn"], rms_norm(x, blk["ln2"], eps),
+                          cfg.ffn_act)
+    return rms_norm(x, params["enc_final_norm"], eps)
+
+
+def splice_frontend(cfg: ModelConfig, params: Dict[str, Any],
+                    x: torch.Tensor, frontend_embeds) -> torch.Tensor:
+    """A VLM's prompt embeddings ``x [B, S, D]`` with the first ``P``
+    replaced by the projected frontend embeddings ``[B, P, F]``
+    (``transformer.py:596–600``); ``x`` itself on a model without a
+    frontend, or whose frontend feeds an encoder.  The prompt must hold
+    the ``P`` positions."""
+    if cfg.frontend is None or cfg.encoder is not None:
+        return x
+    if frontend_embeds is None:
+        raise ValueError(f"{cfg.name}: the frontend's embeddings "
+                         f"[B, {cfg.frontend.num_positions}, "
+                         f"{cfg.frontend.feature_dim}] are required")
+    fe = frontend_embeds.to(x.dtype) @ params["frontend_proj"]
+    if x.shape[1] < fe.shape[1]:
+        raise ValueError(f"{cfg.name}: a prompt of {x.shape[1]} tokens "
+                         f"cannot hold the frontend's {fe.shape[1]} "
+                         "positions")
+    return torch.cat([fe, x[:, fe.shape[1]:]], dim=1)
+
+
+def forward(cfg: ModelConfig, params: Dict[str, Any], tokens: torch.Tensor,
+            frontend_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Tokens [B, S] (and the frontend's embeddings ``[B, P, F]`` on a
+    model with a frontend) → final normed hidden states [B, S, D]."""
+    x = splice_frontend(cfg, params, embed_tokens(cfg, params["embed"],
+                                                  tokens), frontend_embeds)
+    enc_out = (encode(cfg, params, frontend_embeds)
+               if cfg.encoder is not None else None)
+    for kind, blk, cross in zip(cfg.layer_kinds, layer_params(params, cfg),
+                                cross_params(params, cfg)):
+        x, _ = apply_block(cfg, blk, x, kind=kind, enc_out=enc_out,
+                           cross_blk=cross)
     return rms_norm(x, params["final_norm"], cfg.norm_eps)

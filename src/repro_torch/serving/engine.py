@@ -55,6 +55,18 @@ calls fused (51 at full depth), ``L`` unfused.  Its RG-LRU state is
 ``h`` and the conv tail of every recurrent layer; it is served lockstep
 like RWKV-6.
 
+On SeamlessM4T-medium (an encoder-decoder) prefill encodes the stub
+frontend's frames once and writes every decoder layer's cross-attention
+k and v into ``state["enc_kv"]``; a decode step's layer is then the
+self-attention (B1 with its fused ``ln1`` on ``"pallas"``, the unfused
+layer around B5 on ``"xla"``), ``x + a``, :func:`_cross_decode` over all
+``P`` frames in torch and cuBLAS (the reference computes it in XLA
+einsums, outside any Pallas kernel), and the unfused FFN on both
+backends (the reference's ``decode_block`` never takes the fused tail
+beside an encoder, ``engine.py:428``): ``L + 1`` kernel calls fused,
+``L`` unfused.  InternVL2-2B is a GQA decoder once its prefill has
+spliced the patch embeddings into the prompt.
+
 Decode is ragged on attention models: ``state["cache_lens"] [B]`` lets
 every slot advance on its own, and ``−1`` marks a free slot (no KV
 write, no attention work, frozen position).  The KV caches and the
@@ -64,6 +76,7 @@ those tensors with the state returned.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, NamedTuple, Tuple
 
@@ -169,7 +182,10 @@ def init_decode_state(cfg: ModelConfig, scfg: ServeConfig, *,
     RWKV-6 an ``RWKV6State``, ``s [G, B, H, hd, hd]`` f32 and
     ``x_prev_t``/``x_prev_c [G, B, D]`` bf16; for RG-LRU an
     ``RGLRUState``, ``h [G, B, C]`` and ``conv [G, B, width − 1, C]`` f32.
-    ``tail``: one unstacked state per tail layer."""
+    ``tail``: one unstacked state per tail layer.  With an encoder,
+    ``enc_kv``: ``k``/``v [L, P, B·kv, hd]`` bf16, each decoder layer's
+    cross-attention keys and values over the ``P`` encoder frames
+    (``engine.py:236–243``), written by prefill in place."""
     dev = resolve_device(device)
     B, S = scfg.batch_local, scfg.max_seq
     period = len(cfg.block_pattern)
@@ -203,6 +219,12 @@ def init_decode_state(cfg: ModelConfig, scfg: ServeConfig, *,
                       for kind in cfg.layer_kinds[G * period:]]}
     if scfg.check_finite:
         state["nonfinite"] = torch.zeros((B,), dtype=torch.int32, device=dev)
+    if cfg.encoder is not None:
+        shape = (cfg.n_layers, cfg.frontend.num_positions,
+                 B * cfg.n_kv_heads, cfg.resolved_head_dim)
+        state["enc_kv"] = {
+            n: torch.zeros(shape, dtype=torch.bfloat16, device=dev)
+            for n in ("k", "v")}
     return state
 
 
@@ -289,7 +311,8 @@ def hoist_serve_weights(params: Dict[str, Any]) -> Dict[str, Any]:
 
 def decode_block(cfg: ModelConfig, kind: str, blk: Dict[str, Any],
                  x: torch.Tensor, cache, cache_lens: torch.Tensor, cos, sin,
-                 kernels: Kernels = KERNELS) -> torch.Tensor:
+                 kernels: Kernels = KERNELS, cross=None, enc_kv=None
+                 ) -> torch.Tensor:
     """One layer, ``x [B, D] → [B, D]``; the reference's ``decode_block``
     at cluster size 1.
 
@@ -353,21 +376,47 @@ def decode_block(cfg: ModelConfig, kind: str, blk: Dict[str, Any],
         a = split_token_attention(
             rms_norm(x, blk["ln1"], eps), w, cache, cache_lens, cos, sin,
             window=window, attn_softcap=cfg.attn_softcap, kernel=kernels.flash)
-    if isinstance(blk["ffn"], PackedFFNWeights):
+    if isinstance(blk["ffn"], PackedFFNWeights) and enc_kv is None:
         return _fused_ffn_tail(cfg, blk, x, a, kernels)
-    return _ffn_tail(cfg, blk, x, a)
+    return _ffn_tail(cfg, blk, x, a, cross, enc_kv)
 
 
 def _ffn_tail(cfg: ModelConfig, blk: Dict[str, Any], x: torch.Tensor,
-              a: torch.Tensor) -> torch.Tensor:
+              a: torch.Tensor, cross=None, enc_kv=None) -> torch.Tensor:
     """The unfused block tail (``engine.py:430–452``): ``x + a`` (``a``
-    normed by ``post_ln1`` first where the block has it),
+    normed by ``post_ln1`` first where the block has it), the
+    cross-attention's ``x + ca`` where the layer has one,
     ``rms_norm(ln2)``, the FFN (dense or MoE), ``post_ln2`` on its
     output where the block has it, the second add."""
     eps = cfg.norm_eps
     x = x + post_norm(blk, "post_ln1", a, eps)
+    if enc_kv is not None:
+        x = x + _cross_decode(cross, x, enc_kv, cfg)
     f = block_ffn(cfg, blk["ffn"], rms_norm(x, blk["ln2"], eps))
     return x + post_norm(blk, "post_ln2", f, eps)
+
+
+def _cross_decode(cross: Dict[str, Any], x: torch.Tensor, enc_kv,
+                  cfg: ModelConfig) -> torch.Tensor:
+    """Decoder cross-attention of ``x [B, D]`` against the layer's static
+    encoder keys and values ``(k, v)``, ``[P, B·kv, hd]`` each
+    (``engine.py:456``): ``rms_norm(ln)``, ``q = h·wq``, an f32 softmax
+    over all ``P`` frames, ``o·wo`` in the model dtype."""
+    p = cross["attn"]
+    B = x.shape[0]
+    q_loc, hd = p["wq"].shape[1], p["wq"].shape[2]
+    h = rms_norm(x, cross["ln"], cfg.norm_eps)
+    q = torch.einsum("bd,dqh->bqh", h, p["wq"])
+    k, v = enc_kv
+    P = k.shape[0]
+    kv_loc = k.shape[1] // B
+    qg = q.reshape(B, kv_loc, q_loc // kv_loc, hd).float()
+    kc = k.reshape(P, B, kv_loc, hd).float()
+    vc = v.reshape(P, B, kv_loc, hd).float()
+    s = torch.einsum("bkqh,pbkh->bkqp", qg, kc) / math.sqrt(hd)
+    pr = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkqp,pbkh->bkqh", pr, vc).reshape(B, q_loc * hd)
+    return o.to(x.dtype) @ p["wo"]
 
 
 def _check_not_param_pair(params: Any, want: str) -> None:
@@ -394,8 +443,9 @@ def decode_step(cfg: ModelConfig, scfg: ServeConfig, params: Dict[str, Any],
                 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """One ragged decode step: tokens ``[B]`` → ``(next tokens [B] int32,
     new state)``: the layer groups, then the tail layers
-    (``engine.py:643–650``).  The KV caches and recurrent states are
-    updated in place; ``cache_lens`` and the sampling leaves are new
+    (``engine.py:643–650``); with an encoder each layer also reads its
+    ``cross_attn`` and its slice of ``state["enc_kv"]``.  The KV caches
+    and recurrent states are updated in place; ``cache_lens`` and the sampling leaves are new
     tensors in the returned dict.  ``tokens`` already on the state's
     device is taken as is (no copy: a CUDA graph captures the step on a
     fixed token buffer)."""
@@ -414,12 +464,18 @@ def decode_step(cfg: ModelConfig, scfg: ServeConfig, params: Dict[str, Any],
         cos, sin = rope_at(cache_lens, rope_dim, cfg.rope_theta)
     period = len(cfg.block_pattern)
     G = cfg.n_layers // period
+    enc = state.get("enc_kv")
     for g in range(G):
-        for kind, blk, caches in zip(cfg.block_pattern, params["blocks"],
-                                     state["layers"]):
+        for i, (kind, blk, caches) in enumerate(zip(
+                cfg.block_pattern, params["blocks"], state["layers"])):
+            cross = enc_kv = None
+            if enc is not None:             # engine.py:600–637
+                li = g * period + i
+                cross = _layer(params["cross_attn"], li)
+                enc_kv = (enc["k"][li], enc["v"][li])
             x = decode_block(cfg, kind, _layer(blk, g), x,
                              _layer(caches, g), cache_lens, cos, sin,
-                             kernels)
+                             kernels, cross, enc_kv)
     for kind, blk, cache in zip(cfg.layer_kinds[G * period:],
                                 params["tail"], state["tail"]):
         x = decode_block(cfg, kind, blk, x, cache, cache_lens, cos, sin,

@@ -20,6 +20,15 @@ ring.  The ``tail`` layers run after the groups, with tied embeddings
 the input is scaled by ``√d_model`` and the head reads ``embed``, and
 the logit softcap caps the first token's logits (Gemma-2's 30).
 
+With a frontend, ``frontend_embeds [B, P, F]`` comes with the prompt.
+On a VLM (InternVL2-2B) their projection replaces the first ``P`` token
+embeddings (``prefill.py:213–215``).  On an encoder-decoder
+(SeamlessM4T-medium) prefill encodes them once, projects every decoder
+layer's cross-attention k and v from the encoder's output into
+``state["enc_kv"]`` — in place, so a decode graph captured on those
+tensors reads them (``prefill.py:217–236``) — and each layer
+cross-attends the encoder's output after its self-attention.
+
 Per-slot ``lengths`` make prefill a targeted insert on attention models:
 ``lengths[b] == 0`` leaves slot b untouched.  On a dense-FFN model rows
 are independent in every op of this path, so only the admitted rows are
@@ -30,8 +39,9 @@ so which tokens drop depends on the whole batch.  On a MoE config
 prefill therefore runs every slot's whole ``[B, S]`` row through every
 layer, as the reference does, even under ``lengths``, and writes only
 the admitted slots.  A recurrent state would fold a padded tail into
-itself, so ``lengths`` on a config with RWKV-6 or RG-LRU layers raises,
-as the reference's assertion does.  The caches and states are written
+itself, and an encoder's k/v are the whole batch's, so ``lengths`` on a
+config with RWKV-6 or RG-LRU layers or an encoder raises, as the
+reference's assertion does.  The caches and states are written
 in place.
 """
 from __future__ import annotations
@@ -48,8 +58,9 @@ from repro_torch.models.layers import lm_head_logits, rms_norm, softcap
 from repro_torch.models.rwkv6 import (RWKV6State, rwkv6_channel_mix,
                                       rwkv6_time_mix)
 from repro_torch.models.transformer import (apply_block, block_ffn,
-                                            embed_tokens, head_table,
-                                            layer_params)
+                                            cross_params, embed_tokens,
+                                            encode, head_table,
+                                            layer_params, splice_frontend)
 from repro_torch.serving.engine import (ServeConfig, _check_not_param_pair,
                                         _finite_violations, _layer)
 from repro_torch.serving.sampling import (admit_sampling_state,
@@ -145,24 +156,42 @@ def _prefill_rwkv(cfg: ModelConfig, blk: Dict[str, Any], x: torch.Tensor,
     return x
 
 
+def _write_enc_kv(cfg: ModelConfig, params: Dict[str, Any],
+                  state: Dict[str, Any], enc_out: torch.Tensor) -> None:
+    """Every decoder layer's cross-attention k and v of ``enc_out
+    [B, P, D]``, as ``[P, B·kv, hd]`` rounded to bf16, copied into
+    ``state["enc_kv"]`` in place (``prefill.py:217–236``)."""
+    P = enc_out.shape[1]
+    for i, cross in enumerate(cross_params(params, cfg)):
+        for name in ("k", "v"):
+            t = torch.einsum("bpd,dkh->pbkh", enc_out,
+                             cross["attn"]["w" + name])
+            state["enc_kv"][name][i].copy_(t.reshape(P, -1, t.shape[-1]))
+
+
 def prefill(cfg: ModelConfig, scfg: ServeConfig, params: Dict[str, Any],
-            state: Dict[str, Any], tokens, *, lengths=None,
-            sampling: Optional[Dict[str, np.ndarray]] = None
+            state: Dict[str, Any], tokens, frontend_embeds=None, *,
+            lengths=None, sampling: Optional[Dict[str, np.ndarray]] = None
             ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """tokens ``[B, S_prompt]`` → ``(first token [B] int32, state)``.
 
-    ``lengths [B]``: per-slot prompt lengths (default: every slot uses
-    ``S_prompt``); 0 leaves the slot untouched, and its returned token
-    is 0 (attention models only).  ``sampling``: host rows of the
-    sampling leaves for the admitted slots (``serving/sampling.py``)."""
+    ``frontend_embeds [B, P, F]``: the stub frontend's embeddings, which a
+    model with a frontend needs.  ``lengths [B]``: per-slot prompt lengths
+    (default: every slot uses ``S_prompt``); 0 leaves the slot untouched,
+    and its returned token is 0 (attention models without an encoder
+    only).  ``sampling``: host rows of the sampling leaves for the
+    admitted slots (``serving/sampling.py``)."""
     _check_not_param_pair(params, "train")
     kinds = cfg.layer_kinds
-    if lengths is not None and (RWKV6 in kinds or RECURRENT in kinds):
+    if lengths is not None and (RWKV6 in kinds or RECURRENT in kinds
+                                or cfg.encoder is not None):
         # prefill.py:204–206
         raise AssertionError(
             "per-slot prefill insert supports attention-only models")
     dev = state["cache_lens"].device
     tokens = torch.as_tensor(np.asarray(tokens), device=dev)
+    if frontend_embeds is not None:
+        frontend_embeds = torch.as_tensor(frontend_embeds, device=dev)
     B, S = tokens.shape
     lens_np = (np.full((B,), S, np.int64) if lengths is None
                else np.asarray(lengths, np.int64))
@@ -183,12 +212,18 @@ def prefill(cfg: ModelConfig, scfg: ServeConfig, params: Dict[str, Any],
             s_eff = int(lens_np[adm_np].max())
         else:                      # every row: capacity couples them
             run, sel, s_eff = torch.arange(B, device=dev), rows, S
-        x = embed_tokens(cfg, params["embed"], tokens[run, :s_eff])
+        fe = None if frontend_embeds is None else frontend_embeds[run]
+        x = splice_frontend(cfg, params, embed_tokens(
+            cfg, params["embed"], tokens[run, :s_eff]), fe)
+        enc_out = None
+        if cfg.encoder is not None:     # every slot: lengths refused above
+            enc_out = encode(cfg, params, fe)
+            _write_enc_kv(cfg, params, state, enc_out)
         caches = [_layer(c, g)
                   for g in range(cfg.n_layers // len(cfg.block_pattern))
                   for c in state["layers"]] + list(state["tail"])
-        for kind, blk, cache in zip(kinds, layer_params(params, cfg),
-                                    caches):
+        for kind, blk, cache, cross in zip(kinds, layer_params(params, cfg),
+                                           caches, cross_params(params, cfg)):
             # the recurrent kinds run with every slot admitted
             if kind == RWKV6:
                 x = _prefill_rwkv(cfg, blk, x, cache)
@@ -196,7 +231,8 @@ def prefill(cfg: ModelConfig, scfg: ServeConfig, params: Dict[str, Any],
             if kind == RECURRENT:
                 x = _prefill_rglru(cfg, blk, x, cache)
                 continue
-            x, kv = apply_block(cfg, blk, x, kind=kind, return_kv=True)
+            x, kv = apply_block(cfg, blk, x, kind=kind, return_kv=True,
+                                enc_out=enc_out, cross_blk=cross)
             if cfg.mla is not None:            # prefill.py:145–149
                 kv = (kv, kv[..., :1])
             fill = _fill_ring if kind == ATTN_LOCAL else _fill_global

@@ -18,7 +18,12 @@ groups (``prepack.py:150–163``).  A
 MoE block's FFN is not packable (``_ffn_packable``, ``prepack.py:167``:
 the fused block tail has no expert dispatch), so its experts, router
 and ``ln2`` ride through as the train tensors, aliased, while its
-attention is packed for B4.
+attention is packed for B4.  An encoder-decoder's FFN is not packable
+either (``_ffn_packable``, ``prepack.py:171``: the cross-attention runs
+between the block's residual adds), so SeamlessM4T's FFN and ``ln2``
+ride through aliased while its self-attention is packed for B1
+(``_pack_attn`` has no encoder check, ``prepack.py:84``); its
+``cross_attn`` rides through aliased too.
 
 That is the ``"pallas"`` backend's serve layout.  On ``"xla"`` the
 reference keeps the train-layout segments and only moves the rank
@@ -136,7 +141,8 @@ def prepack_for_serving(cfg: ModelConfig, params: Dict[str, Any], *,
     def pack_block(blk):
         if "attn" not in blk:
             return blk
-        ffn = ({"ffn": blk["ffn"], "ln2": blk["ln2"]} if is_moe(blk["ffn"])
+        ffn = ({"ffn": blk["ffn"], "ln2": blk["ln2"]}
+               if is_moe(blk["ffn"]) or cfg.encoder is not None
                else {"ffn": bundle_ffn(blk)})
         post = {"post_ln2": blk["post_ln2"]} if "post_ln2" in blk else {}
         return {"attn": pack_attn(blk["attn"], blk["ln1"]), **ffn, **post}
@@ -147,10 +153,11 @@ def prepack_for_serving(cfg: ModelConfig, params: Dict[str, Any], *,
         return _map(pack_block(_map(blk, lambda t: t[None])),
                     lambda t: t[0])
 
+    cross = {"cross_attn": params["cross_attn"]} if cfg.encoder else {}
     return {"embed": params["embed"],
             "blocks": [pack_block(b) for b in params["blocks"]],
             "tail": [pack_tail(b) for b in params["tail"]],
-            "head": bundle_head(cfg, params)}
+            "head": bundle_head(cfg, params), **cross}
 
 
 def _map(tree, fn):

@@ -57,13 +57,19 @@ class RequestResult:
 
 class SlotScheduler:
     """Continuous batching over an :class:`EngineHandle` of a dense-FFN
-    model.  A MoE model is refused, as the reference asserts
-    (``scheduler.py:152–158``): capacity routing drops experts' tokens by
-    per-batch capacity, so a request's tokens would depend on the slots
-    beside it.  MoE models serve lockstep (``launch/serve.py:generate``)."""
+    text decoder.  A model with a frontend or an encoder is refused, as
+    the reference asserts (``scheduler.py:150``): its requests carry
+    embeddings the targeted insert does not take.  A MoE model is
+    refused, as the reference asserts (``scheduler.py:152–158``):
+    capacity routing drops experts' tokens by per-batch capacity, so a
+    request's tokens would depend on the slots beside it.  Both serve
+    lockstep (``launch/serve.py:generate``)."""
 
     def __init__(self, engine: EngineHandle, *, prompt_cap: int,
                  eos_id: Optional[int] = None):
+        if engine.cfg.frontend is not None or engine.cfg.encoder is not None:
+            raise AssertionError(
+                "SlotScheduler supports decoder-only text models")
         if engine.cfg.moe is not None:
             raise AssertionError(
                 "SlotScheduler requires dense-FFN models: MoE capacity "

@@ -11,7 +11,8 @@ device buffers for the step's small inputs — ``tokens [B]`` int32,
 ``cache_lens [B]``, the sampling leaves and, under ``check_finite``,
 ``nonfinite`` — and the captured step writes its results back into the
 same buffers; the KV caches and recurrent states are updated in place
-by the step already, so the graph is bound to the engine's tensors.
+by the step already, and an encoder-decoder's ``enc_kv`` in place by
+prefill, so the graph is bound to the engine's tensors.
 
 The graph is built for those tensors and no others: params other than
 the captured ones, or a state whose caches or recurrent tensors are not
@@ -51,8 +52,12 @@ def capture_graph(step: Callable[[], None], device: torch.device
 
 def _big_leaves(state: Dict[str, Any]) -> List[torch.Tensor]:
     """The tensors updated in place: every KV cache, ``pos`` and recurrent
-    state of the layer groups and the tail."""
-    return [t for block in state["layers"] + state["tail"] for t in block]
+    state of the layer groups and the tail, and an encoder-decoder's
+    ``enc_kv``, which prefill writes in place and the step reads (a
+    rebound tensor would leave the graph reading stale keys)."""
+    enc = state.get("enc_kv", {})
+    return [t for block in state["layers"] + state["tail"] for t in block] \
+        + [enc[n] for n in sorted(enc)]
 
 
 def _small_leaves(state: Dict[str, Any], check_finite: bool

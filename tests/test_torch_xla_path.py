@@ -346,9 +346,10 @@ def test_unservable_combinations_raise_naming_the_roadmap():
     """MLA on ``"xla"`` is served now (item 4b, with MoE or without), and
     post-norms (item 10, Gemma-2's) on both backends; ``"pallas"`` with
     prepack off on an attention model (B1's and B4's ``fuse_out=False``
-    modes, Queue B), q/k/v biases (item 11) and encoders (item 14) raise
-    before any weight is made; an attention-free model may turn prepack
-    off."""
+    modes, Queue B), q/k/v biases (item 11) and an encoder without a
+    frontend raise before any weight is made, while SeamlessM4T-medium's
+    encoder (item 14) builds on both backends; an attention-free model may
+    turn prepack off."""
     mla = reduced(get_config("deepseek-v2-lite"))
     llama = reduced(get_config("llama2-7b"))
     for cfg in (mla, dense_mla(mla)):
@@ -373,10 +374,19 @@ def test_unservable_combinations_raise_naming_the_roadmap():
                                                 prepack="off"))
     for bad, item in (({"qkv_bias": True}, "item 11"),
                       ({"encoder": EncoderConfig(2, 4, 4, 384)},
-                       "item 14")):
+                       "fed by a frontend")):
         with pytest.raises(NotImplementedError, match=item):
             build_engine_full(dataclasses.replace(llama, **bad), max_seq=16,
                               batch_global=2, device="cpu")
+    seamless = reduced(get_config("seamless-m4t-medium"))
+    for backend in ("xla", "pallas"):
+        eng = build_engine_full(seamless, max_seq=16, batch_global=2,
+                                device="cpu",
+                                options=EngineOptions(backend=backend))
+        assert eng.scfg.backend == backend
+        assert eng.state["enc_kv"]["k"].shape == (
+            seamless.n_layers, seamless.frontend.num_positions,
+            2 * seamless.n_kv_heads, seamless.resolved_head_dim)
     assert autotune.resolve_serving(
         reduced(get_config("rwkv6-3b")), "pallas", "off") == ("pallas",
                                                                False)
