@@ -195,6 +195,33 @@ hand-written kernels from
    capture counted launches, then times the graphed host issue again
    (``graph_host_ms_after_trace``); dropping an engine, in either
    phase, must give back its memory, the graph's pool included;
+   between phases 4 and 5, before any profiler trace (a trace leaves
+   every later graph launch slower on the host, and the fleet holds its
+   graphed step to phase 5's 1 ms of host issue), the fleet
+   (``fleet_phase``, ``[fleet]`` lines): two
+   ``build_replicas`` replicas of Llama2-7B at full width and depth on
+   ``"pallas"`` (65 launches a step) with every probe's leaves, behind
+   the router (``serving/router.py``), serving the 12-request trace
+   with half its requests sampled at temperature 0.8: the threefry words
+   and Gumbel values on the card equal to the CPU's on a grid of seeds
+   and offsets; the step with the fleet's leaves off and on; a
+   probes-off run (one replay a decode step, the kernels' launches) and
+   a run with every probe (``IntegrityConfig()``) that must fire no
+   signal and give the same streams, with each probe's ms and bytes a
+   tick and ``commit_lag``; each of the nine fault kinds injected into
+   replica 0 at tick ``FLEET_FAULT_TICK`` (``flip_weight_bit`` at bits
+   0 and 14) must fire its probe (the KV kinds within one tick, a weight
+   flip within the commit window), leave every journaled stream equal to
+   the probes-off run's, move a sampled request to replica 1 on a kill,
+   and heal, re-verify and serve again on a weight flip (heal ms); the
+   single-bit sub-sweep must detect every fault with exact streams; the
+   graphed step must equal the eager one bit for bit at temperature 0.8
+   with every leaf; and teacher-forced sampled tokens, kernels against
+   plain and unfused against fused on replica 0's weights, must differ
+   only by near-ties: both runs' candidate lists sorted, their values
+   within ``CAND_TOL``, and equal tokens wherever the lists are equal
+   (the overall agreement is printed and gates nothing: the noise goes
+   by candidate rank, ROADMAP C14);
 6. times an empty launch (``torch.cuda._sleep(0)``) in the kernels'
    harness, one launch at a time and as a graph's nodes (the ``floor``
    line: a launch's cost, below which no kernel's time can go), with
@@ -259,15 +286,25 @@ from repro_torch.kernels.rglru_scan.rglru_scan import (  # noqa: E402
     rglru_scan, rglru_scan_plain)
 from repro_torch.kernels.rwkv6_scan.rwkv6_scan import (  # noqa: E402
     rwkv6_scan, rwkv6_scan_plain)
-from repro_torch.launch.serve import build_engine_full, generate  # noqa: E402
+from repro_torch.core import threefry  # noqa: E402
+from repro_torch.launch.serve import (  # noqa: E402
+    build_engine_full, build_replicas, generate)
 from repro_torch.models.layers import lm_head_logits  # noqa: E402
 from repro_torch.serving import engine as engine_mod  # noqa: E402
 from repro_torch.serving.engine import (  # noqa: E402
     KERNELS, PLAIN_KERNELS, EngineOptions, decode_step,
     init_decode_state)
-from repro_torch.serving.sampling import head_candidates  # noqa: E402
+from repro_torch.serving.faults import (  # noqa: E402
+    FAULT_KINDS, FaultInjector, FaultSpec, FaultSweep)
+from repro_torch.serving.integrity import IntegrityConfig  # noqa: E402
+from repro_torch.serving.router import Router  # noqa: E402
+from repro_torch.serving.sampling import (  # noqa: E402
+    CAND_K, GREEDY, SamplingParams, fill_sampling_row, head_candidates,
+    host_sampling_rows)
 from repro_torch.serving.scheduler import (  # noqa: E402
     Request, SlotScheduler, replay_trace)
+from repro_torch.serving.sweep import (  # noqa: E402
+    format_coverage, run_sdc_sweep)
 from repro_torch.serving.step_graph import StepGraph  # noqa: E402
 
 # (path, backend): a path is an arch, or DeepSeek-V2-Lite with its MoE
@@ -335,6 +372,12 @@ RGLRU_REL_TOL = 1e-4           # B6's f32 h_seq and h_fin: the same order
                                # element
 FLASH_F32_REL_TOL = 1e-4       # B5 on f32 inputs: summation order only,
                                # relative to each slot's largest element
+CAND_TOL = 0.125               # one head candidate's f32 logit in two
+                               # forced runs (kernels and plain, or the
+                               # two backends) from the same bf16 state:
+                               # 32 layers of bf16 rounding in another
+                               # order; on Llama2-7B (H100) any
+                               # candidate moved by 0.054 at most
 FLOOR_NODES = 2600             # about RWKV-6's device launches a step
 SPIN_CYCLES = 50_000_000       # ≈ 25 ms at the H100's clock: longer than
                                # the host needs to queue a timed batch
@@ -1178,14 +1221,14 @@ def serve_trace(path, cfg, eng):
     step_launches, step_replays, step_ms, host_ms = [], [], [], []
     dec = eng.decode_fn
 
-    def counted_decode(p, st, tok):
+    def counted_decode(p, st, tok, sampled=False):
         before = tracecount.launches()
         replays = (tracecount.replays(), dec.replays)
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
         t0 = time.perf_counter()
-        nxt, st = dec(p, st, tok)
+        nxt, st = dec(p, st, tok, sampled=sampled)
         # the host's time to enqueue the step; near step_ms, the step
         # waits on the host
         host_ms.append(1e3 * (time.perf_counter() - t0))
@@ -1376,12 +1419,13 @@ ALONE = 1024     # a longer prompt is admitted on its own: prefill's
                  # weights and caches
 
 
-def fill_state(path, cfg, eng, state, rng):
+def fill_state(path, cfg, eng, state, rng, samp=None):
     """Every slot of ``state`` filled: on an attention path admitted with
     a prompt of 32–512 tokens (``FILL_LENS`` where given; a prompt over
-    ``ALONE`` tokens admitted on its own), on a lockstep path prefilled
-    with one of ``FORCED_PROMPT`` tokens (the caches and recurrent states
-    in place)."""
+    ``ALONE`` tokens admitted on its own) and the sampling rows ``samp``
+    (default greedy), on a lockstep path prefilled with one of
+    ``FORCED_PROMPT`` tokens (the caches and recurrent states in
+    place)."""
     lens = rng.integers(32, 513, SLOTS).astype(np.int32)
     lens = np.asarray(FILL_LENS.get(path, lens), np.int32)
     n_prompt = FORCED_PROMPT.get(path)
@@ -1396,7 +1440,7 @@ def fill_state(path, cfg, eng, state, rng):
     groups = [np.arange(SLOTS) == b for b in np.nonzero(long)[0]]
     for group in groups + [~long]:
         _, state = eng.admit_fn(eng.params["train"], state, toks,
-                                np.where(group, lens, 0))
+                                np.where(group, lens, 0), samp)
     return state
 
 
@@ -1408,7 +1452,8 @@ def clone_state(state, device="cuda"):
         return t.to(device, copy=True)
     return {k: (copy(v) if torch.is_tensor(v) else
                 {n: copy(t) for n, t in v.items()} if isinstance(v, dict)
-                else [type(c)(*(copy(t) for t in c)) for c in v])
+                else [copy(c) if torch.is_tensor(c)
+                      else type(c)(*(copy(t) for t in c)) for c in v])
             for k, v in state.items()}
 
 
@@ -1438,9 +1483,12 @@ def state_leaves(state):
             out.append((k, v))
         elif isinstance(v, dict):
             out += [(f"{k}.{n}", t) for n, t in sorted(v.items())]
-        else:
-            out += [(f"{k}[{i}].{f}", t) for i, c in enumerate(v)
-                    for f, t in zip(c._fields, c)]
+        else:                    # caches, or kv_fp's [G, B] checksums
+            out += [(f"{k}[{i}]", c) if torch.is_tensor(c) else
+                    (f"{k}[{i}].{f}", t)
+                    for i, c in enumerate(v)
+                    for f, t in ([(None, c)] if torch.is_tensor(c)
+                                 else zip(c._fields, c))]
     return out
 
 
@@ -1465,7 +1513,7 @@ def time_steps(step, state, forced):
             statistics.median(host))
 
 
-def graph_vs_eager(path, cfg, eng, steps: int = 16):
+def graph_vs_eager(path, cfg, eng, steps: int = 16, samp=None):
     """The engine's graphed step against the eager step (``decode_step``
     with ``KERNELS``): the engine's own state refilled and a clone of it,
     ``steps`` steps each from the same forced tokens; tokens equal on
@@ -1477,14 +1525,16 @@ def graph_vs_eager(path, cfg, eng, steps: int = 16):
     served step's excess over it is device time spent waiting on the
     host)."""
     rng = np.random.default_rng(SEED + 3)
-    state = fill_state(path, cfg, eng, eng.state, rng)
+    state = fill_state(path, cfg, eng, eng.state, rng, samp)
     twin = twin_state(state)
     forced = torch.as_tensor(rng.integers(0, cfg.vocab_size, (steps, SLOTS))
                              .astype(np.int32), device="cuda")
     graph = eng.decode_fn
     replays = graph.replays
+    sampled = samp is not None
     g_toks, state, g_ms, g_host = time_steps(
-        lambda st, tok: graph(eng.params["serve"], st, tok), state, forced)
+        lambda st, tok: graph(eng.params["serve"], st, tok, sampled=sampled),
+        state, forced)
     on_host = not twin["cache_lens"].is_cuda
     if on_host:
         # the graphed run's end state kept in host memory, the start state
@@ -1493,7 +1543,8 @@ def graph_vs_eager(path, cfg, eng, steps: int = 16):
         twin = restore_state(state, twin)
     e_toks, twin, e_ms, e_host = time_steps(
         lambda st, tok: decode_step(cfg, eng.scfg, eng.params["serve"], st,
-                                    tok, kernels=KERNELS), twin, forced)
+                                    tok, kernels=KERNELS, sampled=sampled),
+        twin, forced)
     if on_host:
         state, e_dev = ended, twin
     if graph.replays - replays != steps:
@@ -1520,7 +1571,8 @@ def graph_vs_eager(path, cfg, eng, steps: int = 16):
     box = [e_dev if on_host else state]
 
     def replay():
-        box[0] = graph(eng.params["serve"], box[0], forced[0])[1]
+        box[0] = graph(eng.params["serve"], box[0], forced[0],
+                       sampled=sampled)[1]
     dev_ms, covered = cuda_ms(replay, 8)
     return dict(steps=steps, tokens_equal=True, state_equal=True,
                 graph_median_step_ms=round(g_ms, 3),
@@ -1532,10 +1584,10 @@ def graph_vs_eager(path, cfg, eng, steps: int = 16):
                 device_queued_under_spin=covered)
 
 
-def forced_decode(path, cfg, eng, steps: int = 8):
+def forced_decode(path, cfg, eng, steps: int = 8, samp=None):
     rng = np.random.default_rng(SEED + 2)
     # the engine's state as a fresh one: the fill rewrites every slot
-    state = fill_state(path, cfg, eng, eng.state, rng)
+    state = fill_state(path, cfg, eng, eng.state, rng, samp)
     # decode updates the caches and recurrent states in place: the plain
     # run gets a copy of its own (on the host where the card has no room,
     # copied back into the engine's tensors when the kernels' run is done)
@@ -1557,7 +1609,8 @@ def forced_decode(path, cfg, eng, steps: int = 8):
             for t in range(steps):
                 nxt, st = decode_step(
                     cfg, eng.scfg, eng.params["serve"], st,
-                    torch.as_tensor(forced[t], device="cuda"), kernels=ks)
+                    torch.as_tensor(forced[t], device="cuda"), kernels=ks,
+                    sampled=samp is not None)
                 toks.append(nxt.cpu().numpy())
         finally:
             engine_mod.head_candidates = head_candidates
@@ -1571,10 +1624,63 @@ def forced_decode(path, cfg, eng, steps: int = 8):
     # the largest difference of the best candidate's value, f32 logits
     gap = "{:.3e}".format(max(float((g[0][:, 0] - w[0][:, 0]).abs().max())
                               for g, w in zip(g_cands, w_cands)))
-    if agree < 0.9:
-        raise AssertionError(f"kernel vs plain token agreement {agree}")
-    return dict(steps=steps, slots=SLOTS, agreement=round(agree, 4),
-                max_logit_gap=gap), got
+    out = dict(steps=steps, slots=SLOTS, agreement=round(agree, 4),
+               max_logit_gap=gap)
+    cands = tuple(np.stack([c[i].float().cpu().numpy() if i == 0
+                            else c[i].cpu().numpy() for c in g_cands])
+                  for i in (0, 1))
+    if samp is None:
+        if agree < 0.9:
+            raise AssertionError(f"kernel vs plain token agreement {agree}")
+    else:
+        out.update(sampled_agreement(
+            "kernel vs plain", got, want, cands,
+            tuple(np.stack([c[i].float().cpu().numpy() if i == 0
+                            else c[i].cpu().numpy() for c in w_cands])
+                  for i in (0, 1))))
+    return out, got, cands
+
+
+def sampled_agreement(what, got, want, cands, other) -> dict:
+    """Sampled tokens of two runs from the same states and noise, with
+    the candidate lists (values, ids ``[T, B, K]``) each run handed the
+    sampler.  Its noise goes by rank, so where the two lists differ the
+    draw may pick otherwise, and the token agreement gates nothing; what
+    is gated, each difference being a near-tie of the logits:
+
+    * each list is sorted by value;
+    * an id in both lists has values within ``CAND_TOL``;
+    * an id in one list only is at most ``CAND_TOL`` above the other
+      list's last value (it crossed the rank-K edge);
+    * where the lists are equal, the tokens are.
+
+    A fault that reorders, loses or misvalues candidates fails one of
+    them.  Returns the share of equal lists, the largest value gap and
+    edge crossing, and the share of picks off candidate 0."""
+    (va, ia), (vb, ib) = cands, other
+    problems = [f"{name} candidates not sorted" for name, v in
+                (("first", va), ("second", vb)) if (np.diff(v) > 0).any()]
+    gap = cross = 0.0
+    for t, b in np.ndindex(*ia.shape[:2]):
+        da = dict(zip(ia[t, b].tolist(), va[t, b].tolist()))
+        db = dict(zip(ib[t, b].tolist(), vb[t, b].tolist()))
+        gap = max([gap] + [abs(da[i] - db[i]) for i in da.keys() & db.keys()])
+        cross = max([cross] + [da[i] - vb[t, b, -1] for i in da.keys() - db]
+                    + [db[i] - va[t, b, -1] for i in db.keys() - da])
+    if gap > CAND_TOL or cross > CAND_TOL:
+        problems.append(f"candidate values {gap:.3e} apart, {cross:.3e} "
+                        f"over the other list's last (tolerance {CAND_TOL})")
+    same = (ia == ib).all(axis=-1)
+    if (got != want)[same].any():
+        problems.append("sampled tokens differ where the candidate lists "
+                        "are equal")
+    if problems:
+        raise AssertionError(f"{what}: {problems}")
+    return dict(same_candidate_lists=round(float(same.mean()), 4),
+                max_candidate_gap="{:.3e}".format(gap),
+                max_edge_cross="{:.3e}".format(cross),
+                near_ties_only=True,
+                off_candidate0=round(float((got != ia[..., 0]).mean()), 4))
 
 
 # ---------------------------------------------------------------------------
@@ -1817,7 +1923,7 @@ def check_path(path, cfg, backend, counts, peers):
     tokens."""
     eng, _, reserved = build_engine(path, cfg, backend)
     tag = dict(path=path, backend=backend)
-    forced, forced_toks = forced_decode(path, cfg, eng)
+    forced, forced_toks, _ = forced_decode(path, cfg, eng)
     fused = peers.get((path, "pallas")) if backend == "xla" else None
     if fused is not None:
         # the card's counterpart of tests/test_backend_parity.py:241: the
@@ -1888,6 +1994,335 @@ def library_call(case):
                                                   **gqa)
 
 
+# ---------------------------------------------------------------------------
+# The fleet: two Llama2-7B replicas behind the router, every probe on
+# ---------------------------------------------------------------------------
+FLEET = "llama2-7b"
+FLEET_REPLICAS = 2
+FLEET_FAULT_TICK = 8          # mid-trace: arrivals span ticks 0–15
+FLEET_WEIGHT_TARGET = 1       # weight_leaves order: blocks[0].attn.wo
+FLEET_FLIP_BITS = (0, 14)     # flip_weight_bit: a mantissa, an exponent bit
+FLEET_KV_BIT = 7
+FLEET_SWEEP_BITS = (0, 7, 14)
+FLEET_SWEEP_NEW = 16
+FLEET_OPTIONS = dict(backend="pallas", check_finite=True, track_work=True,
+                     kv_fingerprint=True, shadow_head=True)
+# (seed, emit offset) grid of the card-against-CPU PRNG check
+PRNG_SEEDS = (0, 1, 2 ** 31, 2 ** 32 - 1, 12345)
+PRNG_STEPS = (0, 1, 7, 1000, 2 ** 31 - 1)
+# the probe each kind must trip (tests/test_router.py:42–50, and the
+# fingerprints for the single-bit kinds)
+FLEET_SIGNAL = {"kill": "detect_heartbeat",
+                "blackhole": "detect_journal_stale",
+                "corrupt_kv": "detect_nonfinite",
+                "corrupt_lens": "detect_lens_bounds",
+                "poison_weight": "detect_nonfinite",
+                "drop_admit": "detect_journal_stale",
+                "dup_admit": "detect_journal_stale",
+                "flip_kv_bit": "detect_kv_fingerprint"}
+WEIGHT_SIGNALS = {"detect_weight_fingerprint", "detect_shadow_recompute"}
+
+
+def fleet_sampling(rid: int):
+    """Half the requests sampled at temperature 0.8 (top-k 8 or 5, top-p
+    0.9, their own seed), the other half greedy: rids 0, 1 of every four
+    (dispatch alternates between the replicas, so each holds both
+    kinds)."""
+    if rid % 4 >= 2:
+        return GREEDY
+    return SamplingParams(temperature=0.8, top_k=8 if rid % 4 == 0 else 5,
+                          top_p=0.9, seed=rid + 1)
+
+
+def sampled_rows(n: int = SLOTS):
+    """Admit rows with every slot at temperature 0.8 (top-k 5 or 8, top-p
+    0.9 or 1, a seed each): the teacher-forced and graph checks."""
+    rows = host_sampling_rows(n)
+    for b in range(n):
+        fill_sampling_row(rows, b, SamplingParams(
+            temperature=0.8, top_k=8 if b % 2 else 5,
+            top_p=0.9 if b % 3 else 1.0, seed=b + 1))
+    return rows
+
+
+def check_prng() -> dict:
+    """Threefry words and Gumbel values on the card against the CPU
+    port's, on the ``PRNG_SEEDS`` × ``PRNG_STEPS`` grid: equal bit for
+    bit."""
+    seeds = torch.tensor([s for s in PRNG_SEEDS for _ in PRNG_STEPS])
+    steps = torch.tensor([n for _ in PRNG_SEEDS for n in PRNG_STEPS])
+    out = {}
+    for dev in ("cpu", "cuda"):
+        key = threefry.fold_in(threefry.prng_key(seeds.to(dev)),
+                               steps.to(dev))
+        out[dev] = (key[0].cpu(), key[1].cpu(),
+                    threefry.random_bits(key, CAND_K).cpu(),
+                    threefry.positional_gumbel(seeds.to(dev), steps.to(dev),
+                                               CAND_K).cpu())
+    for name, c, g in zip(("key_hi", "key_lo", "bits", "gumbel"),
+                          out["cpu"], out["cuda"]):
+        if not torch.equal(c.view(-1).view(torch.uint8) if c.is_floating_point()
+                           else c, g.view(-1).view(torch.uint8)
+                           if g.is_floating_point() else g):
+            raise AssertionError(f"PRNG {name} differs on the card")
+    return dict(grid=len(seeds), words_equal=True, gumbel_equal=True)
+
+
+def fleet_trace(cfg):
+    """The 12-request trace of phase 4, half of it sampled
+    (``fleet_sampling``)."""
+    trace, prompt_cap = request_trace(FLEET, cfg)
+    trace = [(t, Request(r.rid, r.prompt, r.max_new,
+                         sampling=fleet_sampling(r.rid))) for t, r in trace]
+    return trace, prompt_cap, max(r.max_new for _, r in trace)
+
+
+def fleet_run(engines, trace, prompt_cap, max_new_cap, **kw):
+    """One router run over the trace: the router, its streams, and its
+    tick times (host clock; each tick reads its tokens back, so a tick's
+    device work is inside it)."""
+    router = Router(engines, prompt_cap=prompt_cap, max_new_cap=max_new_cap,
+                    **kw)
+    tick_ms, arrivals = [], sorted(trace, key=lambda ar: ar[0])
+    i = 0
+    while (i < len(arrivals) or not router.idle()) and router.tick < 10_000:
+        now = []
+        while i < len(arrivals) and arrivals[i][0] <= router.tick:
+            now.append(arrivals[i][1])
+            i += 1
+        t0 = time.perf_counter()
+        router.step(now)
+        tick_ms.append(1e3 * (time.perf_counter() - t0))
+    if not router.idle():
+        raise AssertionError("the fleet did not drain")
+    return router, {rid: list(e.tokens)
+                    for rid, e in router.journal.items()}, tick_ms
+
+
+def fleet_step_ms(cfg, eng, samp) -> float:
+    """The median graphed step of ``eng`` over 16 forced steps of a
+    filled state (every slot sampled)."""
+    rng = np.random.default_rng(SEED + 4)
+    state = fill_state(FLEET, cfg, eng, eng.state, rng, samp)
+    forced = torch.as_tensor(rng.integers(0, cfg.vocab_size, (16, SLOTS))
+                             .astype(np.int32), device="cuda")
+    return time_steps(lambda st, t: eng.decode_fn(eng.params["serve"], st,
+                                                  t, sampled=True),
+                      state, forced)[2]
+
+
+def fleet_phase() -> None:
+    """The fleet on one card: two ``build_replicas`` replicas of full
+    Llama2-7B on the fused path (B1, B2, B3) with every probe, the
+    12-request trace half sampled; the fault-free run, each fault kind
+    injected into replica 0 mid-trace, the single-bit sub-sweep, the
+    graphed step against the eager one and the teacher-forced check at
+    temperature 0.8, the PRNG on the card against the CPU.  Any failed
+    check raises."""
+    t_phase = time.perf_counter()
+    cfg = get_config(FLEET)
+    say("fleet", check="prng", **check_prng())
+    samp = sampled_rows()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reserved = torch.cuda.memory_reserved()
+
+    # the step with the fleet's leaves off (phase 4's engine) and on
+    plain = build_engine_full(cfg, max_seq=MAX_SEQ, batch_global=SLOTS,
+                              options=EngineOptions(backend="pallas",
+                                                    check_finite=True),
+                              device="cuda", seed=SEED)
+    off_ms = fleet_step_ms(cfg, plain, samp)
+    del plain
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    engines = build_replicas(cfg, n_replicas=FLEET_REPLICAS,
+                             max_seq=MAX_SEQ, batch_global=SLOTS,
+                             options=EngineOptions(**FLEET_OPTIONS),
+                             device="cuda", seed=SEED)
+    build_s = time.perf_counter() - t0
+    want = decode_launches(cfg, "pallas")
+    counted = [{k: n for k, n in e.decode_fn.launches.items() if n}
+               for e in engines]
+    if any(c != want for c in counted):
+        raise AssertionError(f"replica graph launches {counted}, want "
+                             f"{want}")
+    on_ms = fleet_step_ms(cfg, engines[0], samp)
+    say("fleet", replicas=FLEET_REPLICAS, build_s=round(build_s, 2),
+        launches_per_step=sum(want.values()),
+        step_ms_leaves_off=round(off_ms, 3),
+        step_ms_leaves_on=round(on_ms, 3),
+        on_over_off=round(on_ms / off_ms, 4),
+        weights_gb=round(sum(tree_bytes(e.params) for e in engines) / 1e9, 3),
+        kv_gb=round(sum(tree_bytes(e.state["layers"]) for e in engines)
+                    / 1e9, 3))
+
+    trace, prompt_cap, max_new_cap = fleet_trace(cfg)
+    run = lambda **kw: fleet_run(engines, trace, prompt_cap,  # noqa: E731
+                                 max_new_cap, **kw)
+    # 1. the oracle (no probe), then the control (every probe)
+    tracecount.reset()
+    router, oracle, ticks_off = run()
+    oracle_router = router
+    replays = tracecount.replays()
+    decodes = sum(r.sched.decode_calls for r in router.replicas)
+    launches = tracecount.launches()
+    if replays != decodes or any(
+            launches[k] != n * replays for k, n in want.items()):
+        raise AssertionError(f"{replays} replays and launches {launches} "
+                             f"for {decodes} decode steps")
+    toks = np.concatenate([oracle[r] for r in sorted(oracle)])
+    if len(toks) != sum(r.max_new for _, r in trace) or toks.min() < 0 \
+            or toks.max() >= cfg.vocab_size:
+        raise AssertionError("oracle tokens missing or outside the "
+                             "vocabulary")
+    tracecount.reset_signals()
+    tracecount.reset_probes()
+    router, control, ticks_on = run(integrity=IntegrityConfig())
+    signals = {k: n for k, n in tracecount.signal_totals().items() if n}
+    if signals or router.detections or control != oracle:
+        raise AssertionError(f"fault-free run: signals {signals}, streams "
+                             f"equal {control == oracle}")
+    probes = tracecount.probe_totals()
+    n_probe = probes["probe_ticks"]
+    probe_ms = {k: sum(r.monitor.probe_ms[k] for r in router.replicas)
+                for k in ("kv", "weights", "shadow")}
+    say("fleet", run="fault_free", ticks=router.tick, requests=len(trace),
+        sampled=sum(1 for _, r in trace if r.sampling.temperature > 0),
+        tokens=len(toks), decode_steps=decodes, replays=replays,
+        commit_lag=router.commit_lag, signals=0, streams_equal=True,
+        tick_ms_probes_off=round(statistics.median(ticks_off), 3),
+        tick_ms_probes_on=round(statistics.median(ticks_on), 3),
+        **{f"probe_{k}_ms_per_tick": round(v / n_probe, 3)
+           for k, v in probe_ms.items()},
+        **{f"probe_{k}_bytes_per_tick": int(probes[f"probe_bytes_{k}"]
+                                            // n_probe)
+           for k in ("kv", "weights", "shadow")})
+
+    # 2. each fault kind into replica 0 mid-trace; the admit faults aim at
+    # the slot of replica 0's first admit from the fault tick on (the
+    # oracle run's), which carries them
+    carrier = [slot for t, kind, _, slot in oracle_router.replicas[0]
+               .sched.events if kind == "admit" and t >= FLEET_FAULT_TICK]
+    if not carrier:
+        raise AssertionError("replica 0 admits nothing after the fault tick")
+    specs = [FaultSpec(k, FLEET_FAULT_TICK,
+                       target=carrier[0] if k.endswith("_admit") else 0)
+             for k in FAULT_KINDS]
+    specs.append(FaultSpec("flip_kv_bit", FLEET_FAULT_TICK,
+                           bit=FLEET_KV_BIT))
+    specs += [FaultSpec("flip_weight_bit", FLEET_FAULT_TICK,
+                        target=FLEET_WEIGHT_TARGET, bit=b)
+              for b in FLEET_FLIP_BITS]
+    for spec in specs:
+        tracecount.reset_signals()
+        inj = FaultInjector([spec])
+        router, streams, _ = run(injectors={0: inj},
+                                 integrity=IntegrityConfig())
+        lat = router.detection_latency(inj)
+        fired = router.detections[0]["signals"] if router.detections else []
+        requeued = [e for e in router.journal.values() if e.requeues]
+        row = dict(run=spec.kind, bit=spec.bit, fired_tick=inj.fired[0][1]
+                   if inj.fired else None, latency=lat, signals=fired,
+                   streams_equal=streams == oracle,
+                   requeued=[e.rid for e in requeued],
+                   recovery_ticks=router.recovery_steps(),
+                   availability=round(router.availability(), 4))
+        problems = []
+        if len(inj.fired) != 1 or len(router.detections) != 1 \
+                or router.detections[0]["replica"] != 0:
+            problems.append("fired or detected other than once on replica 0")
+        if streams != oracle:
+            problems.append("a stream differs from the oracle")
+        if tracecount.signal_totals()["detect_journal_mismatch"]:
+            problems.append("a replay mismatched the journal")
+        if spec.kind == "flip_weight_bit":
+            heals = [e for e in router.events if e[1].startswith("heal")]
+            after = [e for e in router.events if e[1] == "dispatch"
+                     and e[3] == 0 and heals and e[0] >= heals[0][0]]
+            row.update(heal_ms=[round(h, 1) for h in router.heal_ms],
+                       dispatched_after_heal=len(after))
+            if not WEIGHT_SIGNALS & set(fired) or not 0 <= lat[0] \
+                    <= router.commit_lag:
+                problems.append("weight flip not detected in the window")
+            if [e[1] for e in heals] != ["heal"] \
+                    or router.replicas[0].monitor.verify_weights_full() \
+                    or not router.replicas[0].alive or not after:
+                problems.append("no heal, rejoin and service after it")
+        else:
+            if FLEET_SIGNAL[spec.kind] not in fired or lat[0] not in (0, 1):
+                problems.append(f"want {FLEET_SIGNAL[spec.kind]} within "
+                                "one tick")
+        if spec.kind == "kill" and not any(
+                e.sampling.temperature > 0 and e.replicas[-1] == 1
+                for e in requeued):
+            problems.append("no sampled request moved to replica 1")
+        say("fleet", **row)
+        if problems:
+            raise AssertionError(f"{spec}: {problems}")
+
+    # 3. the single-bit sub-sweep
+    t0 = time.perf_counter()
+    cells = run_sdc_sweep(engines, prompts=[r.prompt for _, r in trace],
+                          max_new=FLEET_SWEEP_NEW, prompt_cap=prompt_cap,
+                          sweep=FaultSweep(bits=FLEET_SWEEP_BITS),
+                          icfg=IntegrityConfig(),
+                          sampling=[r.sampling for _, r in trace])
+    for line in format_coverage(cells).splitlines():
+        print("  " + line)
+    ff = cells.pop("fault_free")
+    bad = [k for k, c in cells.items() if c["detected_pct"] != 100.0
+           or c["oracle_exact_pct"] != 100.0
+           or (k.startswith("flip_kv_bit") and c["detect_steps"] > 1)]
+    if ff["false_positive_signals"] or ff["streams_match"] != 1.0 or bad \
+            or len(cells) != 2 * len(FLEET_SWEEP_BITS):
+        raise AssertionError(f"sub-sweep: {ff} {bad}")
+    say("fleet", run="sub_sweep", cells=len(cells), detected_pct=100.0,
+        oracle_exact_pct=100.0, probe_bytes_per_tick=int(
+            ff["probe_bytes_per_tick"]),
+        seconds=round(time.perf_counter() - t0, 1))
+
+    # 4. graphed against eager at temperature 0.8, every leaf on
+    graph = engines[0].decode_fn
+    vs_eager = graph_vs_eager(FLEET, cfg, engines[0], samp=samp)
+    if sum(graph.launches.values()) != sum(want.values()):
+        raise AssertionError(f"graph launches {graph.launches}")
+    say("fleet", check="graph_vs_eager", temperature=0.8,
+        leaves=",".join(n for n in ("work_blocks", "kv_fp", "head_resid",
+                                    "head_val", "head_tok", "nonfinite")
+                        if n in engines[0].state),
+        launches_per_replay=sum(graph.launches.values()),
+        **{k: vs_eager[k] for k in ("steps", "tokens_equal", "state_equal",
+                                    "graph_median_step_ms",
+                                    "eager_median_step_ms")})
+
+    # 5. teacher-forced at temperature 0.8: kernels against plain, and
+    # the unfused path (on replica 0's weights) against the fused one
+    forced, fused_toks, fused_cands = forced_decode(FLEET, cfg, engines[0],
+                                                    samp=samp)
+    unfused = build_engine_full(
+        cfg, max_seq=MAX_SEQ, batch_global=SLOTS,
+        options=EngineOptions(backend="xla", check_finite=True),
+        device="cuda", train_params=engines[0].params["train"])
+    u_forced, u_toks, u_cands = forced_decode(FLEET, cfg, unfused,
+                                              samp=samp)
+    vs_fused = sampled_agreement("unfused vs fused", u_toks, fused_toks,
+                                 u_cands, fused_cands)
+    say("fleet", check="forced", temperature=0.8,
+        **{f"kernels_vs_plain_{k}": v for k, v in forced.items()
+           if k not in ("steps", "slots")},
+        **{f"unfused_kernels_vs_plain_{k}": v for k, v in u_forced.items()
+           if k not in ("steps", "slots")},
+        unfused_vs_fused_agreement=round(
+            float(np.mean(u_toks == fused_toks)), 4),
+        **{f"unfused_vs_fused_{k}": v for k, v in vs_fused.items()})
+    del unfused, engines, graph, router, oracle_router, run
+    say("fleet", peak_allocated_gb=round(
+        torch.cuda.max_memory_allocated() / 1e9, 3),
+        seconds=round(time.perf_counter() - t_phase, 1))
+    check_released(reserved)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -1950,6 +2385,11 @@ def main() -> int:
     for path, cfg, backend in paths:
         key = (path, backend)
         counts[key], peers[key] = serve_path(path, cfg, backend, peers)
+
+    # the fleet: two replicas behind the router, every fault kind; before
+    # phase 5's traces, which slow every later graph launch on the host
+    fleet_phase()
+
     # 5. each path again: kernels against plain versions end to end, and
     # the traced replays
     for path, cfg, backend in paths:

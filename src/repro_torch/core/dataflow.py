@@ -22,7 +22,7 @@ kernels mask their ragged last tile instead.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -128,22 +128,31 @@ def _appends(S: int, cache_lens: torch.Tensor) -> torch.Tensor:
     return (cache_lens >= 0) & (cache_lens < S)
 
 
+def append_rows(S: int, position: torch.Tensor, *, ring: bool = False
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Where this step's append lands: ``(own [B] bool, row [B] int64)``.
+    Slot b writes row ``position[b]`` when :func:`_appends` holds for it
+    — or, on a ring (a sliding-window layer, ``dataflow.py:_append_slot``
+    with ``window > 0``), row ``position[b] mod S`` whenever
+    ``position[b] ≥ 0``; a slot that does not own its row rewrites it
+    with its own contents.  The incremental KV fingerprint
+    (``serving/integrity.py:kv_rows_bitsum``) reads the same rows before
+    and after the step."""
+    if ring:
+        return position >= 0, torch.remainder(position, S).long()
+    return _appends(S, position), torch.clamp(position, 0, S - 1).long()
+
+
 def _insert_kv_ragged(cache: KVBlock, k_new: torch.Tensor,
                       v_new: torch.Tensor, position: torch.Tensor, *,
                       ring: bool = False) -> None:
     """Per-slot predicated append, IN PLACE: slot b writes its
-    ``k_new[b]``/``v_new[b]`` and ``pos = position[b]`` at row
-    ``position[b]`` when :func:`_appends` holds for it — or, on a ring
-    (a sliding-window layer, ``dataflow.py:_append_slot`` with ``window >
-    0``), at row ``position[b] mod S`` whenever ``position[b] ≥ 0``.  No
-    host sync: the other slots rewrite a row with its own contents."""
+    ``k_new[b]``/``v_new[b]`` and ``pos = position[b]`` at the row
+    :func:`append_rows` gives it.  No host sync: the other slots rewrite
+    a row with its own contents."""
     S = cache.k.shape[0]
     B = position.shape[0]
-    if ring:
-        own, idx = position >= 0, torch.remainder(position, S).long()
-    else:
-        own = _appends(S, position)
-        idx = torch.clamp(position, 0, S - 1).long()
+    own, idx = append_rows(S, position, ring=ring)
     b = torch.arange(B, device=position.device)
     for full, new in ((cache.k, k_new), (cache.v, v_new)):
         f3 = full.view(S, B, -1)

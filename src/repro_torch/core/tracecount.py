@@ -32,11 +32,34 @@ replays, so launches made while a graph is captured
 captured launches to :func:`launches` and adds one to :func:`replays`:
 launches counted eagerly are ``launches()`` less what the replays
 credited.
+
+Three families more, as in the reference:
+
+* :func:`live_attend_blocks` — the per-slot attend-step (KV-block)
+  count of one attention layer, which the engine adds into
+  ``state["work_blocks"]`` under ``ServeConfig.track_work``;
+* the detection signals (:func:`record_signal`), host counters the
+  fleet router (``serving/router.py``) bumps once per probe that fires:
+  ``detect_nonfinite``, ``detect_lens_bounds``, ``detect_journal_stale``,
+  ``detect_journal_mismatch``, ``detect_heartbeat``,
+  ``detect_kv_fingerprint``, ``detect_weight_fingerprint``,
+  ``detect_shadow_recompute``, ``replica_failed``, ``replica_healed``
+  and ``request_failed`` (the reference's labels,
+  ``repro/core/tracecount.py``);
+* the probe costs (:func:`record_probe`): ``probe_ticks`` (one per
+  monitor probe) and ``probe_bytes_kv`` / ``probe_bytes_weights`` /
+  ``probe_bytes_shadow``, the bytes each probe family reads — on the
+  card the KV and weight probes read the device tensors in place and
+  only ``[B]`` vectors or scalars reach the host, the shadow probe reads
+  one slot's residual on the host (``serving/integrity.py``).
 """
 from __future__ import annotations
 
 import contextlib
+from collections import Counter
 from typing import Dict, Iterator, Optional
+
+import torch
 
 KERNELS = ("fused_decode", "fused_ffn", "fused_head", "fused_mla_decode",
            "rwkv6_scan", "flash_decode", "rglru_scan")
@@ -98,3 +121,58 @@ def launches() -> Dict[str, int]:
 
 def replays() -> int:
     return _replays
+
+
+def live_attend_blocks(cache_lens: torch.Tensor, *, s_blk: int,
+                       block_s: int, window: int = 0,
+                       ring: bool = False) -> torch.Tensor:
+    """Per-slot attend-step count of one attention layer, int32 ``[B]``:
+    the reference's formula (``repro/core/tracecount.py:
+    live_attend_blocks`` at cluster rank 0), blocks of ``min(block_s,
+    s_blk)`` rows — the Pallas kernels' tiles at the reference's
+    ``block_s``, so ``work_blocks`` counts what the reference's counts.
+    B1's and B5's own tiles differ (they mask a ragged last tile and
+    stream every row of a slot's live prefix); the count is a measure of
+    a slot's live span, not of the port's launches.  A free slot
+    (``cache_len`` −1) counts 0."""
+    cl = cache_lens.to(torch.int32)
+    blk = min(block_s, s_blk)
+    n_blocks = max(1, s_blk // max(blk, 1))
+    hi = torch.clamp(torch.div(cl + blk - 1, blk, rounding_mode="floor") - 1,
+                     0, n_blocks - 1)
+    if window > 0 and not ring:
+        lo = torch.minimum(torch.clamp(
+            torch.div(cl - window, blk, rounding_mode="floor"), min=0), hi)
+    else:
+        lo = torch.zeros_like(hi)
+    return torch.where(cl > 0, hi - lo + 1, 0).to(torch.int32)
+
+
+_SIGNALS: Counter = Counter()
+_PROBES: Counter = Counter()
+
+
+def record_signal(name: str, n: int = 1) -> None:
+    """A detection signal fired (host-side, always on)."""
+    _SIGNALS[name] += n
+
+
+def signal_totals() -> Counter:
+    return Counter(_SIGNALS)
+
+
+def reset_signals() -> None:
+    _SIGNALS.clear()
+
+
+def record_probe(name: str, n: int = 1) -> None:
+    """Account a probe's cost (host-side, always on)."""
+    _PROBES[name] += n
+
+
+def probe_totals() -> Counter:
+    return Counter(_PROBES)
+
+
+def reset_probes() -> None:
+    _PROBES.clear()

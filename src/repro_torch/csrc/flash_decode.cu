@@ -24,11 +24,11 @@
 //     consecutive groups (the wrapper's plan, from S, G, kv and nq only:
 //     RecurrentGemma's 16 query rows on a 2048-row ring, GB = 1 and
 //     C = 8; Llama2-7B's per-slot decode, GB = 4 slots of one head and
-//     C = 4).  The live spans of the GB groups, laid end to end, are cut
-//     into C runs of equal length; each rank streams its run in tiles of
-//     up to TR rows that stop at a group's edge, so the ranks of a
-//     cluster get the same bytes however ragged the lengths; a rank with
-//     no valid row holds (-1e30, 0, 0);
+//     C = 4).  Each group's live span is cut into C runs of equal
+//     length, rank r streaming run r of every group in tiles of up to TR
+//     rows: the ranks of a cluster get the same bytes however ragged the
+//     lengths, and a group's split, so its bits, depend on its own span
+//     alone; a rank with no valid row holds (-1e30, 0, 0);
 //   * each rank streams its tiles of K and V through a cp.async ring, so
 //     the next tiles' loads are in flight while one is computed;
 //   * three ways through a tile, by the group's query rows nq and the
@@ -178,29 +178,22 @@ flash_cluster_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const size_t src = live ? q_off(g0 + r / nq, r % nq, h, NB, kv, qpk, HD) : 0;
     cp_async16_zfill(qs + r * RS + j, q + src + j, live ? 16 : 0);
   }
-  // this rank's share: the groups' live spans laid end to end, cut into
-  // C runs of equal length, each run in tiles that stop at a group's edge
+  // this rank's share: each group's live span cut into C runs of equal
+  // length, rank r taking run r, in tiles of up to TR rows — a group's
+  // split depends on its own span alone, so its bits do not depend on
+  // the other groups (what a recovery replay needs)
   __syncthreads();
   if (tid == 0) {
-    int tot = 0;
+    int f = 0;
     for (int j = 0; j < GB; ++j) {
       int L = first[j];
       L = L < 0 ? 0 : (L < S ? L : S);
       const int lo = window > 0 ? max(0, L - window + 1) : 0;
-      sa[j] = lo;                 // the span, for now
-      se[j] = L;
-      tot += L - lo;
-    }
-    const int per = (tot + C - 1) / C;
-    const int R0 = min(tot, rank * per), R1 = min(tot, R0 + per);
-    int f = 0, off = 0;
-    for (int j = 0; j < GB; ++j) {
-      const int lo = sa[j], n = se[j] - lo;
-      sa[j] = lo + min(n, max(0, R0 - off));
-      se[j] = lo + min(n, max(0, R1 - off));
+      const int n = L - lo, per = (n + C - 1) / C;
+      sa[j] = lo + min(n, rank * per);
+      se[j] = lo + min(n, rank * per + per);
       first[j] = f;
       f += (se[j] - sa[j] + TR - 1) / TR;
-      off += n;
     }
     first[GB] = f;
   }

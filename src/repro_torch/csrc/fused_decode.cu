@@ -46,9 +46,9 @@
 //      (cluster::gather), so every rank holds the same q, k and v;
 //   4. applies RoPE in f32; rank 0 of the kv head's first cluster writes
 //      the rounded k_new/v_new;
-//   5. attends over its share of the rows [0, min(cache_len, S)) of all
-//      slots laid end to end (C runs of equal length, in tiles that stop
-//      at a slot's edge), rows with pos in [0, cache_len) and, with a
+//   5. attends over its share of the rows [0, min(cache_len, S)) of each
+//      slot (run r of C of equal length: a slot's split depends on its
+//      own length alone), rows with pos in [0, cache_len) and, with a
 //      window, pos > cache_len − window (by stored pos: on a wrapped ring
 //      the row the append will overwrite still holds cache_len − S, and
 //      offsets are not positions, so no row is culled by its offset);
@@ -252,27 +252,22 @@ fused_decode_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wqkv,
     cp_async_commit();
   }
 
-  // this rank's share of the live rows: slot by slot, the rows [0, L_b)
-  // laid end to end and cut into C runs of equal length, each run in
-  // tiles of TA rows that stop at a slot's edge
+  // this rank's share of the live rows: each slot's rows [0, L_b) cut
+  // into C runs of equal length, rank r taking run r, in tiles of TA
+  // rows — a slot's split depends on its own length alone, so its bits
+  // do not depend on the other slots (what a recovery replay needs)
   if (tid < BP) clen[tid] = tid < B ? cache_lens[tid] : 0;
   __syncthreads();
   if (tid == 0) {
-    int Lb[BP], tot = 0;
+    int f = 0;
     for (int b = 0; b < BP; ++b) {
       const int cl = clen[b];
-      Lb[b] = cl < 0 ? 0 : (cl < S ? cl : S);
-      tot += Lb[b];
-    }
-    const int per = (tot + C - 1) / C;
-    const int R0 = min(tot, rank * per), R1 = min(tot, R0 + per);
-    int f = 0, off = 0;
-    for (int b = 0; b < BP; ++b) {
-      sa[b] = min(Lb[b], max(0, R0 - off));
-      se[b] = min(Lb[b], max(0, R1 - off));
+      const int L = cl < 0 ? 0 : (cl < S ? cl : S);
+      const int per = (L + C - 1) / C;
+      sa[b] = min(L, rank * per);
+      se[b] = min(L, sa[b] + per);
       first[b] = f;
       f += (se[b] - sa[b] + TA - 1) / TA;
-      off += Lb[b];
     }
     first[BP] = f;
   }

@@ -283,25 +283,20 @@ fused_mla_decode_kernel(
     }
   }
 
-  // this rank's share of the live rows: slot by slot, the rows [0, L_b)
-  // laid end to end and cut into CL runs of equal length, each run in
-  // tiles of TRA rows that stop at a slot's edge
+  // this rank's share of the live rows: each slot's rows [0, L_b) cut
+  // into CL runs of equal length, rank r taking run r, in tiles of TRA
+  // rows — a slot's split depends on its own length alone, so its bits
+  // do not depend on the other slots (what a recovery replay needs)
   if (tid == 0) {
-    int Lb[BP], tot = 0;
+    int f = 0;
     for (int b = 0; b < BP; ++b) {
       const int cl = clen[b];
-      Lb[b] = cl < 0 ? 0 : (cl < S ? cl : S);
-      tot += Lb[b];
-    }
-    const int per = (tot + CL - 1) / CL;
-    const int R0 = min(tot, rank * per), R1 = min(tot, R0 + per);
-    int f = 0, off = 0;
-    for (int b = 0; b < BP; ++b) {
-      sa[b] = min(Lb[b], max(0, R0 - off));
-      se[b] = min(Lb[b], max(0, R1 - off));
+      const int L = cl < 0 ? 0 : (cl < S ? cl : S);
+      const int per = (L + CL - 1) / CL;
+      sa[b] = min(L, rank * per);
+      se[b] = min(L, sa[b] + per);
       first[b] = f;
       f += (se[b] - sa[b] + TRA - 1) / TRA;
-      off += Lb[b];
     }
     first[BP] = f;
   }

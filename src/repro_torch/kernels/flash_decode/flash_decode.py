@@ -26,9 +26,9 @@ chunk.
 CUDA kernel: ``csrc/flash_decode.cu``.  What bounds it on an H100: the
 bytes of the valid K/V rows, each read once for all query heads of its
 group.  One thread-block cluster of ``C`` CTAs per kv head and block of
-``GB`` groups (:func:`cluster_plan`, from the shapes alone) lays the
-groups' live spans end to end and gives each rank an equal run of it,
-streamed in tiles through a ``cp.async`` ring (bf16 with 16 or more
+``GB`` groups (:func:`cluster_plan`, from the shapes alone) cuts each
+group's live span into ``C`` equal runs, rank r taking run r (a group's
+bits depend on its own span alone), streamed in tiles through a ``cp.async`` ring (bf16 with 16 or more
 query rows a kv head on the tensor cores; up to 4 rows warp-split on
 the CUDA cores; otherwise block-wide on the CUDA cores), and merges the
 ranks' (m, l, acc) over distributed shared memory in rank order: one
@@ -119,8 +119,8 @@ def _pow2_at_least(n: int) -> int:
 
 
 def cluster_plan(S: int, G: int, kv: int, rows: int):
-    """``(GB, C)``: each cluster takes ``GB`` groups of one kv head (their
-    live spans laid end to end) on ``C`` CTAs, from the shape only.
+    """``(GB, C)``: each cluster takes ``GB`` groups of one kv head (each
+    live span split over the ranks) on ``C`` CTAs, from the shape only.
     ``GB`` is the largest power of two dividing ``G`` (with ``GB·rows``
     query rows within ``_MAX_ROWS``) that leaves ``_TARGET_CLUSTERS``
     clusters; ``C`` brings the grid to ``_TARGET_CTAS`` (two CTAs an SM),

@@ -41,6 +41,7 @@ from repro_torch.core.device import resolve_device
 from repro_torch.models.transformer import init_params
 from repro_torch.serving.engine import (EngineOptions, ServeConfig,
                                         decode_step, init_decode_state)
+from repro_torch.serving.integrity import weight_leaves
 from repro_torch.serving.prefill import prefill
 from repro_torch.serving.prepack import (prepack_for_serving,
                                          share_packed_qkv)
@@ -58,13 +59,20 @@ class EngineHandle(NamedTuple):
 
     * ``prefill_fn(params["train"], state, tokens [B, S], fe=None)`` —
       ``fe [B, P, F]``, the frontend's embeddings of a modality model;
-    * ``decode_fn(params["serve"], state, tokens [B])`` — on the card a
-      :class:`~repro_torch.serving.step_graph.StepGraph`, bound to
-      ``params["serve"]`` and to ``state``'s caches;
+    * ``decode_fn(params["serve"], state, tokens [B], sampled=False)`` —
+      on the card a :class:`~repro_torch.serving.step_graph.StepGraph`,
+      bound to ``params["serve"]`` and to ``state``'s caches;
+      ``sampled``: some live slot has temperature > 0 (otherwise every
+      slot takes its first candidate);
     * ``admit_fn(params["train"], state, tokens [B, S_cap], lengths [B],
       samp=None)`` — targeted prefill-insert of the slots with
       ``lengths[b] > 0`` (attention models; raises on recurrent layers);
-    * ``retire_fn(state, mask [B])`` — frees the masked slots.
+    * ``retire_fn(state, mask [B])`` — frees the masked slots;
+    * ``repack_fn(params["train"])`` — the heal (``serving/router.py``):
+      writes clean bits back into every serve tensor, in place (the
+      graph is bound to them), and returns ``params["serve"]`` itself;
+      ``None`` on an engine built from ``train_params``, which has no
+      seed to re-make them from.
 
     Every step returns ``(tokens, new state)``; the KV caches and
     recurrent states inside are shared with (and updated in place from)
@@ -78,6 +86,7 @@ class EngineHandle(NamedTuple):
     scfg: ServeConfig
     cfg: ModelConfig
     batch_global: int
+    repack_fn: Optional[Callable] = None
 
 
 def build_engine_full(cfg: ModelConfig, *, max_seq: int, batch_global: int,
@@ -107,14 +116,17 @@ def build_engine_full(cfg: ModelConfig, *, max_seq: int, batch_global: int,
     params = {"train": train, "serve": serve}
     scfg = ServeConfig(max_seq=max_seq, batch_local=batch_global,
                        backend=backend, prepack=prepack,
-                       check_finite=opt.check_finite)
+                       check_finite=opt.check_finite,
+                       track_work=opt.track_work,
+                       kv_fingerprint=opt.kv_fingerprint,
+                       shadow_head=opt.shadow_head)
     state = init_decode_state(cfg, scfg, device=dev)
 
     def prefill_fn(p, st, tokens, fe=None):
         return prefill(cfg, scfg, p, st, tokens, fe)
 
-    def decode_fn(p, st, tokens):
-        return decode_step(cfg, scfg, p, st, tokens)
+    def decode_fn(p, st, tokens, sampled=False):
+        return decode_step(cfg, scfg, p, st, tokens, sampled=sampled)
 
     def admit_fn(p, st, tokens, lengths, samp=None):
         if samp is None:
@@ -133,10 +145,42 @@ def build_engine_full(cfg: ModelConfig, *, max_seq: int, batch_global: int,
             new["nonfinite"] = torch.where(m, 0, st["nonfinite"])
         return new
 
+    def repack_fn(train_tree):
+        # the replica's own construction, re-run on its device: the same
+        # seed makes the same bits (which is what makes replicas alike);
+        # the train tree aliases the serve tensors, so it heals with them
+        fresh = init_params(cfg, seed=seed, device=dev)
+        if prepack:
+            fresh = prepack_for_serving(cfg, fresh, backend=backend)
+        with torch.no_grad():
+            for (_, live), (_, clean) in zip(weight_leaves(serve),
+                                             weight_leaves(fresh)):
+                live.copy_(clean)
+        return serve
+
     if dev.type == "cuda":
         decode_fn = StepGraph(cfg, scfg, serve, state)
     return EngineHandle(params, prefill_fn, decode_fn, admit_fn, retire_fn,
-                        state, scfg, cfg, batch_global)
+                        state, scfg, cfg, batch_global,
+                        repack_fn if train_params is None else None)
+
+
+def build_replicas(cfg: ModelConfig, *, n_replicas: int, max_seq: int,
+                   batch_global: int, options: Optional[EngineOptions] = None,
+                   device="cuda", seed: int = 0):
+    """``n_replicas`` engines for the fleet router (``launch/serve.py:316``
+    of the reference), each made from the same ``seed``, so any replica
+    emits the same stream for a given prefix, sampling params and emit
+    offset — what reconstructive recovery rests on.  ``check_finite``,
+    ``kv_fingerprint`` and ``shadow_head`` default on here, as the
+    reference's do."""
+    if options is None:
+        options = EngineOptions(check_finite=True, kv_fingerprint=True,
+                                shadow_head=True)
+    return [build_engine_full(cfg, max_seq=max_seq,
+                              batch_global=batch_global, options=options,
+                              device=device, seed=seed)
+            for _ in range(n_replicas)]
 
 
 def generate(params, pf, dec, state, prompts, n_new: int, fe=None):
@@ -151,3 +195,153 @@ def generate(params, pf, dec, state, prompts, n_new: int, fe=None):
         nxt, state = dec(params["serve"], state, nxt)
         out.append(nxt)
     return torch.stack(out, dim=-1), state
+
+
+def main(argv=None) -> int:
+    """Continuous batching from the command line — the port's counterpart
+    of ``examples/serve_requests.py``, with its flags and
+    ``--temperature``/``--top-k``/``--top-p`` (every other request
+    sampled, seed = its id) and ``--device``.  One replica: the slot
+    scheduler over a staggered trace.  ``--replicas N`` (implied by
+    ``--fault`` and ``--sweep``): the router over N replicas, a
+    fault-free oracle run, then ``--fault KIND`` injected into replica 0
+    at ``--fault-step`` (the ``flip_*`` kinds at ``--bit``, with every
+    integrity probe on) and each stream checked against the oracle;
+    ``--sweep`` prints the single-bit coverage matrix.  The model is the
+    full-size config on the card; ``--reduced`` takes the tests' size
+    (use it with ``--device cpu``)."""
+    import argparse
+    import time
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.serving.sampling import GREEDY, SamplingParams
+    from repro_torch.serving.scheduler import (Request, SlotScheduler,
+                                               replay_trace)
+
+    ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
+    ap.add_argument("--arch", default="llama2-7b")
+    ap.add_argument("--slots", type=int, default=3)
+    ap.add_argument("--requests", type=int, default=6)
+    ap.add_argument("--prompt-cap", type=int, default=12)
+    ap.add_argument("--backend", default="xla",
+                    choices=("xla", "pallas", "auto"))
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--replicas", type=int, default=1)
+    ap.add_argument("--fault", default=None)
+    ap.add_argument("--fault-step", type=int, default=2)
+    ap.add_argument("--bit", type=int, default=7)
+    ap.add_argument("--sweep", action="store_true")
+    ap.add_argument("--sweep-bits", default="0,7,14")
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--top-k", type=int, default=8)
+    ap.add_argument("--top-p", type=float, default=1.0)
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--reduced", action="store_true")
+    args = ap.parse_args(argv)
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = reduced(cfg)
+    if cfg.moe is not None:                 # the dense-MLA arm
+        import dataclasses
+        cfg = dataclasses.replace(cfg, moe=None)
+    if args.fault is not None or args.sweep:
+        args.replicas = max(args.replicas, 2)
+    max_new_cap = 12
+    rng = np.random.default_rng(args.seed)
+    trace = []
+    for rid in range(args.requests):
+        plen = int(rng.integers(2, args.prompt_cap + 1))
+        sp = (SamplingParams(temperature=args.temperature, top_k=args.top_k,
+                             top_p=args.top_p, seed=rid)
+              if args.temperature > 0 and rid % 2 else GREEDY)
+        trace.append((int(rng.integers(0, 4)), Request(
+            rid, [int(t) for t in rng.integers(1, cfg.vocab_size, plen)],
+            int(rng.integers(2, max_new_cap + 1)), sampling=sp)))
+    opts = EngineOptions(backend=args.backend, check_finite=True,
+                         track_work=True, kv_fingerprint=True,
+                         shadow_head=True)
+    max_seq = args.prompt_cap + max_new_cap + 8
+    if args.replicas == 1:
+        eng = build_engine_full(cfg, max_seq=max_seq,
+                                batch_global=args.slots, options=opts,
+                                device=args.device, seed=args.seed)
+        sched = SlotScheduler(eng, prompt_cap=args.prompt_cap)
+        t0 = time.perf_counter()
+        results = replay_trace(sched, trace)
+        print(f"drained {args.requests} requests over {sched.tick} ticks "
+              f"({sched.decode_calls} decode steps) in "
+              f"{time.perf_counter() - t0:.2f}s; per-slot attend blocks "
+              f"{sched.work_blocks().tolist()}")
+        for rid, r in sorted(results.items()):
+            print(f"req {rid}: slot {r.slot} ticks [{r.admit_tick}, "
+                  f"{r.finish_tick}] temperature {r.sampling.temperature} "
+                  f"tokens {r.tokens}")
+        return 0
+
+    from repro_torch.serving.faults import (ALL_FAULT_KINDS,
+                                            BIT_FAULT_KINDS, FaultInjector,
+                                            FaultSpec, FaultSweep)
+    from repro_torch.serving.integrity import IntegrityConfig
+    from repro_torch.serving.router import Router
+    from repro_torch.serving.sweep import format_coverage, run_sdc_sweep
+    engines = build_replicas(cfg, n_replicas=args.replicas, max_seq=max_seq,
+                             batch_global=args.slots, options=opts,
+                             device=args.device, seed=args.seed)
+    icfg = IntegrityConfig(weight_leaves_per_tick=4)
+    print(f"fleet: {args.replicas} replicas of {cfg.name}, "
+          f"{args.requests} requests")
+    if args.sweep:
+        bits = (tuple(range(16)) if args.sweep_bits == "all"
+                else tuple(int(b) for b in args.sweep_bits.split(",")))
+        t0 = time.perf_counter()
+        cells = run_sdc_sweep(
+            engines, prompts=[q.prompt for _, q in trace], max_new=6,
+            prompt_cap=args.prompt_cap,
+            sweep=FaultSweep(bits=bits, steps=(args.fault_step,),
+                             seed=args.seed),
+            icfg=icfg, sampling=[q.sampling for _, q in trace])
+        print(format_coverage(cells))
+        print(f"sweep drained in {time.perf_counter() - t0:.2f}s")
+        return 0
+
+    def run(injectors=None, integrity=None):
+        router = Router(engines, prompt_cap=args.prompt_cap,
+                        max_new_cap=max_new_cap, injectors=injectors,
+                        integrity=integrity)
+        return router, router.run(trace)
+
+    _, oracle = run()
+    if args.fault is None:
+        for rid, e in sorted(oracle.items()):
+            print(f"req {rid}: replicas {e.replicas} ticks "
+                  f"[{e.submit_tick}, {e.finish_tick}] tokens {e.tokens}")
+        return 0
+    if args.fault not in ALL_FAULT_KINDS:
+        raise SystemExit(f"--fault must be one of {ALL_FAULT_KINDS}")
+    bit = args.bit if args.fault in BIT_FAULT_KINDS else -1
+    inj = FaultInjector([FaultSpec(args.fault, step=args.fault_step,
+                                   target=0, seed=args.seed, replica=0,
+                                   bit=bit)])
+    router, journal = run({0: inj}, integrity=icfg)
+    for d in router.detections:
+        print(f"tick {d['tick']}: replica {d['replica']} failed — signals "
+              f"{d['signals']} {d['details']}")
+    for ev in router.events:
+        if ev[1] in ("heal", "heal_failed"):
+            print(f"tick {ev[0]}: replica {ev[2]} {ev[1]}")
+    print(f"detection latency {router.detection_latency(inj)} ticks, "
+          f"availability {router.availability():.3f}, worst recovery "
+          f"{router.recovery_steps()} ticks, heal ms "
+          f"{[round(h, 1) for h in router.heal_ms]}")
+    exact = all(journal[r].tokens == oracle[r].tokens for r in oracle)
+    for rid, e in sorted(journal.items()):
+        print(f"req {rid}: replicas {e.replicas} requeues {e.requeues} "
+              f"tokens {e.tokens} "
+              f"{'=' if e.tokens == oracle[rid].tokens else '≠'} oracle")
+    print("every stream equals the oracle" if exact
+          else "a stream differs from the oracle")
+    return 0 if exact else 1
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -76,6 +76,7 @@ those tensors with the state returned.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, NamedTuple, Tuple
@@ -91,7 +92,9 @@ from repro_torch.core.dataflow import (KVBlock, MLAWeights,
                                        mla_attention_packed,
                                        split_token_attention,
                                        split_token_attention_packed)
+from repro_torch.core.dataflow import append_rows
 from repro_torch.core.device import resolve_device
+from repro_torch.core.tracecount import live_attend_blocks
 from repro_torch.kernels.flash_decode.flash_decode import (
     flash_decode_attention, flash_decode_plain)
 from repro_torch.kernels.fused_decode.fused_decode import (
@@ -112,8 +115,10 @@ from repro_torch.models.rwkv6 import (rwkv6_channel_step, rwkv6_state_init,
                                       rwkv6_step)
 from repro_torch.models.transformer import (block_ffn, embed_tokens,
                                             head_table, post_norm)
+from repro_torch.serving.integrity import kv_rows_bitsum, wrap_i32
 from repro_torch.serving.sampling import (CAND_K, advance_sampling_step,
                                           finalize_candidates,
+                                          greedy_candidates,
                                           head_candidates,
                                           init_sampling_state)
 
@@ -132,6 +137,19 @@ class ServeConfig:
     # the steps whose residual row or head value was non-finite or whose
     # token fell outside [0, vocab) (the reference's check_finite)
     check_finite: bool = False
+    # per-slot attend-step counters: state["work_blocks"] adds every
+    # attention layer's live blocks of WORK_BLOCK_S rows each step
+    # (core/tracecount.live_attend_blocks)
+    track_work: bool = False
+    # per-slot KV-cache checksums (serving/integrity.py):
+    # state["kv_fp"] / state["kv_fp_tail"], updated in place with the
+    # caches — by the step for the rows it appends, by the admit for an
+    # admitted slot's whole entry
+    kv_fingerprint: bool = False
+    # the (pre-head residual, winning logit, token) triple each step
+    # stashes per slot — state["head_resid"/"head_val"/"head_tok"] — for
+    # the shadow probe
+    shadow_head: bool = False
 
 
 @dataclass(frozen=True)
@@ -139,11 +157,15 @@ class EngineOptions:
     """Construction options for ``launch/serve.py:build_engine_full``, with
     the reference's defaults: ``backend`` ``"xla"`` | ``"pallas"`` |
     ``"auto"`` and ``prepack`` ``"auto"`` | ``"on"`` | ``"off"``
-    (``core/autotune.py``); ``check_finite`` adds the per-slot sentinel
+    (``core/autotune.py``); ``check_finite``, ``track_work``,
+    ``kv_fingerprint`` and ``shadow_head`` add their state leaves
     (:class:`ServeConfig`)."""
     backend: str = "xla"
     prepack: Any = "auto"
     check_finite: bool = False
+    track_work: bool = False
+    kv_fingerprint: bool = False
+    shadow_head: bool = False
 
 
 class Kernels(NamedTuple):
@@ -174,7 +196,9 @@ PLAIN_KERNELS = Kernels(fused_decode_plain, fused_ffn_plain, fused_head_plain,
 def init_decode_state(cfg: ModelConfig, scfg: ServeConfig, *,
                       device="cuda") -> Dict[str, Any]:
     """``cache_lens [B]`` (0: a fresh lockstep batch), the sampling leaves,
-    and per block-pattern position one state stacked over the layer
+    ``gumbel [B, max_seq, CAND_K]`` f32 (each slot's noise by emit
+    offset, written by the admit in place), and per block-pattern
+    position one state stacked over the layer
     groups (``engine.py:143–220``): a :class:`KVBlock` ``k``/``v [G, S,
     B·kv, hd]`` bf16, ``pos [G, S, B]`` with ``S = max_seq``, or ``S =
     min(window, max_seq)`` ring rows on a local-attention layer — for MLA
@@ -185,7 +209,11 @@ def init_decode_state(cfg: ModelConfig, scfg: ServeConfig, *,
     ``tail``: one unstacked state per tail layer.  With an encoder,
     ``enc_kv``: ``k``/``v [L, P, B·kv, hd]`` bf16, each decoder layer's
     cross-attention keys and values over the ``P`` encoder frames
-    (``engine.py:236–243``), written by prefill in place."""
+    (``engine.py:236–243``), written by prefill in place.  The leaves of
+    the flags (``engine.py:191–235``): ``nonfinite``, ``work_blocks``,
+    ``head_val`` and ``head_tok`` ``[B]``, ``head_resid [B, D]`` bf16,
+    ``kv_fp`` (one ``[G, B]`` int32 per block-pattern position) and
+    ``kv_fp_tail`` (one ``[B]`` per tail layer)."""
     dev = resolve_device(device)
     B, S = scfg.batch_local, scfg.max_seq
     period = len(cfg.block_pattern)
@@ -214,17 +242,63 @@ def init_decode_state(cfg: ModelConfig, scfg: ServeConfig, *,
 
     state = {"cache_lens": torch.zeros((B,), dtype=torch.int32, device=dev),
              "sampling": init_sampling_state(B, dev),
+             # each slot's positional noise by emit offset, written by the
+             # admit in place (serving/sampling.py:gumbel_table)
+             "gumbel": torch.zeros((B, S, CAND_K), dtype=torch.float32,
+                                   device=dev),
              "layers": [state_for(kind, (G,)) for kind in cfg.block_pattern],
              "tail": [state_for(kind, ())
                       for kind in cfg.layer_kinds[G * period:]]}
     if scfg.check_finite:
         state["nonfinite"] = torch.zeros((B,), dtype=torch.int32, device=dev)
+    if scfg.track_work:
+        state["work_blocks"] = torch.zeros((B,), dtype=torch.int32,
+                                           device=dev)
+    if scfg.kv_fingerprint:
+        # one int32 checksum per slot and cache entry (zeros, untouched,
+        # for the recurrent kinds), parallel to "layers" and "tail"
+        state["kv_fp"] = [torch.zeros((G, B), dtype=torch.int32, device=dev)
+                          for _ in cfg.block_pattern]
+        state["kv_fp_tail"] = [torch.zeros((B,), dtype=torch.int32,
+                                           device=dev)
+                               for _ in cfg.layer_kinds[G * period:]]
+    if scfg.shadow_head:
+        state["head_resid"] = torch.zeros((B, cfg.d_model),
+                                          dtype=torch.bfloat16, device=dev)
+        state["head_val"] = torch.zeros((B,), dtype=torch.float32,
+                                        device=dev)
+        state["head_tok"] = torch.zeros((B,), dtype=torch.int32, device=dev)
     if cfg.encoder is not None:
         shape = (cfg.n_layers, cfg.frontend.num_positions,
                  B * cfg.n_kv_heads, cfg.resolved_head_dim)
         state["enc_kv"] = {
             n: torch.zeros(shape, dtype=torch.bfloat16, device=dev)
             for n in ("k", "v")}
+    return state
+
+
+def reset_decode_state(cfg: ModelConfig, scfg: ServeConfig,
+                       state: Dict[str, Any]) -> Dict[str, Any]:
+    """Put every leaf of ``state`` back, in place, to what
+    :func:`init_decode_state` makes — zero caches, ``pos`` −1, zero
+    checksums and flags — and return it.  The reference gets a fresh
+    state by keeping the initial one (its steps return new trees); the
+    port's steps write the caches in place, so a fresh start is this.
+    A fresh state of one cache row is broadcast along the rows (every
+    row starts alike; a full-size one would double the caches)."""
+    def copy(dst, src):
+        if torch.is_tensor(dst):
+            dst.copy_(src)
+        elif isinstance(dst, dict):
+            for k in dst:
+                copy(dst[k], src[k])
+        else:                          # lists and named tuples
+            for d, s in zip(dst, src):
+                copy(d, s)
+
+    copy(state, init_decode_state(
+        cfg, dataclasses.replace(scfg, max_seq=1),
+        device=state["cache_lens"].device))
     return state
 
 
@@ -437,18 +511,75 @@ def _layer(tree, g: int):
     return None if tree is None else tree[g]
 
 
+def _appended_rows(kind: str, cache, cache_lens: torch.Tensor):
+    """For an attention entry: ``(own [B], row [B], bit sum [G, B] of the
+    rows before the step)`` — the rows this step's append overwrites
+    (``core/dataflow.py:append_rows``; a ring on a local layer);
+    ``None`` for a recurrent state."""
+    if not isinstance(cache, KVBlock):
+        return None
+    own, idx = append_rows(cache.k.shape[-3], cache_lens,
+                           ring=kind == ATTN_LOCAL)
+    return own, idx, kv_rows_bitsum(cache, idx)
+
+
+# the KV block ``work_blocks`` counts in: the reference's default
+# ``ServeConfig.block_s``, which its Pallas kernels tile by
+WORK_BLOCK_S = 256
+
+
+def _step_work(cfg: ModelConfig, kinds,
+               cache_lens: torch.Tensor) -> torch.Tensor:
+    """Per-slot attend-step count of one step, summed over the attention
+    layers (``engine.py:583–592``): each block-pattern entry counts once
+    per layer group, a tail entry once."""
+    G = cfg.n_layers // len(cfg.block_pattern)
+    work = torch.zeros_like(cache_lens)
+    for i, (kind, cache) in enumerate(kinds):
+        if not isinstance(cache, KVBlock):
+            continue
+        window = (cfg.sliding_window if kind == ATTN_LOCAL
+                  and cfg.mla is None else 0)
+        s_blk = cache.k.shape[-3]
+        n = live_attend_blocks(cache_lens, s_blk=s_blk,
+                               block_s=_fit_block_s(s_blk, WORK_BLOCK_S),
+                               window=window, ring=window > 0)
+        work = work + n * (G if i < len(cfg.block_pattern) else 1)
+    return work
+
+
+def _fit_block_s(S: int, block_s: int) -> int:
+    """The largest divisor of ``S`` not above ``block_s`` — ``S`` itself
+    when that divisor is more than 8× smaller (the reference's
+    ``dataflow.py:_fit_block_s``, which sizes its Pallas blocks)."""
+    b = min(block_s, S)
+    while b > 1 and S % b:
+        b -= 1
+    return b if b * 8 > min(block_s, S) else S
+
+
 def decode_step(cfg: ModelConfig, scfg: ServeConfig, params: Dict[str, Any],
                 state: Dict[str, Any], tokens,
-                *, kernels: Kernels = KERNELS
+                *, kernels: Kernels = KERNELS, sampled: bool = False
                 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """One ragged decode step: tokens ``[B]`` → ``(next tokens [B] int32,
     new state)``: the layer groups, then the tail layers
     (``engine.py:643–650``); with an encoder each layer also reads its
-    ``cross_attn`` and its slice of ``state["enc_kv"]``.  The KV caches
-    and recurrent states are updated in place; ``cache_lens`` and the sampling leaves are new
-    tensors in the returned dict.  ``tokens`` already on the state's
-    device is taken as is (no copy: a CUDA graph captures the step on a
-    fixed token buffer)."""
+    ``cross_attn`` and its slice of ``state["enc_kv"]``.  The KV caches,
+    their ``kv_fp`` checksums and the recurrent states are updated in
+    place; ``cache_lens``, the sampling leaves and the other flags'
+    leaves are new tensors in the returned dict.  The checksum update
+    (``engine.py:678–693``) reads the rows each entry's append
+    overwrites before the layers run and again after: the difference of
+    their bit sums is the entry's change, for a linear append and a ring
+    wrap alike — the reference's old/new delta, taken before the
+    in-place append destroys the old rows.  ``sampled``: some live slot
+    has temperature > 0 (the caller knows its requests), so the step
+    draws from the candidates (``finalize_candidates`` with the slots'
+    noise); otherwise every slot takes candidate 0, the same tokens
+    with none of the sampler's arithmetic.  ``tokens`` already on the
+    state's device is taken as is (no copy: a CUDA graph captures the
+    step on a fixed token buffer)."""
     _check_not_param_pair(params, "serve")
     params = hoist_serve_weights(params)
     cache_lens = state["cache_lens"]
@@ -464,6 +595,10 @@ def decode_step(cfg: ModelConfig, scfg: ServeConfig, params: Dict[str, Any],
         cos, sin = rope_at(cache_lens, rope_dim, cfg.rope_theta)
     period = len(cfg.block_pattern)
     G = cfg.n_layers // period
+    kinds = (list(zip(cfg.block_pattern, state["layers"]))
+             + list(zip(cfg.layer_kinds[G * period:], state["tail"])))
+    appends = ([_appended_rows(kind, cache, cache_lens)
+                for kind, cache in kinds] if scfg.kv_fingerprint else [])
     enc = state.get("enc_kv")
     for g in range(G):
         for i, (kind, blk, caches) in enumerate(zip(
@@ -485,12 +620,34 @@ def decode_step(cfg: ModelConfig, scfg: ServeConfig, params: Dict[str, Any],
         cand_v, cand_i = _fused_head_tail(cfg, params["head"], x, kernels)
     else:
         cand_v, cand_i = _loose_head_tail(cfg, params, x)
-    nxt, head_val = finalize_candidates(cand_v, cand_i, samp)
+    if sampled:
+        gumbel = state["gumbel"]
+        noise = gumbel[torch.arange(gumbel.shape[0], device=dev),
+                       torch.clamp(samp["step"], 0, gumbel.shape[1] - 1)]
+        nxt, head_val = finalize_candidates(cand_v, cand_i, samp, noise)
+    else:
+        nxt, head_val = greedy_candidates(cand_v, cand_i)
     new_state = dict(state)
     new_state["sampling"] = advance_sampling_step(samp, cache_lens >= 0)
     if scfg.check_finite:
         new_state["nonfinite"] = state["nonfinite"] + _finite_violations(
             cfg, x, head_val, nxt, cache_lens >= 0)
+    if scfg.track_work:
+        new_state["work_blocks"] = state["work_blocks"] + _step_work(
+            cfg, kinds, cache_lens)
+    if scfg.kv_fingerprint:
+        for (kind, cache), rows, fp in zip(
+                kinds, appends, state["kv_fp"] + state["kv_fp_tail"]):
+            if rows is not None:
+                own, idx, before = rows
+                delta = kv_rows_bitsum(cache, idx) - before
+                fp.copy_(wrap_i32(fp.to(torch.int64) + torch.where(
+                    own, delta, torch.zeros_like(delta))))
+    if scfg.shadow_head:
+        # the atomic (residual, winning logit, token) triple per slot
+        new_state["head_resid"] = x.to(torch.bfloat16)
+        new_state["head_val"] = head_val.float()
+        new_state["head_tok"] = nxt
     new_state["cache_lens"] = torch.where(cache_lens >= 0, cache_lens + 1,
                                           cache_lens)
     return nxt, new_state

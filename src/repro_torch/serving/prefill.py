@@ -29,11 +29,19 @@ layer's cross-attention k and v from the encoder's output into
 tensors reads them (``prefill.py:217–236``) — and each layer
 cross-attends the encoder's output after its self-attention.
 
+Under the fleet's flags (``prefill.py:297–336``) an admitted slot's
+``work_blocks`` restarts at 0, its KV checksums are recomputed from its
+whole cache entries (in place, as the caches), and its raw last
+residual, head value and first token are stashed for the shadow probe.
+
 Per-slot ``lengths`` make prefill a targeted insert on attention models:
 ``lengths[b] == 0`` leaves slot b untouched.  On a dense-FFN model rows
-are independent in every op of this path, so only the admitted rows are
-computed, and only up to their longest prompt (causal attention: a
-padded tail never reaches the positions before it).  A MoE layer is not
+are independent in every op of this path, so each admitted request is
+computed alone, over its own prompt: its caches and first token are then
+the same bits whatever else the admit carries and wherever its slot is
+— on the card a product's rounding depends on its shape, and a recovery
+replay (``serving/router.py``) re-admits a request beside other
+neighbours than the first time.  A MoE layer is not
 row-independent: its capacity is per call, over all ``T = B·S`` tokens,
 so which tokens drop depends on the whole batch.  On a MoE config
 prefill therefore runs every slot's whole ``[B, S]`` row through every
@@ -63,8 +71,10 @@ from repro_torch.models.transformer import (apply_block, block_ffn,
                                             layer_params, splice_frontend)
 from repro_torch.serving.engine import (ServeConfig, _check_not_param_pair,
                                         _finite_violations, _layer)
+from repro_torch.serving.integrity import kv_entry_fp
 from repro_torch.serving.sampling import (admit_sampling_state,
-                                          finalize_candidates,
+                                          finalize_candidates, gumbel_table,
+                                          greedy_candidates,
                                           head_candidates)
 
 
@@ -206,48 +216,46 @@ def prefill(cfg: ModelConfig, scfg: ServeConfig, params: Dict[str, Any],
     nxt = torch.zeros((B,), dtype=torch.int32, device=dev)
     bad = torch.zeros((B,), dtype=torch.int32, device=dev)
     if adm_np.any():
-        lens_a = lens[rows]
-        if cfg.moe is None:        # the admitted rows, to their longest
-            run, sel = rows, slice(None)
-            s_eff = int(lens_np[adm_np].max())
-        else:                      # every row: capacity couples them
-            run, sel, s_eff = torch.arange(B, device=dev), rows, S
-        fe = None if frontend_embeds is None else frontend_embeds[run]
-        x = splice_frontend(cfg, params, embed_tokens(
-            cfg, params["embed"], tokens[run, :s_eff]), fe)
-        enc_out = None
-        if cfg.encoder is not None:     # every slot: lengths refused above
-            enc_out = encode(cfg, params, fe)
-            _write_enc_kv(cfg, params, state, enc_out)
-        caches = [_layer(c, g)
-                  for g in range(cfg.n_layers // len(cfg.block_pattern))
-                  for c in state["layers"]] + list(state["tail"])
-        for kind, blk, cache, cross in zip(kinds, layer_params(params, cfg),
-                                           caches, cross_params(params, cfg)):
-            # the recurrent kinds run with every slot admitted
-            if kind == RWKV6:
-                x = _prefill_rwkv(cfg, blk, x, cache)
-                continue
-            if kind == RECURRENT:
-                x = _prefill_rglru(cfg, blk, x, cache)
-                continue
-            x, kv = apply_block(cfg, blk, x, kind=kind, return_kv=True,
-                                enc_out=enc_out, cross_blk=cross)
-            if cfg.mla is not None:            # prefill.py:145–149
-                kv = (kv, kv[..., :1])
-            fill = _fill_ring if kind == ATTN_LOCAL else _fill_global
-            fill(cache, *(t[sel] for t in kv), rows, lens_a)
-        last_raw = x[sel][torch.arange(len(rows), device=dev), lens_a - 1]
-        last = rms_norm(last_raw, params["final_norm"], cfg.norm_eps)
-        logits = softcap(lm_head_logits(head_table(cfg, params), last),
-                         cfg.logit_softcap)
-        cand_v, cand_i = head_candidates(logits)
-        tok, head_val = finalize_candidates(
-            cand_v, cand_i, {n: t[rows] for n, t in samp.items()})
+        adm_rows = np.nonzero(adm_np)[0]
+        if cfg.moe is not None:    # every row: capacity couples them
+            runs = [(np.arange(B), adm_rows, S)]
+        elif lengths is None:      # a lockstep batch, every row S long
+            runs = [(adm_rows, adm_rows, S)]
+        else:                      # each admitted request alone
+            runs = [([r], [r], int(lens_np[r])) for r in adm_rows]
+        outs = [_prefill_rows(cfg, params, state, tokens, frontend_embeds,
+                              run, sel, s_eff, lens_np)
+                for run, sel, s_eff in runs]
+        last_raw, cand_v, cand_i = (torch.cat([o[i] for o in outs])
+                                    for i in range(3))
+        temp = (np.zeros((B,), np.float32) if sampling is None
+                else np.asarray(sampling["temp"]))
+        drawn = np.nonzero(adm_np & (temp > 0))[0]
+        if len(drawn):
+            # the sampled slots' noise for every emit offset, in place (a
+            # greedy slot never reads its rows); the first token draws
+            # at offset 0
+            d = torch.as_tensor(drawn, device=dev)
+            state["gumbel"][d] = gumbel_table(samp["seed"][d],
+                                              state["gumbel"].shape[1])
+            tok, head_val = finalize_candidates(
+                cand_v, cand_i, {n: t[rows] for n, t in samp.items()},
+                state["gumbel"][rows, 0])
+        else:
+            tok, head_val = greedy_candidates(cand_v, cand_i)
         nxt[rows] = tok
         if scfg.check_finite:
+            last = rms_norm(last_raw, params["final_norm"], cfg.norm_eps)
             bad[rows] = _finite_violations(cfg, last, head_val, tok,
                                            torch.ones_like(tok, dtype=bool))
+        if scfg.kv_fingerprint:
+            _refingerprint(state, rows)
+        if scfg.shadow_head:
+            for name, new in (("head_resid", last_raw.to(torch.bfloat16)),
+                              ("head_val", head_val.float()),
+                              ("head_tok", tok)):
+                new_state[name] = state[name].clone()
+                new_state[name][rows] = new
     new_state["sampling"] = dict(samp, step=torch.where(
         adm, torch.ones_like(samp["step"]), samp["step"]))
     new_state["cache_lens"] = torch.where(adm, lens.to(torch.int32),
@@ -256,4 +264,68 @@ def prefill(cfg: ModelConfig, scfg: ServeConfig, params: Dict[str, Any],
         # admitted slots restart their count (a one-token request admits
         # and retires with no decode step in between)
         new_state["nonfinite"] = torch.where(adm, bad, state["nonfinite"])
+    if scfg.track_work:              # admitted slots start a fresh count
+        new_state["work_blocks"] = torch.where(
+            adm, torch.zeros_like(state["work_blocks"]),
+            state["work_blocks"])
     return nxt, new_state
+
+
+def _prefill_rows(cfg: ModelConfig, params: Dict[str, Any],
+                  state: Dict[str, Any], tokens: torch.Tensor,
+                  frontend_embeds, run, sel, s_eff: int, lens_np: np.ndarray
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The forward of slots ``run`` over their first ``s_eff`` tokens,
+    writing the caches of slots ``sel`` (a subset of ``run``) in place;
+    returns ``sel``'s raw last residual rows and their head candidates
+    (values, indices)."""
+    dev = tokens.device
+    run_t = torch.as_tensor(np.asarray(run), device=dev)
+    sel_t = torch.as_tensor(np.asarray(sel), device=dev)
+    pick = torch.as_tensor(np.searchsorted(np.asarray(run), np.asarray(sel)),
+                           device=dev)
+    lens_a = torch.as_tensor(lens_np[np.asarray(sel)], device=dev)
+    fe = None if frontend_embeds is None else frontend_embeds[run_t]
+    x = splice_frontend(cfg, params, embed_tokens(
+        cfg, params["embed"], tokens[run_t, :s_eff]), fe)
+    enc_out = None
+    if cfg.encoder is not None:     # every slot: lengths refused above
+        enc_out = encode(cfg, params, fe)
+        _write_enc_kv(cfg, params, state, enc_out)
+    caches = [_layer(c, g)
+              for g in range(cfg.n_layers // len(cfg.block_pattern))
+              for c in state["layers"]] + list(state["tail"])
+    for kind, blk, cache, cross in zip(cfg.layer_kinds,
+                                       layer_params(params, cfg), caches,
+                                       cross_params(params, cfg)):
+        # the recurrent kinds run with every slot admitted
+        if kind == RWKV6:
+            x = _prefill_rwkv(cfg, blk, x, cache)
+            continue
+        if kind == RECURRENT:
+            x = _prefill_rglru(cfg, blk, x, cache)
+            continue
+        x, kv = apply_block(cfg, blk, x, kind=kind, return_kv=True,
+                            enc_out=enc_out, cross_blk=cross)
+        if cfg.mla is not None:            # prefill.py:145–149
+            kv = (kv, kv[..., :1])
+        fill = _fill_ring if kind == ATTN_LOCAL else _fill_global
+        fill(cache, *(t[pick] for t in kv), sel_t, lens_a)
+    last_raw = x[pick, lens_a - 1]
+    last = rms_norm(last_raw, params["final_norm"], cfg.norm_eps)
+    logits = softcap(lm_head_logits(head_table(cfg, params), last),
+                     cfg.logit_softcap)
+    cand_v, cand_i = head_candidates(logits)
+    return last_raw, cand_v, cand_i
+
+
+def _refingerprint(state: Dict[str, Any], rows: torch.Tensor) -> None:
+    """The admitted slots' KV checksums recomputed from their whole cache
+    entries, in place (``prefill.py:308–328``): a re-admit may rewrite
+    rows whose ``pos`` does not move, which the step's append delta
+    cannot see."""
+    B = state["cache_lens"].shape[0]
+    for cache, fp in zip(state["layers"] + state["tail"],
+                         state["kv_fp"] + state["kv_fp_tail"]):
+        if isinstance(cache, KVBlock):
+            fp[..., rows] = kv_entry_fp(cache, B)[..., rows]

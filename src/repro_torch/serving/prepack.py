@@ -168,3 +168,17 @@ def _map(tree, fn):
     if isinstance(tree, tuple):
         return type(tree)(*(_map(t, fn) for t in tree))
     return None if tree is None else fn(tree)
+
+
+def head_view(cfg: ModelConfig, params: Dict[str, Any]) -> PackedHeadWeights:
+    """The ``(table, ln)`` a decode step samples with
+    (``prepack.py:225`` of the reference): the serve tree's ``head``
+    bundle on ``"pallas"``, else the loose head's ``lm_head`` (tied:
+    ``embed``) and ``final_norm``.  Takes the ``{"train", "serve"}``
+    pair or one tree."""
+    if isinstance(params, dict) and {"train", "serve"} <= params.keys():
+        params = params["serve"]
+    h = params.get("head")
+    if isinstance(h, PackedHeadWeights):
+        return h
+    return bundle_head(cfg, params)

@@ -6,8 +6,17 @@ enqueue FIFO; each tick admits queue-head requests into the
 lowest-numbered free slots (one targeted prefill-insert for all of
 them, emitting each request's first token), retires one-token requests,
 runs one decode step for the active slots, then retires the finished
-ones.  The reference's fleet arguments (``hooks``, ``Request.replay``,
-``integrity_latch``) belong to a later slice (ROADMAP.md).
+ones.
+
+The fleet's arguments, as the reference's: ``hooks``
+(:class:`SchedulerHooks`, the fault injector's only way in),
+``Request.replay`` (journaled tokens force-fed through the same
+captured step before a recovered request generates live) and
+``integrity_latch`` (violations read before a same-tick retire can
+erase them).  Sampled requests ride their ``SamplingParams`` into the
+slot's state leaves; the positional PRNG makes a replayed request
+sample its original stream.  A decode step asks for the sampler
+(``decode_fn(..., sampled=True)``) only while a live slot samples.
 """
 from __future__ import annotations
 
@@ -17,6 +26,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from repro_torch.launch.serve import EngineHandle
+from repro_torch.serving.engine import reset_decode_state
 from repro_torch.serving.sampling import (GREEDY, SamplingParams,
                                           fill_sampling_row,
                                           host_sampling_rows,
@@ -27,11 +37,52 @@ from repro_torch.serving.sampling import (GREEDY, SamplingParams,
 class Request:
     """``prompt``: token ids (≤ the scheduler's ``prompt_cap``);
     ``max_new``: tokens to generate, counting the one the prefill insert
-    samples."""
+    samples.  ``replay``: journaled tokens to reconstruct before
+    generating live (fleet recovery): the slot admits ``prompt``, then
+    takes the replayed tokens as its decode inputs in order; the engine's
+    re-emitted tokens are checked against them, and the journal's are
+    kept.  ``max_new`` counts the replayed tokens.  ``sampling``: the
+    request's :class:`SamplingParams` (default greedy)."""
     rid: int
     prompt: Sequence[int]
     max_new: int
+    replay: Sequence[int] = ()
     sampling: SamplingParams = GREEDY
+
+
+class SchedulerHooks:
+    """Extension points for perturbing a live scheduler (the reference's
+    ``scheduler.py:75–107``): the fault injector (``serving/faults.py``)
+    is the hooks object the scheduler was built with, so every injected
+    fault is in the call graph.  The base class does nothing.
+    ``post_decode`` is the port's own: it runs right after the decode
+    call, so a fault the reference feeds to the step as a corrupted copy
+    (``poison_weight``) is applied in place for the call and taken back
+    after it."""
+
+    def pre_step(self, sched: "SlotScheduler") -> None:
+        """Start of every tick; may raise (``faults.ReplicaKilled``)."""
+
+    def admit_args(self, sched: "SlotScheduler", toks: np.ndarray,
+                   lens: np.ndarray):
+        """Rewrite what the device admit sees (host bookkeeping keeps the
+        original request)."""
+        return toks, lens
+
+    def post_admit(self, sched: "SlotScheduler") -> None:
+        """After the tick's admit call."""
+
+    def decode_args(self, sched: "SlotScheduler", params, state, tokens):
+        """Rewrite what the decode call consumes."""
+        return params, state, tokens
+
+    def post_decode(self, sched: "SlotScheduler") -> None:
+        """Right after the decode call."""
+
+    def decode_blackholed(self, sched: "SlotScheduler") -> bool:
+        """True: the decode call never returns; the host loop goes on
+        with a stale echo of its inputs while the device state freezes."""
+        return False
 
 
 @dataclass
@@ -39,6 +90,11 @@ class _Slot:
     rid: Optional[int] = None
     remaining: int = 0
     last_tok: int = 0
+    prompt_len: int = 0         # admitted prompt length (journal model)
+    emitted: int = 0            # tokens emitted so far, replayed included
+    replay: List[int] = field(default_factory=list)
+    replay_mismatch: int = 0    # engine token ≠ journaled token
+    sampled: bool = False       # temperature > 0: the step must draw
 
     @property
     def free(self) -> bool:
@@ -66,7 +122,9 @@ class SlotScheduler:
     lockstep (``launch/serve.py:generate``)."""
 
     def __init__(self, engine: EngineHandle, *, prompt_cap: int,
-                 eos_id: Optional[int] = None):
+                 eos_id: Optional[int] = None,
+                 hooks: Optional[SchedulerHooks] = None,
+                 integrity_latch: bool = False):
         if engine.cfg.frontend is not None or engine.cfg.encoder is not None:
             raise AssertionError(
                 "SlotScheduler supports decoder-only text models")
@@ -77,6 +135,7 @@ class SlotScheduler:
         self.eng = engine
         self.prompt_cap = int(prompt_cap)
         self.eos_id = eos_id
+        self.hooks = hooks
         self.n_slots = engine.batch_global
         self.slots = [_Slot() for _ in range(self.n_slots)]
         self.queue: List[Request] = []
@@ -85,11 +144,57 @@ class SlotScheduler:
         self.occupancy: List[float] = []
         self.tick = 0
         self.decode_calls = 0
-        self.state = engine.retire_fn(engine.state,
-                                      np.ones((self.n_slots,), np.int32))
+        # violations read between the decode and a retire that would
+        # erase them (the router's probes, DESIGN.md §9)
+        self.integrity_latch = integrity_latch
+        self.latched: List[str] = []
+        self._replay_mismatch_retired = 0
+        # a fresh start, as the reference's (its engine keeps the initial
+        # state): the caches are written in place, so they are zeroed
+        # and their checksums with them; then every slot is retired
+        self.state = engine.retire_fn(
+            reset_decode_state(engine.cfg, engine.scfg, engine.state),
+            np.ones((self.n_slots,), np.int32))
 
     def cache_lens(self) -> np.ndarray:
         return self.state["cache_lens"].cpu().numpy()
+
+    def work_blocks(self) -> np.ndarray:
+        """Per-slot attend-step counters (``track_work``)."""
+        if "work_blocks" not in self.state:
+            raise ValueError("build the engine with track_work=True")
+        return self.state["work_blocks"].cpu().numpy()
+
+    def expected_cache_lens(self) -> np.ndarray:
+        """What ``cache_lens`` must read if the device ran exactly the
+        admits and decodes this host issued: an active slot holds its
+        prompt and one entry per decode input so far (``prompt_len +
+        emitted − 1``), a free slot −1.  The router compares it with the
+        device each tick: a dropped or duplicated admit, a blackholed
+        replica or a corrupted length shows as a mismatch."""
+        out = np.full((self.n_slots,), -1, np.int64)
+        for b, s in enumerate(self.slots):
+            if not s.free:
+                out[b] = s.prompt_len + s.emitted - 1
+        return out
+
+    def replay_mismatches(self) -> int:
+        """Journal/engine token disagreements across recovery replays,
+        live and retired."""
+        return self._replay_mismatch_retired + sum(
+            s.replay_mismatch for s in self.slots)
+
+    def _latch_integrity(self) -> None:
+        """Read the per-slot violations before the retire can reset
+        them (``integrity_latch``)."""
+        st = self.state
+        if "nonfinite" in st and bool((st["nonfinite"] > 0).any()):
+            self.latched.append("detect_nonfinite")
+        lens = self.cache_lens()
+        if (lens < -1).any() or (lens > self.eng.scfg.max_seq).any():
+            self.latched.append("detect_lens_bounds")
+        if (lens != self.expected_cache_lens()).any():
+            self.latched.append("detect_journal_stale")
 
     def submit(self, req: Request) -> None:
         plen = len(req.prompt)
@@ -105,6 +210,11 @@ class SlotScheduler:
         if req.max_new < 1:
             raise ValueError(f"request {req.rid}: max_new must be ≥ 1 "
                              f"(got {req.max_new})")
+        if len(req.replay) >= req.max_new:
+            raise ValueError(
+                f"request {req.rid}: replay carries {len(req.replay)} "
+                f"tokens but max_new={req.max_new} — a resumed request "
+                "must have live tokens left to generate")
         validate_sampling(req.rid, req.sampling)
         if req.rid in self.results:
             raise ValueError(f"request {req.rid}: duplicate request id")
@@ -126,21 +236,42 @@ class SlotScheduler:
             toks[b, :len(req.prompt)] = np.asarray(req.prompt, np.int32)
             lens[b] = len(req.prompt)
             fill_sampling_row(samp, b, req.sampling)
+        if self.hooks is not None:
+            toks, lens = self.hooks.admit_args(self, toks, lens)
         first, self.state = self.eng.admit_fn(
             self.eng.params["train"], self.state, toks, lens, samp)
         first = first.cpu().numpy()
         for b, req in admitted:
-            self.slots[b] = _Slot(rid=req.rid, remaining=req.max_new)
+            self.slots[b] = _Slot(rid=req.rid, remaining=req.max_new,
+                                  prompt_len=len(req.prompt),
+                                  replay=list(req.replay),
+                                  sampled=req.sampling.temperature > 0)
             res = self.results[req.rid]
             res.slot, res.admit_tick = b, self.tick
             self.events.append((self.tick, "admit", req.rid, b))
             self._emit(b, int(first[b]))
+        if self.hooks is not None:
+            self.hooks.post_admit(self)
 
     def _emit(self, b: int, tok: int) -> None:
         s = self.slots[b]
+        if s.replay:
+            # recovery replay: the journal's token stands, and the
+            # engine's must match it
+            want = s.replay.pop(0)
+            if tok != want:
+                s.replay_mismatch += 1
+            tok = want
         s.last_tok = tok
         s.remaining -= 1
+        s.emitted += 1
         self.results[s.rid].tokens.append(tok)
+
+    def _finishing(self) -> bool:
+        return any(not s.free and (s.remaining <= 0
+                                   or (self.eos_id is not None
+                                       and s.last_tok == self.eos_id))
+                   for s in self.slots)
 
     def _retire_finished(self) -> None:
         fin = [b for b, s in enumerate(self.slots) if not s.free
@@ -155,21 +286,40 @@ class SlotScheduler:
             rid = self.slots[b].rid
             self.results[rid].finish_tick = self.tick
             self.events.append((self.tick, "finish", rid, b))
+            self._replay_mismatch_retired += self.slots[b].replay_mismatch
             self.slots[b] = _Slot()
         self.state = self.eng.retire_fn(self.state, mask)
 
     def step(self) -> None:
+        if self.hooks is not None:
+            self.hooks.pre_step(self)
         self._admit()
+        if self.integrity_latch and self._finishing():
+            # a request admitted this tick finishes before the decode:
+            # latch now, or the retire erases a bad admit's evidence
+            self._latch_integrity()
         self._retire_finished()          # one-token / instant-EOS admits
         active = [b for b, s in enumerate(self.slots) if not s.free]
         if active:
             tok_in = np.asarray([s.last_tok for s in self.slots], np.int32)
-            nxt, self.state = self.eng.decode_fn(self.eng.params["serve"],
-                                                 self.state, tok_in)
-            self.decode_calls += 1
-            nxt = nxt.cpu().numpy()
+            if self.hooks is not None and self.hooks.decode_blackholed(self):
+                nxt = tok_in             # a stale echo; the device froze
+            else:
+                params, st, ti = self.eng.params["serve"], self.state, tok_in
+                if self.hooks is not None:
+                    params, st, ti = self.hooks.decode_args(self, params, st,
+                                                            ti)
+                nxt, self.state = self.eng.decode_fn(
+                    params, st, ti,
+                    sampled=any(self.slots[b].sampled for b in active))
+                if self.hooks is not None:
+                    self.hooks.post_decode(self)
+                self.decode_calls += 1
+                nxt = nxt.cpu().numpy()
             for b in active:
                 self._emit(b, int(nxt[b]))
+            if self.integrity_latch:
+                self._latch_integrity()
             self._retire_finished()
         self.occupancy.append(len(active) / self.n_slots)
         self.tick += 1

@@ -493,7 +493,7 @@ def test_graphed_step_reads_enc_kv_written_by_prefill(engines, monkeypatch):
     _, _, _, fused = engines
     cfg = fused.cfg
 
-    def fake_capture(step, device):
+    def fake_capture(step, device, pool=None):
         with _capture_rules():
             step()
 

@@ -162,9 +162,11 @@ def test_generate_and_sampling_limits(engines):
     assert toks.shape == (SLOTS, 4)
     assert _host(st["cache_lens"]).tolist() == [6] * SLOTS
     sched = SlotScheduler(port, prompt_cap=PROMPT_CAP)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
-        sched.submit(Request(0, [1, 2], 3,
-                             sampling=SamplingParams(temperature=0.7)))
+    # sampled requests are served (tests/test_torch_sampling.py)
+    sampled = SamplingParams(temperature=0.7, top_k=4, seed=3)
+    sched.submit(Request(0, [1, 2], 3, sampling=sampled))
+    assert sched.run()[0].sampling == sampled
+    assert len(sched.results[0].tokens) == 3
     with pytest.raises(ValueError, match="top_k"):
         sched.submit(Request(1, [1, 2], 3, sampling=SamplingParams(top_k=9)))
     with pytest.raises(ValueError, match="prompt_cap"):

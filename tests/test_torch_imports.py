@@ -42,7 +42,10 @@ def test_every_module_imports_without_jax():
             "repro_torch.kernels.rglru_scan.rglru_scan",
             "repro_torch.configs.recurrentgemma_9b",
             "repro_torch.configs.gemma2_27b",
-            "repro_torch.serving.step_graph"} <= set(_modules())
+            "repro_torch.serving.step_graph", "repro_torch.core.threefry",
+            "repro_torch.serving.integrity", "repro_torch.serving.faults",
+            "repro_torch.serving.router", "repro_torch.serving.sweep"
+            } <= set(_modules())
 
 
 def test_no_source_names_jax_or_the_reference_package():

@@ -46,6 +46,7 @@ from repro_torch.models.transformer import embed_tokens, from_reference_params
 from repro_torch.serving import engine as engine_mod
 from repro_torch.serving import step_graph
 from repro_torch.serving.engine import EngineOptions, init_decode_state
+from repro_torch.serving.sampling import GREEDY, SamplingParams
 from repro_torch.serving.scheduler import Request, SlotScheduler, replay_trace
 from repro_torch.serving.step_graph import StepGraph
 
@@ -99,7 +100,7 @@ def fake_graphs(monkeypatch):
     Yields the steps captured, in order."""
     captured = []
 
-    def fake_capture(step, device):
+    def fake_capture(step, device, pool=None):
         captured.append(step)
         with _capture_rules():
             step()
@@ -156,12 +157,16 @@ def _assert_same_bits(a, b):
         assert torch.equal(_bits(x), _bits(y))
 
 
-def _trace(eng, vocab):
+def _trace(eng, vocab, sampled=False):
+    """``TRACE`` through a fresh scheduler; ``sampled``: its even requests
+    at temperature 0.8 (top-k 5, top-p 0.9, a seed each)."""
     rng = np.random.default_rng(1)
     prompts = [rng.integers(0, vocab, n).tolist() for _, n, _ in TRACE]
     sched = SlotScheduler(eng, prompt_cap=PROMPT_CAP)
-    res = replay_trace(sched, [(a, Request(i, prompts[i], m))
-                               for i, (a, _, m) in enumerate(TRACE)])
+    res = replay_trace(sched, [(a, Request(i, prompts[i], m, sampling=(
+        SamplingParams(temperature=0.8, top_k=5, top_p=0.9, seed=i)
+        if sampled and i % 2 == 0 else GREEDY)))
+        for i, (a, _, m) in enumerate(TRACE)])
     return sched, res
 
 
@@ -176,7 +181,7 @@ def test_graphed_trace_equals_eager(arch, backend, check_finite,
     tokens, events and the final state equal the eager engine's bit for
     bit."""
     eager, graphed = _engines(arch, backend, check_finite=check_finite)
-    assert len(fake_graphs) == 1                 # the eager engine has none
+    assert len(fake_graphs) == 2     # greedy and sampled; the eager has none
     launches = dict(graphed.decode_fn.launches)
     e_sched, e_res = _trace(eager, eager.cfg.vocab_size)
     tracecount.reset()
@@ -188,7 +193,7 @@ def test_graphed_trace_equals_eager(arch, backend, check_finite,
         {r: e_res[r].tokens for r in e_res}
     assert graphed.decode_fn.replays == g_sched.decode_calls > 0
     assert tracecount.replays() == g_sched.decode_calls
-    assert len(fake_graphs) == 1                          # no re-capture
+    assert len(fake_graphs) == 2                          # no re-capture
     assert graphed.decode_fn.launches == launches
     _assert_same_bits(g_sched.state, e_sched.state)
 
@@ -242,6 +247,36 @@ def test_graphed_trace_matches_the_reference():
     assert (got == want).mean() >= 0.9, (got, want)
 
 
+@pytest.mark.parametrize("backend", ["pallas", "xla"])
+def test_graphed_sampled_trace_equals_eager(backend, fake_graphs):
+    """Half the trace sampled: a step with a live sampled slot replays the
+    sampled graph, the others the greedy one; tokens and the final state
+    equal the eager engine's bit for bit, and the sampled streams are not
+    the greedy ones."""
+    eager, graphed = _engines("llama2-7b", backend, check_finite=True)
+    assert len(fake_graphs) == 2
+    runs = {"greedy": 0, "sampled": 0}
+    graph = graphed.decode_fn
+
+    def counted(p, st, tok, sampled=False):
+        runs["sampled" if sampled else "greedy"] += 1
+        return graph(p, st, tok, sampled=sampled)
+
+    e_sched, e_res = _trace(eager, eager.cfg.vocab_size, sampled=True)
+    g_sched, g_res = _trace(graphed._replace(decode_fn=counted),
+                            graphed.cfg.vocab_size, sampled=True)
+    assert g_sched.events == e_sched.events
+    assert {r: g_res[r].tokens for r in g_res} == \
+        {r: e_res[r].tokens for r in e_res}
+    assert graph.replays == g_sched.decode_calls == sum(runs.values())
+    assert runs["sampled"] > 0 and runs["greedy"] > 0
+    _assert_same_bits(g_sched.state, e_sched.state)
+    _, greedy = _trace(eager, eager.cfg.vocab_size)
+    assert any(greedy[r].tokens != e_res[r].tokens for r in e_res
+               if r % 2 == 0)
+    assert all(greedy[r].tokens == e_res[r].tokens for r in e_res if r % 2)
+
+
 def test_build_leaves_a_fresh_state():
     """The warm-up and capture steps leave no trace: after the graph is
     built the engine's state equals a fresh ``init_decode_state`` bit for
@@ -252,8 +287,9 @@ def test_build_leaves_a_fresh_state():
                             options=EngineOptions(check_finite=True))
     tracecount.reset()
     graph = StepGraph(cfg, eng.scfg, eng.params["serve"], eng.state)
-    # two warm-up steps and the capture: the step ran three times
-    assert tracecount.calls()["flash_decode"] == 3 * cfg.n_layers
+    # two warm-up steps and the capture of each of the two steps (greedy
+    # and sampled): the step ran six times
+    assert tracecount.calls()["flash_decode"] == 2 * 3 * cfg.n_layers
     assert tracecount.replays() == 0
     _assert_same_bits(eng.state, init_decode_state(cfg, eng.scfg,
                                                    device="cpu"))
@@ -329,9 +365,9 @@ def test_fake_capture_catches_a_host_sync(monkeypatch):
                             device="cpu", seed=0)
     real = engine_mod.finalize_candidates
 
-    def syncing(vals, ids, samp):
+    def syncing(vals, ids, samp, *noise):
         int(ids[0, 0])                    # a host read-back
-        return real(vals, ids, samp)
+        return real(vals, ids, samp, *noise)
 
     monkeypatch.setattr(engine_mod, "finalize_candidates", syncing)
     with pytest.raises(CaptureHazard, match="__int__"):
