@@ -10,13 +10,14 @@ queued behind a spin kernel; B2's and B3's ``products_ms`` as phase 6
 takes them).  From the root of a checkout on a machine with a card:
 
     python3 scripts/kernel_bench.py fused_head,rwkv6_scan \\
-        [--trees build/parent . . build/parent] [--out DIR]
+        [--trees build/parent . . build/parent] [--out DIR] [--all]
 
 Each tree (an unpacked ``git archive``, or this checkout) runs in a
 process of its own, importing that tree's ``chip_smoke.py`` and
 ``repro_torch``, in the order given; each prints one JSON line a case
 (``tree``, ``name``, ``path``, ``stage``, ``max_abs_err``, ``ms``,
-``bound_ms``, ``products_ms``), one of its build (registers and
+``bound_ms``, ``products_ms``; ``--all`` times the check-only cases
+too, such as one rank's shapes of a mesh), one of its build (registers and
 spills per kernel instance, from ``nvcc -Xptxas -v``) and one of the
 card (``nvidia-smi``'s name and power limit).  Full output of
 run i goes to ``DIR/bench_<i>.log`` (default ``build/bench``).  Exits
@@ -34,7 +35,7 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def run_tree(tree: str, names) -> int:
+def run_tree(tree: str, names, time_all: bool = False) -> int:
     """Check and time the cases of ``names`` with ``tree``'s code."""
     sys.path[:0] = [tree, os.path.join(tree, "src")]
     import torch
@@ -73,7 +74,7 @@ def run_tree(tree: str, names) -> int:
             err = cs.check_kernel(case)
             row = dict(tree=tree, name=case["name"], path=path,
                        stage=case["stage"], max_abs_err=err)
-            if not case.get("check_only"):
+            if time_all or not case.get("check_only"):
                 args, kw = case["args"], case["kw"]
                 ms, covered = cs.cuda_ms(lambda: case["fn"](**args, **kw), 20)
                 b_ms, b_by = cs.bound(*case["cost"],
@@ -96,17 +97,20 @@ def main() -> int:
     ap.add_argument("kernels", help="comma-separated kernel names")
     ap.add_argument("--trees", nargs="+", default=[ROOT])
     ap.add_argument("--out", default=os.path.join(ROOT, "build", "bench"))
+    ap.add_argument("--all", action="store_true",
+                    help="time the check-only cases too")
     ap.add_argument("--one", help=argparse.SUPPRESS)
     args = ap.parse_args()
     names = tuple(args.kernels.split(","))
     if args.one:
-        return run_tree(args.one, names)
+        return run_tree(args.one, names, args.all)
     os.makedirs(args.out, exist_ok=True)
     ok = True
     for i, tree in enumerate(args.trees):
         tree = os.path.abspath(tree)
         run = subprocess.run([sys.executable, os.path.abspath(__file__),
-                              args.kernels, "--one", tree], cwd=tree,
+                              args.kernels, "--one", tree]
+                             + ["--all"] * args.all, cwd=tree,
                              capture_output=True, text=True)
         log = run.stdout + run.stderr
         with open(os.path.join(args.out, f"bench_{i + 1}.log"), "w") as f:

@@ -1,18 +1,25 @@
 """Decode dataflow at cluster size 1 — the port of the parts of
 ``repro/core/dataflow.py`` the two serving backends run.
 
-At cluster size 1 the paper's ClusterGather/ClusterReduce are the
-identity.  On the prepacked ``"pallas"`` path one layer is: the
-attention kernel for all slots (B1 ``fused_decode``, or B4
-``fused_mla_decode`` for MLA), the append of the new k/v (or latent
-entry) into the cache, and the normalize + head sum of the per-head
-partials — the last two plain torch, as they are XLA ops in the
-reference.  On the unfused ``"xla"`` path (:func:`split_token_attention`,
-the paper's baseline) the q/k/v projections, RoPE, the append (into a
-ring cache on sliding-window layers) and the output projection are
-plain torch around B5 ``flash_decode``; its MLA layer
+Inside a rank the cluster is 1, and the paper's ClusterGather and the
+flash combine over it are the identity.  On the prepacked ``"pallas"``
+path one layer is: the attention kernel for all slots (B1
+``fused_decode``, with the fused ``bqkv`` where the model has q/k/v
+biases, or B4 ``fused_mla_decode`` for MLA), the append of the new k/v
+(or latent entry) into the cache, and the normalize + head sum of the
+per-head partials — the last two plain torch, as they are XLA ops in
+the reference.  On the unfused ``"xla"`` path (:func:`split_token_attention`,
+the paper's baseline) the q/k/v products (and biases), RoPE, the append
+(into a ring cache on sliding-window layers) and the output projection
+are plain torch around B5 ``flash_decode``; its MLA layer
 (:func:`mla_attention`) is plain torch and cuBLAS throughout, as the
 reference's XLA branch runs around no Pallas kernel.
+
+On a mesh (a :class:`ClusterSpec`, ``spec``) each rank runs its own
+heads, and the layer's output meets the other ranks' in
+``spec.heads_reduce``: the paper's tree ClusterReduce over the heads
+sub-axis, in the model dtype, as the reference's
+(``dataflow.py:49–95``, ``:569``, ``:764``, ``:954``, ``:1098``).
 
 The port updates the KV cache in place (the reference rebuilt it).
 The reference's ``_fit_block_s`` has no counterpart: it fits Pallas
@@ -22,16 +29,39 @@ kernels mask their ragged last tile instead.
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass
 from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch.core import primitives as prim
+from repro_torch.core.primitives import Axis
 from repro_torch.kernels.flash_decode.flash_decode import (
     flash_decode_attention)
 from repro_torch.kernels.fused_decode.fused_decode import (
     fused_decode_attention, rope_at)
 from repro_torch.kernels.fused_mla_decode.fused_mla_decode import (
     fused_mla_decode_attention)
+
+
+@dataclass(frozen=True, eq=False)
+class ClusterSpec:
+    """How the model axis is factored for the dataflow
+    (``dataflow.py:49``): the ``heads`` sub-axis.  The cluster is 1
+    inside a rank here (a cluster across devices is ROADMAP A.5b), so
+    only the heads reduce moves data."""
+
+    heads: Axis
+
+    def heads_reduce(self, x):
+        """The output's sum over the heads ranks (the paper's atomicAdd):
+        the tree over the heads sub-axis (``dataflow.py:88``)."""
+        return prim.cluster_reduce(x, self.heads, "sum")
+
+
+def _heads_reduce(spec: Optional[ClusterSpec], x: torch.Tensor
+                  ) -> torch.Tensor:
+    return x if spec is None else spec.heads_reduce(x)
 
 
 class KVBlock(NamedTuple):
@@ -123,8 +153,8 @@ def _appends(S: int, cache_lens: torch.Tensor) -> torch.Tensor:
     linear cache, where the one rank owns every position below ``S``:
     slot b appends (and attends to its new token) iff
     ``0 ≤ cache_lens[b] < S``.  A free slot (−1) and a full cache append
-    nothing.  The owner rank and shard-local slot come back with the
-    multi-GPU slice."""
+    nothing.  The owner rank, the shard-local slot and ``pos_base`` of a
+    cluster across devices are ROADMAP A.5b."""
     return (cache_lens >= 0) & (cache_lens < S)
 
 
@@ -178,7 +208,8 @@ def split_token_attention(x: torch.Tensor, w: SplitTokenWeights,
                           cos: torch.Tensor, sin: torch.Tensor, *,
                           window: int = 0, attn_softcap: float = 0.0,
                           scale: Optional[float] = None,
-                          kernel=flash_decode_attention) -> torch.Tensor:
+                          kernel=flash_decode_attention,
+                          spec: Optional[ClusterSpec] = None) -> torch.Tensor:
     """One attention layer of the unfused dataflow (the XLA branch of
     ``split_token_attention``, ``dataflow.py:500–571``, at cluster 1):
     ``x [B, D]`` already normed → ``[B, D]`` in ``x.dtype``; the new k/v
@@ -228,7 +259,7 @@ def split_token_attention(x: torch.Tensor, w: SplitTokenWeights,
     att = kernel(q, cache.k.view(S, B, kv_loc, hd),
                  cache.v.view(S, B, kv_loc, hd), lens, scale=scale,
                  attn_softcap=attn_softcap)
-    return att.reshape(B, q_loc * hd).to(x.dtype) @ w.wo
+    return _heads_reduce(spec, att.reshape(B, q_loc * hd).to(x.dtype) @ w.wo)
 
 
 def split_token_attention_packed(x: torch.Tensor,
@@ -238,7 +269,8 @@ def split_token_attention_packed(x: torch.Tensor,
                                  attn_softcap: float = 0.0,
                                  norm_eps: float = 1e-6,
                                  scale: Optional[float] = None,
-                                 kernel=fused_decode_attention
+                                 kernel=fused_decode_attention,
+                                 spec: Optional[ClusterSpec] = None
                                  ) -> torch.Tensor:
     """One attention layer on prepacked weights
     (``_split_token_attention_pallas_packed`` at cluster 1): returns the
@@ -265,17 +297,17 @@ def split_token_attention_packed(x: torch.Tensor,
     o, k_new, v_new, m, l = kernel(
         x, w.wqkv, w.wo, w.ln1, cache.k, cache.v, cache.pos, cache_lens,
         live.to(torch.int32), cos, sin, q_heads=q_loc, kv_heads=kv_loc,
-        scale=scale, norm_eps=norm_eps, window=window,
+        scale=scale, norm_eps=norm_eps, bqkv=w.bqkv, window=window,
         attn_softcap=attn_softcap)
     _insert_kv_ragged(cache, k_new, v_new, cache_lens, ring=ring)
     o_full = (o / torch.clamp(l[..., None], min=1e-30)).sum(dim=1)
-    return o_full.to(x.dtype)
+    return _heads_reduce(spec, o_full.to(x.dtype))
 
 
 def mla_attention(x: torch.Tensor, w: MLAWeights, cache: KVBlock,
                   cache_lens: torch.Tensor, cos: torch.Tensor,
-                  sin: torch.Tensor, *, nope_dim: int, rope_dim: int
-                  ) -> torch.Tensor:
+                  sin: torch.Tensor, *, nope_dim: int, rope_dim: int,
+                  spec: Optional[ClusterSpec] = None) -> torch.Tensor:
     """One MLA layer of the unfused dataflow (the XLA branch of
     ``mla_attention``, ``dataflow.py:896–955``, at cluster 1): ``x [B,
     D]`` already normed → ``[B, D]`` in ``x.dtype``; the latent entry is
@@ -314,8 +346,8 @@ def mla_attention(x: torch.Tensor, w: MLAWeights, cache: KVBlock,
     a_lat = latent_attention(q_cat, cache, cache_lens, l_rank, scale)
     o_head = torch.bmm(a_lat.transpose(0, 1), w.wuv.float())  # [q, B, v]
     v_dim = w.wuv.shape[2]
-    return o_head.transpose(0, 1).reshape(B, q_loc * v_dim).to(x.dtype) \
-        @ w.wo
+    return _heads_reduce(spec, o_head.transpose(0, 1).reshape(
+        B, q_loc * v_dim).to(x.dtype) @ w.wo)
 
 
 def latent_attention(q_cat: torch.Tensor, cache: KVBlock,
@@ -344,7 +376,8 @@ def mla_attention_packed(x: torch.Tensor, w: PackedMLAWeights,
                          cos: torch.Tensor, sin: torch.Tensor, *,
                          nope_dim: int, rope_dim: int,
                          norm_eps: float = 1e-6,
-                         kernel=fused_mla_decode_attention) -> torch.Tensor:
+                         kernel=fused_mla_decode_attention,
+                         spec: Optional[ClusterSpec] = None) -> torch.Tensor:
     """One MLA layer on prepacked weights (``_mla_attention_pallas_packed``
     at cluster 1): the B4 kernel for all slots, the latent entry appended
     in place (rounded, as the kernel emits it: the entry to ``k`` and its
@@ -361,10 +394,10 @@ def mla_attention_packed(x: torch.Tensor, w: PackedMLAWeights,
         rope_d=rope_dim, l_rank=l_rank, norm_eps=norm_eps)
     _insert_kv_ragged(cache, c_new, c_new[:, :1], cache_lens)
     o_full = (o / torch.clamp(l[..., None], min=1e-30)).sum(dim=1)
-    return o_full.to(x.dtype)
+    return _heads_reduce(spec, o_full.to(x.dtype))
 
 
-__all__ = ["KVBlock", "SplitTokenWeights", "MLAWeights",
+__all__ = ["ClusterSpec", "KVBlock", "SplitTokenWeights", "MLAWeights",
            "PackedSplitTokenWeights", "PackedMLAWeights", "PackedFFNWeights",
            "PackedHeadWeights", "split_token_attention",
            "split_token_attention_packed", "mla_attention",

@@ -3,8 +3,9 @@
 //
 // Replaces repro/kernels/fused_decode/fused_decode.py:fused_decode_attention
 // (the Pallas kernel at its pallas_call, line 374) in the serving mode:
-// fused ln1, no bias, q_per_kv = nq / nkv query heads a kv head (1 = MHA;
-// GQA and MQA above), hd 128 — or hd 256 at MQA 16/1 (RecurrentGemma-9B's
+// fused ln1, an optional q/k/v bias (Qwen2-72B's), q_per_kv = nq / nkv
+// query heads a kv head (1 = MHA; GQA and MQA above), hd 128 — or hd 256
+// at MQA 16/1 (RecurrentGemma-9B's
 // local layers), or hd 64 at MHA (SeamlessM4T-medium's decoder) —, on a
 // linear cache or a sliding window over a ring
 // cache (Gemma-2's and RecurrentGemma's local layers), with or without
@@ -18,7 +19,12 @@
 // cluster per kv head (the wrapper's plan: C = 4, H = 1 at Llama2-7B, 128
 // CTAs; C = 8, H = 4 and 3 at Granite-8B and Minitron-4B, 64 CTAs; C = 4,
 // H = 2 at Gemma-2 27B, 64 CTAs: its 16 clusters of 8 would be one more
-// than the 15 an H100 runs at once, and measured slower); at hd 256 and
+// than the 15 an H100 runs at once, and measured slower; at q_per_kv 8,
+// Qwen2-72B's, H = 2 of a kv head's 8 query heads, clusters of 8 of 1024
+// rows a rank at d_model 8192: the wqkv ring of 8 heads a cluster would
+// not fit the shared memory, 4 heads a cluster (with a two-stage wo
+// ring) ran 26-29 % slower at a mesh rank's 16/2 and 8/1 heads, and four
+// clusters a kv head each read its rows again); at hd 256 and
 // MQA 16/1 H = 2 of the kv head's 16 query heads, 8 clusters of 8 (64
 // CTAs): one cluster for all 16 would need ~740 KB of shared memory for
 // its wqkv ring, and 8 CTAs could not stream the layer; each of the 8
@@ -44,8 +50,10 @@
 //   3. ClusterReduce: the [B, (H + 2)·hd] f32 partials are summed in rank
 //      order, each rank its slice over DSMEM (cluster::sum), then gathered
 //      (cluster::gather), so every rank holds the same q, k and v;
-//   4. applies RoPE in f32; rank 0 of the kv head's first cluster writes
-//      the rounded k_new/v_new;
+//   4. adds the bias (bqkv, bf16, in f32: the reference's order, after
+//      the projection and before RoPE) where given; applies RoPE in f32;
+//      rank 0 of the kv head's first cluster writes the rounded
+//      k_new/v_new;
 //   5. attends over its share of the rows [0, min(cache_len, S)) of each
 //      slot (run r of C of equal length: a slot's split depends on its
 //      own length alone), rows with pos in [0, cache_len) and, with a
@@ -189,6 +197,7 @@ fused_decode_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wqkv,
                     const int* __restrict__ pos, const int* __restrict__ cache_lens,
                     const int* __restrict__ include_new,
                     const float* __restrict__ cosv, const float* __restrict__ sinv,
+                    const bf16* __restrict__ bqkv,
                     float* __restrict__ o, bf16* __restrict__ k_new,
                     bf16* __restrict__ v_new, float* __restrict__ m_out,
                     float* __restrict__ l_out, int D, int S, int nq, int nkv,
@@ -447,7 +456,17 @@ fused_decode_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wqkv,
   }
   FD_STAMP(3);
 
-  // ---- phase 3: RoPE (rotate halves) on q and k, in f32 ---------------
+  // ---- phase 3: the bias, then RoPE (rotate halves) on q and k, in f32 -
+  if (bqkv != nullptr) {
+    for (int i = tid; i < B * NC; i += NT) {
+      const int b = i / NC, c = i % NC;
+      const int col = c < H * HD ? qb * HD + c
+                    : (c < (H + 1) * HD ? (nq + g) * HD + c - H * HD
+                                        : (nq + nkv + g) * HD + c - (H + 1) * HD);
+      qkv[b * NC + c] += bf2f(bqkv[col]);
+    }
+    __syncthreads();
+  }
   constexpr int HALF = HD / 2;
   for (int idx = tid; idx < B * HALF; idx += NT) {
     const int b = idx / HALF, i = idx % HALF;
@@ -901,25 +920,28 @@ template <int B, int H, int HD>
 int launch(int C, const bf16* x, const bf16* wqkv, const bf16* wo,
            const float* ln1, const bf16* kc, const bf16* vc, const int* pos,
            const int* cache_lens, const int* include_new, const float* cosv,
-           const float* sinv, float* o, bf16* k_new, bf16* v_new, float* m,
-           float* l, int D, int S, int nq, int nkv, int window, float scale,
-           float eps, float cap, cudaStream_t stream) {
+           const float* sinv, const bf16* bqkv, float* o, bf16* k_new,
+           bf16* v_new, float* m, float* l, int D, int S, int nq, int nkv,
+           int window, float scale, float eps, float cap,
+           cudaStream_t stream) {
   return (int)cluster::launch(
       fused_decode_kernel<B, H, HD>, dim3(nq / H * C), NT,
       smem_bytes<B, H, HD>(D, C), stream, C, x, wqkv, wo, ln1, kc, vc, pos,
-      cache_lens, include_new, cosv, sinv, o, k_new, v_new, m, l, D, S, nq,
-      nkv, window, scale, eps, cap);
+      cache_lens, include_new, cosv, sinv, bqkv, o, k_new, v_new, m, l, D,
+      S, nq, nkv, window, scale, eps, cap);
 }
 
 template <int H, int HD>
 int launch_b(int B, int C, const bf16* x, const bf16* wqkv, const bf16* wo,
              const float* ln1, const bf16* kc, const bf16* vc, const int* pos,
              const int* cache_lens, const int* include_new, const float* cosv,
-             const float* sinv, float* o, bf16* k_new, bf16* v_new, float* m,
-             float* l, int D, int S, int nq, int nkv, int window, float scale,
-             float eps, float cap, cudaStream_t stream) {
+             const float* sinv, const bf16* bqkv, float* o, bf16* k_new,
+             bf16* v_new, float* m, float* l, int D, int S, int nq, int nkv,
+             int window, float scale, float eps, float cap,
+             cudaStream_t stream) {
 #define ARGS C, x, wqkv, wo, ln1, kc, vc, pos, cache_lens, include_new, cosv, \
-    sinv, o, k_new, v_new, m, l, D, S, nq, nkv, window, scale, eps, cap, stream
+    sinv, bqkv, o, k_new, v_new, m, l, D, S, nq, nkv, window, scale, eps, cap, \
+    stream
   switch (B) {
     case 1: return launch<1, H, HD>(ARGS);
     case 2: return launch<2, H, HD>(ARGS);
@@ -937,11 +959,12 @@ int launch_b(int B, int C, const bf16* x, const bf16* wqkv, const bf16* wo,
 // The shared memory a CTA may use (227 KB on an H100).
 constexpr size_t SMEM_MAX = 232448;
 
-// The instances: (H, hd) = (q_per_kv, 128) for q_per_kv 1-4, (2, 256)
-// for q_per_kv 16 (RecurrentGemma-9B: 8 clusters of two query heads) and
-// (1, 64) for MHA (SeamlessM4T-medium: a cluster a head)
+// The instances: (H, hd) = (q_per_kv, 128) for q_per_kv 1-4, (2, 128)
+// for q_per_kv 8 (Qwen2-72B: four clusters of two query heads a kv head),
+// (2, 256) for q_per_kv 16 (RecurrentGemma-9B: 8 clusters of two query
+// heads) and (1, 64) for MHA (SeamlessM4T-medium: a cluster a head)
 bool instance_ok(int qpk, int hd, int H) {
-  if (hd == 128) return H == qpk && H >= 1 && H <= 4;
+  if (hd == 128) return (H == qpk && H >= 1 && H <= 4) || (qpk == 8 && H == 2);
   if (hd == 64) return qpk == 1 && H == 1;
   return hd == 256 && qpk == 16 && H == 2;
 }
@@ -968,16 +991,18 @@ bool plan_ok(int nq, int nkv, int hd, int D, int C, int H) {
 extern "C" int fused_decode_launch(
     const void* x, const void* wqkv, const void* wo, const void* ln1,
     const void* kc, const void* vc, const void* pos, const void* cache_lens,
-    const void* include_new, const void* cosv, const void* sinv, void* o,
-    void* k_new, void* v_new, void* m, void* l, int B, int D, int S, int nq,
+    const void* include_new, const void* cosv, const void* sinv,
+    const void* bqkv, void* o, void* k_new, void* v_new, void* m, void* l,
+    int B, int D, int S, int nq,
     int nkv, int hd, int C, int H, int window, float scale, float eps,
     float cap, void* stream) {
   if (!plan_ok(nq, nkv, hd, D, C, H)) return (int)cudaErrorInvalidValue;
 #define ARGS B, C, (const bf16*)x, (const bf16*)wqkv, (const bf16*)wo,           \
     (const float*)ln1, (const bf16*)kc, (const bf16*)vc, (const int*)pos,        \
     (const int*)cache_lens, (const int*)include_new, (const float*)cosv,         \
-    (const float*)sinv, (float*)o, (bf16*)k_new, (bf16*)v_new, (float*)m,        \
-    (float*)l, D, S, nq, nkv, window, scale, eps, cap, (cudaStream_t)stream
+    (const float*)sinv, (const bf16*)bqkv, (float*)o, (bf16*)k_new,              \
+    (bf16*)v_new, (float*)m, (float*)l, D, S, nq, nkv, window, scale, eps, cap,  \
+    (cudaStream_t)stream
   if (hd == 256) return launch_b<2, 256>(ARGS);
   if (hd == 64) return launch_b<1, 64>(ARGS);
   switch (H) {

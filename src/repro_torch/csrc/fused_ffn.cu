@@ -8,8 +8,9 @@
 // gelu_tanh, relu, relu2) as a template parameter.
 //
 // Bound on an H100: bytes — w_in, w_gate and w_out (270.5 MB at
-// Llama2-7B, 352 MB at Granite-8B, 1019 MB at Gemma-2 27B; w_in and
-// w_out, 113 MB, ungated at Minitron-4B) are read once per step for all B
+// Llama2-7B, 352 MB at Granite-8B, 1019 MB at Gemma-2 27B, 1453 MB at
+// Qwen2-72B; w_in and w_out, 113 MB, ungated at Minitron-4B) are read
+// once per step for all B
 // slots, at 2·B FLOPs per weight element.  Design, the paper's cluster
 // split: G thread-block clusters of C CTAs (the wrapper's plan: 15
 // clusters of 8, 120 CTAs, at every served width: as many as an H100
@@ -61,7 +62,13 @@ constexpr int BP = 8;          // slots as laid out: the MMA's n
 constexpr int TK = 16;         // weight rows a tile: one k16 step
 constexpr int UST = 4;         // w_in / w_gate ring stages
 constexpr int DST = 5;         // w_out ring stages (two load before step 3)
-constexpr int MAX_DT = 5;      // down m tiles a warp: D / C ≤ 640
+// down m tiles a warp (a template parameter, DT): 5 where D / C ≤ 640
+// (every served width up to Gemma-2 27B's 4608 / 8 = 576), 8 up to 1024
+// (Qwen2-72B's 8192 / 8), for the gated silu FFN only (the one registered
+// model that wide); the 8 instances hold 12 more accumulators a thread,
+// which cost the 640-row plans up to 3 % a call (PERF.md §6)
+constexpr int NARROW_DT = 5;
+constexpr int MAX_DT = 8;
 // u|g m tiles a warp (a template parameter): 6 where a chunk holds at
 // most 48 16-column units (Llama2-7B's, DeepSeek-V2-Lite's and
 // Minitron-4B's plans), 8 up to 64 units (Granite-8B's d_ff 14336 in one
@@ -143,8 +150,9 @@ struct Lay {
 // (Gemma-2 27B); without it the instance takes one chunk and no
 // post_ln1, and its code stays as small as before they were added (with
 // them every instance's B2 ran 3-5 % slower inside a decode step,
-// PERF.md §6).
-template <bool GATED, int ACT, int MUT, int BT, bool EXT>
+// PERF.md §6).  DT: the down projection's m tiles a warp, 5 for at most
+// 640 rows a rank, 8 for up to 1024 (Qwen2-72B).
+template <bool GATED, int ACT, int MUT, int BT, bool EXT, int DT>
 __global__ void __launch_bounds__(NT, 1)
 fused_ffn_kernel(const bf16* __restrict__ x, const bf16* __restrict__ a,
                  const bf16* __restrict__ w_in, const bf16* __restrict__ w_gate,
@@ -306,9 +314,9 @@ fused_ffn_kernel(const bf16* __restrict__ x, const bf16* __restrict__ a,
   // the cluster's partial of the down projection, over every chunk:
   // warp w holds output m tiles (16 columns) w, w + 8, …
   const int ndm = Dr / 16;
-  float cd[MAX_DT][4];
+  float cd[DT][4];
 #pragma unroll
-  for (int j = 0; j < MAX_DT; ++j)
+  for (int j = 0; j < DT; ++j)
 #pragma unroll
     for (int q = 0; q < 4; ++q) cd[j][q] = 0.f;
 
@@ -434,7 +442,7 @@ fused_ffn_kernel(const bf16* __restrict__ x, const bf16* __restrict__ a,
       uint32_t bq[2];
       ldsm_x2_t(hm + (size_t)(t * TK + (lane & 15)) * BP, bq);
 #pragma unroll
-      for (int j = 0; j < MAX_DT; ++j) {
+      for (int j = 0; j < DT; ++j) {
         const int mt = warp + j * NW;
         if (mt < ndm) {
           uint32_t af[4];
@@ -450,7 +458,7 @@ fused_ffn_kernel(const bf16* __restrict__ x, const bf16* __restrict__ a,
   // ---- step 5: the cluster's partial to ws[g]; the last cluster sums ---
   const int srow = Dr + 4;     // staging row (f32): conflict-free stores
 #pragma unroll
-  for (int j = 0; j < MAX_DT; ++j) {
+  for (int j = 0; j < DT; ++j) {
     const int mt = warp + j * NW;
     if (mt < ndm) {
       const int c = mt * 16 + gi;
@@ -515,7 +523,8 @@ fused_ffn_kernel(const bf16* __restrict__ x, const bf16* __restrict__ a,
 }
 
 // What the kernel takes (the wrapper's cluster_plan keeps to it): D / C
-// rows a rank, a multiple of 16 up to 640; d_ff a multiple of 16, cut
+// rows a rank, a multiple of 16 up to 1024 (Qwen2-72B's 8192 over 8);
+// d_ff a multiple of 16, cut
 // into G slices of at least one 16-column unit each; 1 ≤ B ≤ 8 slots.
 bool plan_ok(int B, int D, int F, int G, int C) {
   if (B < 1 || B > BP || C < 1 || C > 8 || G < 1 || D % C) return false;
@@ -532,6 +541,20 @@ int chunk_cols(int F, int G) {
   return 16 * ((U + n - 1) / n);
 }
 
+// The instance for the chunking (EXT, MUT) and the slots (BT) of a
+// launch, with DT down tiles a warp
+template <bool GATED, int ACT, int DT>
+auto pick(bool ext, int U, int B) {
+  return ext
+      ? (B == BP ? fused_ffn_kernel<GATED, ACT, 8, BP, true, DT>
+                 : fused_ffn_kernel<GATED, ACT, 8, 0, true, DT>)
+      : U <= NW * 6
+      ? (B == BP ? fused_ffn_kernel<GATED, ACT, 6, BP, false, DT>
+                 : fused_ffn_kernel<GATED, ACT, 6, 0, false, DT>)
+      : (B == BP ? fused_ffn_kernel<GATED, ACT, 8, BP, false, DT>
+                 : fused_ffn_kernel<GATED, ACT, 8, 0, false, DT>);
+}
+
 template <bool GATED, int ACT>
 int launch(int B, int G, int C, const bf16* x, const bf16* a,
            const bf16* w_in, const bf16* w_gate, const bf16* w_out,
@@ -543,14 +566,13 @@ int launch(int B, int G, int C, const bf16* x, const bf16* a,
   const int U = (F / 16 + G - 1) / G, Fm = chunk_cols(F, G);
   const bool ext = post1 != nullptr || U > MAX_UNITS;
   const Lay L{D / C, Fm, C, GATED ? 2 * BP : BP, ext};
-  auto kernel = ext
-      ? (B == BP ? fused_ffn_kernel<GATED, ACT, 8, BP, true>
-                 : fused_ffn_kernel<GATED, ACT, 8, 0, true>)
-      : U <= NW * 6
-      ? (B == BP ? fused_ffn_kernel<GATED, ACT, 6, BP, false>
-                 : fused_ffn_kernel<GATED, ACT, 6, 0, false>)
-      : (B == BP ? fused_ffn_kernel<GATED, ACT, 8, BP, false>
-                 : fused_ffn_kernel<GATED, ACT, 8, 0, false>);
+  auto kernel = pick<GATED, ACT, NARROW_DT>(ext, U, B);
+  if (D / C > 16 * NW * NARROW_DT) {
+    if constexpr (GATED && ACT == SILU)
+      kernel = pick<GATED, ACT, MAX_DT>(ext, U, B);
+    else
+      return (int)cudaErrorInvalidValue;
+  }
   return (int)cluster::launch(kernel, dim3(G * C), NT, L.total(), stream, C,
                               x, a, w_in, w_gate, w_out, ln2, post1, ws,
                               arrivals, o, r, B, D, F, Fm, eps, add_r);

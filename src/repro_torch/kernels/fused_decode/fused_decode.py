@@ -3,15 +3,17 @@ per-head Output-Projection (``fuse_out="partial_o"``).
 
 Replaces ``repro/kernels/fused_decode/fused_decode.py:fused_decode_attention``
 (``pallas_call`` at line 374), in the mode the serving path runs: fused
-``ln1``, no bias, ``fuse_out="partial_o"``, MHA, GQA or MQA up to 4
-query heads a kv head at ``head_dim`` 128, MQA 16/1 at ``head_dim``
-256 (RecurrentGemma-9B's local layers) and MHA at ``head_dim`` 64
-(SeamlessM4T-medium's decoder), on a linear cache or — the
-local layers of Gemma-2 and RecurrentGemma — a sliding window over a
-ring cache, with or without the attention softcap.  The other modes
-(other ``head_dim``/``q_per_kv`` pairs, ``bqkv``, ``pos_base``,
-``fuse_out`` ``True``/``False``) raise ``NotImplementedError``
-(ROADMAP.md, Queue B).
+``ln1``, an optional q/k/v bias ``bqkv`` (Qwen2-72B's, added in f32 after
+the projection and before RoPE, ``fused_decode.py:103``),
+``fuse_out="partial_o"``, MHA, GQA or MQA up to 4 query heads a kv head
+and GQA 8 (Qwen2-72B's 64/8) at ``head_dim`` 128, MQA 16/1 at
+``head_dim`` 256 (RecurrentGemma-9B's local layers) and MHA at
+``head_dim`` 64 (SeamlessM4T-medium's decoder), on a linear cache or —
+the local layers of Gemma-2 and RecurrentGemma — a sliding window over
+a ring cache, with or without the attention softcap.  The other modes
+(other ``head_dim``/``q_per_kv`` pairs, ``pos_base``, ``fuse_out``
+``True``/``False``, more than 8 slots) raise ``NotImplementedError``
+(ROADMAP.md: ``pos_base`` is A.5b, the rest Queue B: B1).
 
 CUDA kernel: ``csrc/fused_decode.cu``.  What bounds it on an H100: bytes.
 At Llama2-7B widths one layer streams ``wqkv`` (100.7 MB) and ``wo``
@@ -27,7 +29,16 @@ Granite-8B and Minitron-4B, 64 CTAs: clusters of 16 or a kv head split
 over two clusters took a second wave and were slower, PERF.md §6; ``C``
 4 and ``H`` 2 at Gemma-2 27B's 16 kv heads, 64 CTAs of 1152 rows: its 16
 clusters of 8 would be one more than the 15 an H100 runs at once, and
-were slower, PERF.md §6.  At ``head_dim`` 256 and MQA 16/1
+were slower, PERF.md §6; ``H`` 2 of a kv head's 8 query heads at
+Qwen2-72B's GQA 8 (64/8 at ``D`` 8192: 32 clusters of 8 CTAs of 1024 rows,
+more than one wave; a rank of a 4- or 8-GPU mesh, 16/2 or 8/1: 8 or 4
+clusters): one cluster of all 8 heads would need about 273 KB of shared
+memory (its 1280-column ``wqkv`` ring and the per-head partials), and
+two clusters of 4 at 1024 rows a rank need a two-stage ``wo`` ring,
+which ran 1.5 % faster on one card but 26–29 % slower at a rank's 16/2
+and 8/1 (PERF.md §6), so each of the kv head's four clusters projects k
+and v again and reads its rows again.  At
+``head_dim`` 256 and MQA 16/1
 (RecurrentGemma-9B) one cluster for all 16 query heads would need about
 740 KB of shared memory for its ``wqkv`` ring and stream the layer on 8
 SMs, so the kv head's heads split into 8 clusters of 8 CTAs holding 2
@@ -79,7 +90,7 @@ _WAVE_CLUSTERS = _build.WAVE_CTAS // _MAX_CLUSTER   # clusters of 8 at once
 # (hd 128: a kv head's 1-4 query heads in one cluster; hd 256: MQA 16/1,
 # RecurrentGemma-9B's, in clusters of two query heads; hd 64: MHA,
 # SeamlessM4T-medium's, a cluster a head)
-_HEADS = {64: {1: 1}, 128: {1: 1, 2: 2, 3: 3, 4: 4}, 256: {16: 2}}
+_HEADS = {64: {1: 1}, 128: {1: 1, 2: 2, 3: 3, 4: 4, 8: 2}, 256: {16: 2}}
 # wqkv rows a rank may hold, by (head dim, query heads a cluster): csrc
 # MAX_NTO · 64 — 1152 for two heads (Gemma-2 27B's 4608 over 4 ranks),
 # else 1024 — and at hd 256 1024, what the shared memory leaves room for
@@ -102,15 +113,18 @@ def cluster_size(clusters: int, d_model: int, heads: int = 1,
     (Llama2-7B's 32 heads: 4; 8 clusters: 8) — clusters of 8 only where
     all of them run at once (15 of 8 on an H100: Gemma-2 27B's 16 take
     4) —, halved until each rank's ``d_model / C`` rows are ones the
-    kernel takes; 0 if none is."""
+    kernel takes, else doubled from there up to 8 (Qwen2-72B's 8192 rows
+    need 8 ranks, past one wave); 0 if none is."""
     c = 1
     while (c < _MAX_CLUSTER and clusters * c < _TARGET_CTAS
            and (2 * c < _MAX_CLUSTER or clusters <= _WAVE_CLUSTERS)):
         c *= 2
-    while c >= 1:
-        if d_model % c == 0 and _rows_ok(d_model // c, heads, head_dim):
-            return c
-        c //= 2
+    down = [c >> i for i in range(c.bit_length())]           # c … 1
+    up = [2 * c << i for i in range((_MAX_CLUSTER // c).bit_length() - 1)]
+    for size in down + up:
+        if d_model % size == 0 and _rows_ok(d_model // size, heads,
+                                            head_dim):
+            return size
     return 0
 
 
@@ -132,12 +146,16 @@ def cluster_plan(q_heads: int, kv_heads: int, d_model: int,
     return (c, h) if c else (0, 0)
 
 
-def _check_mode(fuse_out, bqkv, norm_scale):
-    if fuse_out != "partial_o" or bqkv is not None or norm_scale is None:
+def _check_mode(fuse_out, norm_scale, pos_base):
+    if fuse_out != "partial_o" or norm_scale is None:
         raise NotImplementedError(
             "the port's fused_decode runs fuse_out='partial_o' with a fused "
-            "ln1 and no bias; fuse_out True/False and bqkv are later "
-            "slices (ROADMAP.md, Queue B: B1)")
+            "ln1; fuse_out True/False and an unfused norm are ROADMAP "
+            "Queue B: B1 item 3")
+    if pos_base:
+        raise NotImplementedError(
+            "fused_decode with pos_base ≠ 0 (a cluster across devices) is "
+            "ROADMAP A.5b")
 
 
 def fused_decode_attention(
@@ -158,9 +176,10 @@ def fused_decode_attention(
     scale: Optional[float] = None,
     norm_eps: float = 1e-6,
     fuse_out="partial_o",
-    bqkv: Optional[torch.Tensor] = None,
+    bqkv: Optional[torch.Tensor] = None,   # [(q + 2 kv)·hd] model dtype
     window: int = 0,
     attn_softcap: float = 0.0,
+    pos_base: int = 0,
 ) -> Tuple[torch.Tensor, ...]:
     """Returns ``(o [B, q, D] f32, k_new [B, kv, hd], v_new [B, kv, hd],
     m [B, q] f32, l [B, q] f32)``: unnormalized per-head projected
@@ -171,14 +190,15 @@ def fused_decode_attention(
 
     A CUDA tensor launches the kernel; a CPU tensor takes the plain
     version; any other device raises."""
-    _check_mode(fuse_out, bqkv, norm_scale)
+    _check_mode(fuse_out, norm_scale, pos_base)
     tracecount.call("fused_decode")
     hd = k_cache.shape[-1]
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
     args = (x, wqkv, wo, norm_scale, k_cache, v_cache, pos, cache_lens,
             include_new, cos, sin)
     kw = dict(q_heads=q_heads, kv_heads=kv_heads, scale=scale,
-              norm_eps=norm_eps, window=window, attn_softcap=attn_softcap)
+              norm_eps=norm_eps, bqkv=bqkv, window=window,
+              attn_softcap=attn_softcap)
     if x.is_cuda:
         return fused_decode_cuda(*args, **kw)
     if x.device.type == "cpu":
@@ -188,11 +208,13 @@ def fused_decode_attention(
 
 def fused_decode_plain(x, wqkv, wo, norm_scale, k_cache, v_cache, pos,
                        cache_lens, include_new, cos, sin, *, q_heads,
-                       kv_heads, scale, norm_eps, window=0, attn_softcap=0.0):
+                       kv_heads, scale, norm_eps, bqkv=None, window=0,
+                       attn_softcap=0.0):
     """Plain PyTorch version (the reference's ``ref.py`` batched over
-    slots): full f32 softmax over every cached position with
-    ``pos ≥ 0 and pos < cache_len`` (and ``pos > cache_len − window``),
-    plus the new token, the scores softcapped first."""
+    slots): the bias added to the f32 projection, full f32 softmax over
+    every cached position with ``pos ≥ 0 and pos < cache_len`` (and
+    ``pos > cache_len − window``), plus the new token, the scores
+    softcapped first."""
     B, D = x.shape
     S, _, hd = k_cache.shape
     q_loc, kv_loc = q_heads, kv_heads
@@ -202,6 +224,8 @@ def fused_decode_plain(x, wqkv, wo, norm_scale, k_cache, v_cache, pos,
     xf = xf * torch.rsqrt(var + norm_eps) * (1.0 + norm_scale.float())
     xf = xf.to(x.dtype).float()
     qkv = xf @ wqkv.float()
+    if bqkv is not None:
+        qkv = qkv + bqkv.float()
     q = qkv[:, :q_loc * hd].reshape(B, q_loc, hd)
     k_new = qkv[:, q_loc * hd:(q_loc + kv_loc) * hd].reshape(B, kv_loc, hd)
     v_new = qkv[:, (q_loc + kv_loc) * hd:].reshape(B, kv_loc, hd)
@@ -238,13 +262,14 @@ def fused_decode_plain(x, wqkv, wo, norm_scale, k_cache, v_cache, pos,
             m.reshape(B, q_loc), l.reshape(B, q_loc))
 
 
-_ARGTYPES = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 9 \
+_ARGTYPES = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 9 \
     + [ctypes.c_float] * 3 + [ctypes.c_void_p]
 
 
 def fused_decode_cuda(x, wqkv, wo, norm_scale, k_cache, v_cache, pos,
                       cache_lens, include_new, cos, sin, *, q_heads,
-                      kv_heads, scale, norm_eps, window=0, attn_softcap=0.0):
+                      kv_heads, scale, norm_eps, bqkv=None, window=0,
+                      attn_softcap=0.0):
     """Launch ``csrc/fused_decode.cu`` on the current stream (one launch
     for the whole batch, ``q_heads / H`` clusters of ``C`` CTAs)."""
     B, D = x.shape
@@ -252,7 +277,8 @@ def fused_decode_cuda(x, wqkv, wo, norm_scale, k_cache, v_cache, pos,
     C, H = cluster_plan(q_heads, kv_heads, D, hd)
     if (B > _MAX_B or rows != B * kv_heads
             or not C or wqkv.shape != (D, (q_heads + 2 * kv_heads) * hd)
-            or wo.shape != (q_heads, hd, D) or pos.shape != (S, B)):
+            or wo.shape != (q_heads, hd, D) or pos.shape != (S, B)
+            or (bqkv is not None and bqkv.shape != (wqkv.shape[1],))):
         raise NotImplementedError(
             f"fused_decode CUDA kernel: (head_dim, q_per_kv) in "
             f"{[(d, q) for d, qs in _HEADS.items() for q in qs]}, "
@@ -265,16 +291,21 @@ def fused_decode_cuda(x, wqkv, wo, norm_scale, k_cache, v_cache, pos,
     tensors = dict(x=x, wqkv=wqkv, wo=wo, ln1=norm_scale, k_cache=k_cache,
                    v_cache=v_cache, pos=pos, cache_lens=cache_lens,
                    include_new=include_new, cos=cos, sin=sin)
+    if bqkv is not None:
+        tensors["bqkv"] = bqkv
     _build.require("fused_decode", tensors, dict(
         x=bf, wqkv=bf, wo=bf, ln1=f32, k_cache=bf, v_cache=bf, pos=i32,
-        cache_lens=i32, include_new=i32, cos=f32, sin=f32))
+        cache_lens=i32, include_new=i32, cos=f32, sin=f32, bqkv=bf))
     fn = _build.function("fused_decode", "fused_decode_launch", _ARGTYPES)
     o = torch.empty((B, q_heads, D), dtype=f32, device=x.device)
     k_new = torch.empty((B, kv_heads, hd), dtype=bf, device=x.device)
     v_new = torch.empty_like(k_new)
     m = torch.empty((B, q_heads), dtype=f32, device=x.device)
     l = torch.empty_like(m)
-    err = fn(*(t.data_ptr() for t in tensors.values()),
+    ptrs = [t.data_ptr() for t in tensors.values()]
+    if bqkv is None:
+        ptrs.append(None)
+    err = fn(*ptrs,
              o.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
              m.data_ptr(), l.data_ptr(), B, D, S, q_heads, kv_heads, hd, C,
              H, int(window), scale, norm_eps, float(attn_softcap),

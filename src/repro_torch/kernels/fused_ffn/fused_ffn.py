@@ -17,7 +17,8 @@ at every served width, one wave).  Cluster ``g`` owns a slice of d_ff,
 taken in chunks of at most 64 16-column units (one chunk up to
 Granite-8B's width; three at Gemma-2 27B's d_ff 36864), and each of its
 ranks ``D/C`` rows of ``w_in``/``w_gate`` (the matching columns of
-``w_out``: 576 at Gemma-2's d_model 4608); per chunk the ranks'
+``w_out``: 576 at Gemma-2's d_model 4608, 1024 at Qwen2-72B's 8192);
+per chunk the ranks'
 ``u``/``g`` partials are summed on chip over
 distributed shared memory in rank order, and the down projection goes
 to an f32 ``[G, B, D]`` workspace.  The last cluster to finish a column
@@ -46,7 +47,10 @@ from repro_torch.kernels import _build
 from repro_torch.models.layers import activation
 
 _MAX_B = 8
-_MAX_ROWS = 640       # d_model rows a rank may hold (csrc MAX_DT · 128)
+_MAX_ROWS = 1024      # d_model rows a rank may hold (csrc MAX_DT · 128)
+# past 640 rows a rank (csrc NARROW_DT · 128) only the gated silu FFN has
+# instances: Qwen2-72B's, the one registered model that wide
+_NARROW_ROWS = 640
 # the reference's activation table (models/layers.py:activation) as the
 # kernel's template parameter (csrc ``Act``); gelu is the tanh form
 ACTS = {"silu": 0, "gelu": 1, "gelu_tanh": 1, "relu": 2, "relu2": 3}
@@ -56,7 +60,9 @@ ACTS = {"silu": 0, "gelu": 1, "gelu_tanh": 1, "relu": 2, "relu2": 3}
 def cluster_plan(d_model: int, d_ff: int) -> Tuple[int, int]:
     """``(G, C)``: ``G`` clusters of ``C`` CTAs for the shapes alone.
     ``C`` is the largest power of two ≤ 8 that leaves each rank a
-    multiple of 16 rows of d_model, at most 640; ``G`` brings the grid to
+    multiple of 16 rows of d_model, at most 1024 (Qwen2-72B's 8192: 8
+    ranks of 1024; every narrower served width keeps its plan of 8
+    ranks); ``G`` brings the grid to
     ``_build.WAVE_CTAS`` (one wave: 15 clusters of 8), and no more than
     there are 16-column units of d_ff (a cluster takes its slice in
     chunks of at most 64 units, csrc ``chunk_cols``).  ``(0, 0)`` where
@@ -143,11 +149,15 @@ def fused_ffn_cuda(x, a, w_in, w_gate, w_out, ln2, post_ln1=None, *, add_r,
     G, C = cluster_plan(D, F)
     if (B > _MAX_B or not C or a.shape != x.shape or act not in ACTS
             or w_in.shape != (D, F) or w_out.shape != (F, D)
-            or (w_gate is not None and w_gate.shape != (D, F))):
+            or (w_gate is not None and w_gate.shape != (D, F))
+            or (D // C > _NARROW_ROWS
+                and (w_gate is None or ACTS[act] != ACTS["silu"]))):
         raise NotImplementedError(
             f"fused_ffn CUDA kernel: B ≤ {_MAX_B}, d_ff a multiple of 16, "
-            f"d_model split into multiples of 16 rows, ≤ {_MAX_ROWS} a rank; "
-            f"got x {tuple(x.shape)}, w_in {tuple(w_in.shape)}")
+            f"d_model split into multiples of 16 rows, ≤ {_NARROW_ROWS} a "
+            f"rank, ≤ {_MAX_ROWS} for gated silu (other activations that "
+            f"wide: ROADMAP Queue B: B2); got x {tuple(x.shape)}, w_in "
+            f"{tuple(w_in.shape)}, act {act!r}, gated {w_gate is not None}")
     bf = torch.bfloat16
     tensors = {k: t for k, t in dict(x=x, a=a, w_in=w_in, w_gate=w_gate,
                                      w_out=w_out, ln2=ln2,

@@ -79,8 +79,8 @@ def _check_mode(fuse_out, norm_scale, pos_base):
     if pos_base != 0:
         raise NotImplementedError(
             "the port's fused_mla_decode runs a linear cache at cluster "
-            "size 1 (pos_base = 0); other pos_base values come with the "
-            "multi-GPU slice (ROADMAP.md item 11)")
+            "size 1 (pos_base = 0); other pos_base values come with a "
+            "cluster across devices (ROADMAP.md A.5b)")
 
 
 def fused_mla_decode_attention(

@@ -27,6 +27,20 @@ prompts, the encoder-decoder's ``admit_fn`` raises (its encoder's k/v
 are the whole batch's, as the reference's prefill asserts), a VLM's
 raises for want of the embeddings (the reference's admit passes none),
 and ``SlotScheduler`` refuses both, as the reference asserts.
+
+On a mesh (``mesh=``, ``launch/mesh.py``: ``data × model`` processes,
+each calling :func:`build_engine_full` with the same arguments) the
+engine is the reference's ``build_engine_full(cfg, mesh, …)``
+(``launch/serve.py:121``): the layout is head-parallel
+(``launch/specs.py:serving_layout``; a cluster across devices raises,
+ROADMAP A.5b), each process holds its model rank's slice of the weights
+(made from ``seed`` as the whole model would be, or ``train_params``
+given as that slice) and the decode state of its data rank's
+``batch_global / data`` slots, and every step takes and returns the
+GLOBAL tokens on every process (its rows in, the data axis gathered
+out), so a serving loop makes the same host decisions on every rank.
+Above a model axis of 1 the decode step runs eagerly: no CUDA graph is
+captured around the collectives.
 """
 from __future__ import annotations
 
@@ -36,9 +50,12 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import primitives as prim
 from repro_torch.core.autotune import resolve_serving
 from repro_torch.core.device import resolve_device
-from repro_torch.models.transformer import init_params
+from repro_torch.launch.specs import ctx_for, serving_layout
+from repro_torch.models.ctx import SINGLE, ParallelCtx
+from repro_torch.models.transformer import Layout, init_params
 from repro_torch.serving.engine import (EngineOptions, ServeConfig,
                                         decode_step, init_decode_state)
 from repro_torch.serving.integrity import weight_leaves
@@ -76,7 +93,11 @@ class EngineHandle(NamedTuple):
 
     Every step returns ``(tokens, new state)``; the KV caches and
     recurrent states inside are shared with (and updated in place from)
-    the state passed in."""
+    the state passed in.  On a mesh the tokens, lengths, masks and
+    sampling rows are the global ``batch_global`` rows, ``state`` the
+    process's own slots; ``to_global`` takes a ``[B_loc]`` state leaf to
+    the global ``[batch_global]`` on every process (the identity off a
+    mesh); ``ctx`` holds the process's mesh axes."""
     params: Any
     prefill_fn: Callable
     decode_fn: Callable
@@ -87,12 +108,15 @@ class EngineHandle(NamedTuple):
     cfg: ModelConfig
     batch_global: int
     repack_fn: Optional[Callable] = None
+    to_global: Callable = lambda t: t
+    ctx: ParallelCtx = SINGLE
 
 
 def build_engine_full(cfg: ModelConfig, *, max_seq: int, batch_global: int,
                       options: Optional[EngineOptions] = None,
                       device="cuda", seed: int = 0,
-                      train_params: Optional[dict] = None) -> EngineHandle:
+                      train_params: Optional[dict] = None,
+                      mesh=None) -> EngineHandle:
     """Build the serving steps for ``cfg`` on ``device`` (default CUDA;
     raises when no card is present and the CPU was not asked for).
 
@@ -103,19 +127,45 @@ def build_engine_full(cfg: ModelConfig, *, max_seq: int, batch_global: int,
     train-layout weights to serve (e.g. from ``from_reference_params``);
     default: :func:`init_params` from ``seed``.  On a CUDA device
     ``decode_fn`` is the step captured in a graph; on the CPU it is the
-    eager step."""
-    dev = resolve_device(device)
+    eager step.  ``mesh``: serve on a ``data × model`` mesh (every process
+    of its world calls this together; ``device`` is the mesh's, and
+    ``train_params`` this process's model rank's slice)."""
     opt = options or EngineOptions()
     backend, prepack = resolve_serving(cfg, opt.backend, opt.prepack)
-    train = (train_params if train_params is not None
-             else init_params(cfg, seed=seed, device=dev))
+    lay, ctx, b_loc, d0 = Layout(), SINGLE, batch_global, 0
+    if mesh is None:
+        dev = resolve_device(device)
+    else:
+        dev = mesh.device
+        lay = serving_layout(cfg, mesh.shape["model"])
+        ctx = ctx_for(mesh, lay)
+        dp = mesh.shape["data"]
+        if batch_global % dp == 0 and batch_global >= dp:
+            b_loc = batch_global // dp
+            d0 = ctx.data_index() * b_loc
+    sharded = b_loc != batch_global
+
+    def local(rows):
+        """This process's rows of a global ``[batch_global, …]`` input."""
+        return rows[d0:d0 + b_loc] if sharded else rows
+
+    def to_global(t):
+        return (prim.cluster_gather_xla(t, mesh.axes["data"], dim=0)
+                if sharded else t)
+
+    def fresh_params():
+        return init_params(cfg, seed=seed, device=dev, lay=lay,
+                           rank=ctx.model_index())
+
+    train = train_params if train_params is not None else fresh_params()
     serve = train
     if prepack:
         serve = prepack_for_serving(cfg, train, backend=backend)
         train = share_packed_qkv(train, serve)
     params = {"train": train, "serve": serve}
-    scfg = ServeConfig(max_seq=max_seq, batch_local=batch_global,
-                       backend=backend, prepack=prepack,
+    scfg = ServeConfig(max_seq=max_seq, batch_local=b_loc,
+                       heads_size=ctx.heads_size, backend=backend,
+                       prepack=prepack,
                        check_finite=opt.check_finite,
                        track_work=opt.track_work,
                        kv_fingerprint=opt.kv_fingerprint,
@@ -123,19 +173,32 @@ def build_engine_full(cfg: ModelConfig, *, max_seq: int, batch_global: int,
     state = init_decode_state(cfg, scfg, device=dev)
 
     def prefill_fn(p, st, tokens, fe=None):
-        return prefill(cfg, scfg, p, st, tokens, fe)
+        nxt, st = prefill(cfg, scfg, p, st, local(tokens),
+                          None if fe is None else local(fe), ctx=ctx)
+        return to_global(nxt), st
+
+    if dev.type == "cuda" and ctx.model is None:
+        step = StepGraph(cfg, scfg, serve, state)
+    else:                   # above model axis 1 no graph: collectives
+        def step(p, st, tokens, sampled=False):
+            return decode_step(cfg, scfg, p, st, tokens, sampled=sampled,
+                               ctx=ctx)
 
     def decode_fn(p, st, tokens, sampled=False):
-        return decode_step(cfg, scfg, p, st, tokens, sampled=sampled)
+        nxt, st = step(p, st, local(tokens), sampled)
+        return to_global(nxt), st
 
     def admit_fn(p, st, tokens, lengths, samp=None):
         if samp is None:
             samp = host_sampling_rows(batch_global)
-        return prefill(cfg, scfg, p, st, tokens, lengths=lengths,
-                       sampling=samp)
+        nxt, st = prefill(cfg, scfg, p, st, local(tokens),
+                          lengths=local(lengths),
+                          sampling={k: local(v) for k, v in samp.items()},
+                          ctx=ctx)
+        return to_global(nxt), st
 
     def retire_fn(st, mask):
-        m = torch.as_tensor(np.asarray(mask), device=dev) > 0
+        m = torch.as_tensor(local(np.asarray(mask)), device=dev) > 0
         new = dict(st)
         new["cache_lens"] = torch.where(
             m, torch.tensor(-1, dtype=torch.int32, device=dev),
@@ -149,7 +212,7 @@ def build_engine_full(cfg: ModelConfig, *, max_seq: int, batch_global: int,
         # the replica's own construction, re-run on its device: the same
         # seed makes the same bits (which is what makes replicas alike);
         # the train tree aliases the serve tensors, so it heals with them
-        fresh = init_params(cfg, seed=seed, device=dev)
+        fresh = fresh_params()
         if prepack:
             fresh = prepack_for_serving(cfg, fresh, backend=backend)
         with torch.no_grad():
@@ -158,11 +221,11 @@ def build_engine_full(cfg: ModelConfig, *, max_seq: int, batch_global: int,
                 live.copy_(clean)
         return serve
 
-    if dev.type == "cuda":
-        decode_fn = StepGraph(cfg, scfg, serve, state)
-    return EngineHandle(params, prefill_fn, decode_fn, admit_fn, retire_fn,
-                        state, scfg, cfg, batch_global,
-                        repack_fn if train_params is None else None)
+    return EngineHandle(params, prefill_fn,
+                        step if mesh is None else decode_fn, admit_fn,
+                        retire_fn, state, scfg, cfg, batch_global,
+                        repack_fn if train_params is None else None,
+                        to_global, ctx)
 
 
 def build_replicas(cfg: ModelConfig, *, n_replicas: int, max_seq: int,

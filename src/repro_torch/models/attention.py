@@ -1,5 +1,9 @@
 """Training / prefill attention — the port of ``repro/models/attention.py``
-for the dense GQA path and MLA at cluster size 1.
+for the dense GQA path (with the optional q/k/v biases) and MLA at
+cluster size 1.  On a mesh (``ctx``) a rank holds its heads' columns of
+``wq``/``wk``/``wv`` (kv heads replicated where the heads outnumber
+them) and the rows of ``wo`` they project through; the partial outputs
+meet in ``psum_heads`` (``attention.py:185``).
 
 ``_flash`` mirrors the reference's chunked online-softmax oracle in
 plain torch ops (no fused library attention): prefill attention stays
@@ -13,10 +17,11 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ATTN_LOCAL, ModelConfig
+from repro_torch.models.ctx import SINGLE, ParallelCtx
 from repro_torch.models.layers import apply_rope, rope_cos_sin, softcap
 
-# AttnParams is a dict: wq [D, q, hd], wk/wv [D, kv, hd], wo [q·hd, D]
-# (no q/k/v biases: ``qkv_bias`` configs are a later slice).
+# AttnParams is a dict: wq [D, q, hd], wk/wv [D, kv, hd], wo [q·hd, D],
+# and with q/k/v biases bq [q, hd], bk/bv [kv, hd] (model dtype).
 # MLAAttnParams is a dict: wq [D, q, nope+rope], wdkv [D, l+rope],
 # wuk [q, nope, l], wuv [q, l, v], wo [q·v, D].
 
@@ -73,12 +78,14 @@ def _flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def attention_train(p: dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
-                    *, causal: bool = True, return_kv: bool = False
+                    *, causal: bool = True, return_kv: bool = False,
+                    ctx: ParallelCtx = SINGLE
                     ) -> Tuple[torch.Tensor,
                                Optional[Tuple[torch.Tensor, torch.Tensor]]]:
     """Dense GQA attention block over a full sequence (prefill); with
     ``causal=False`` bidirectional, still with RoPE (the encoder's,
-    ``attention.py:135``)."""
+    ``attention.py:135``).  The biases add to q/k/v in the model dtype
+    before RoPE (``attention.py:160``)."""
     B, S, D = x.shape
     q_loc, hd = p["wq"].shape[1], p["wq"].shape[2]
     kv_loc = p["wk"].shape[1]
@@ -87,6 +94,8 @@ def attention_train(p: dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
     q = torch.einsum("bsd,dqh->bsqh", x, p["wq"])
     k = torch.einsum("bsd,dkh->bskh", x, p["wk"])
     v = torch.einsum("bsd,dkh->bskh", x, p["wv"])
+    if p.get("bq") is not None:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     cos, sin = rope_cos_sin(torch.arange(S, device=x.device), hd,
                             cfg.rope_theta)
     q = apply_rope(q, cos, sin)
@@ -96,11 +105,11 @@ def attention_train(p: dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
     out = _flash(qg, k, v, q_offset=0, causal=causal, window=window,
                  cap=cfg.attn_softcap, scale=1.0 / math.sqrt(hd))
     y = out.reshape(B, S, q_loc * hd) @ p["wo"]
-    return y, kv_out
+    return ctx.psum_heads(y), kv_out
 
 
 def mla_attention_train(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
-                        return_kv: bool = False
+                        return_kv: bool = False, ctx: ParallelCtx = SINGLE
                         ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """MLA over a full sequence (prefill), in the latent-space form of the
     reference (``attention.py:mla_attention_train``): ``q_nope`` absorbs
@@ -130,4 +139,4 @@ def mla_attention_train(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     a_lat = out[:, :, 0]                                 # [B,S,q,l]
     o_head = torch.einsum("bsql,qlv->bsqv", a_lat, p["wuv"])
     y = o_head.reshape(B, S, q_loc * v_dim) @ p["wo"]
-    return y, (kk if return_kv else None)
+    return ctx.psum_heads(y), (kk if return_kv else None)

@@ -1,5 +1,9 @@
-"""Shared layers — the port of ``repro/models/layers.py`` at model-axis
-size 1 (every collective of the reference is the identity there).
+"""Shared layers — the port of ``repro/models/layers.py``.  On a mesh
+(``ctx``, ``models/ctx.py``) the FFN is Megatron's (columns of
+``w_in``/``w_gate`` and rows of ``w_out`` over the model axis, a
+``psum_model`` on the way out) and the embedding and head are
+vocab-parallel; with the default single-device context every collective
+is the identity.
 
 Numerics follow the reference exactly: RMSNorm uses ``(1 + scale)`` in
 f32 and casts back; RoPE rotates the two halves of the head dimension
@@ -12,6 +16,8 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.models.ctx import SINGLE, ParallelCtx
 
 
 def activation(name: str):
@@ -74,18 +80,40 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
     return out.to(x.dtype)
 
 
-def ffn_apply(p: dict, x: torch.Tensor, act: str) -> torch.Tensor:
-    """Dense FFN: ``act(x·Wg) ⊙ (x·Wi) · Wo`` (ungated: ``act(x·Wi)·Wo``)."""
+def ffn_apply(p: dict, x: torch.Tensor, act: str,
+              ctx: ParallelCtx = SINGLE) -> torch.Tensor:
+    """Dense FFN: ``act(x·Wg) ⊙ (x·Wi) · Wo`` (ungated: ``act(x·Wi)·Wo``),
+    on a mesh over this rank's ``d_ff`` columns, then ``psum_model``
+    (``layers.py:87``)."""
     h = x @ p["w_in"]
     if p.get("w_gate") is not None:
         h = activation(act)(x @ p["w_gate"]) * h
     else:
         h = activation(act)(h)
-    return h @ p["w_out"]
+    return ctx.psum_model(h @ p["w_out"])
 
 
-def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    return table[tokens.long()]
+def padded_vocab(vocab: int, shards: int) -> int:
+    """The vocabulary padded to a multiple of ``shards`` (``layers.py:110``):
+    the padded rows of the embedding and of the head are zeros."""
+    return ((vocab + shards - 1) // shards) * shards
+
+
+def embed_lookup(table: torch.Tensor, tokens: torch.Tensor,
+                 ctx: ParallelCtx = SINGLE) -> torch.Tensor:
+    """Rows of ``table [V_loc, D]`` (``layers.py:121``): on a mesh the
+    rank's vocabulary shard, an id outside it giving zeros, then
+    ``psum_model`` assembles the embedding (one rank adds each row, the
+    others add zeros)."""
+    if ctx.model is None:
+        return table[tokens.long()]
+    v_loc = table.shape[0]
+    local = tokens.long() - ctx.model_index() * v_loc
+    inside = (local >= 0) & (local < v_loc)
+    emb = table[torch.clamp(local, 0, v_loc - 1)]
+    emb = torch.where(inside[..., None], emb,
+                      torch.zeros((), dtype=emb.dtype, device=emb.device))
+    return ctx.psum_model(emb)
 
 
 # The loose head sums each logit as 64-column chunks (each a product of
@@ -101,7 +129,8 @@ HEAD_TILE_ROWS = 8192
 def lm_head_logits(table: torch.Tensor, x: torch.Tensor, *,
                    tile_rows: int = HEAD_TILE_ROWS) -> torch.Tensor:
     """f32 logits ``x · tableᵀ`` ``[..., V]`` without an f32 copy of the
-    ``[V, D]`` table.  Model-dtype products are exact in f32, so this is
+    ``[V, D]`` table (on a mesh the rank's vocabulary shard: its logits
+    ``[..., V_loc]``, ``layers.py:135``).  Model-dtype products are exact in f32, so this is
     the reference's model-dtype product with f32 accumulation: per
     vocabulary tile of ``tile_rows`` rows, one batched product over the
     ``D / 64`` column chunks gives each chunk's f32 partial ``[D/64, N,

@@ -1,6 +1,8 @@
-"""Mixture-of-Experts FFN — the port of ``repro/models/moe.py`` at model
-size 1 (one GPU holds every expert, so the reference's expert shard is
-the whole expert axis and its ``psum_model`` is the identity).
+"""Mixture-of-Experts FFN — the port of ``repro/models/moe.py``.  On one
+GPU every expert is local and ``psum_model`` is the identity; on a mesh
+(``ctx``) a rank holds ``E / ms`` experts, routes every token as every
+rank does, computes only the slots its experts own, and ``psum_model``
+adds the ranks' outputs (``moe.py:61–118``).
 
 Dispatch is the reference's, capacity-based with static shapes
 (GShard): each token's top-k experts, a slot's position inside its
@@ -25,17 +27,17 @@ f32, ``w_in``/``w_gate [E, D, F]`` (no ``w_gate`` when ungated),
 ``w_out [E, F, D]`` and, for Arctic's dense-residual branch, ``dense``
 (a dense FFN dict).  ``moe_apply_dff`` (the decode path that also
 slices each expert's ``d_ff`` over the data axis) and
-``aux_load_balance_loss`` (training) wait for the multi-GPU model axis
-and training (ROADMAP A.5, A.11).
+``aux_load_balance_loss`` (training) wait for ROADMAP A.5b and A.11.
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Callable, Dict, Tuple
 
 import torch
 
 from repro_torch.configs.base import MoEConfig
+from repro_torch.models.ctx import SINGLE, ParallelCtx
 from repro_torch.models.layers import (activation, ffn_apply, seeded_normal,
                                        softcap)
 
@@ -71,14 +73,16 @@ def route(moe: MoEConfig, router: torch.Tensor, x: torch.Tensor
 
 
 def moe_apply(p: Dict[str, Any], x: torch.Tensor, act: str,
-              moe: MoEConfig) -> torch.Tensor:
-    """``x [..., D]`` → ``[..., D]`` in ``x.dtype`` (``moe.py:61`` at model
-    size 1): every token of ``x`` — ``B·S`` at prefill, ``B`` at decode —
-    shares one capacity ``C = _capacity(T)``."""
+              moe: MoEConfig, ctx: ParallelCtx = SINGLE) -> torch.Tensor:
+    """``x [..., D]`` → ``[..., D]`` in ``x.dtype`` (``moe.py:61``): every
+    token of ``x`` — ``B·S`` at prefill, ``B`` at decode — shares one
+    capacity ``C = _capacity(T)``; this rank's experts are ``shard ·
+    E_loc … (shard + 1) · E_loc − 1`` (``moe.py:69``)."""
     D = x.shape[-1]
     xt = x.reshape(-1, D)
     T, dev = xt.shape[0], x.device
     E, k = moe.num_experts, moe.top_k
+    e_loc = p["w_in"].shape[-3]
     C = _capacity(T, moe)
 
     idx, w = route(moe, p["router"], xt)                  # [T, k]
@@ -92,16 +96,23 @@ def moe_apply(p: Dict[str, Any], x: torch.Tensor, act: str,
     pos_in_e = torch.empty_like(flat_e)
     pos_in_e[order] = torch.arange(tk, device=dev) - start[sorted_e]
     keep = pos_in_e < C
-    slot_addr = flat_e * C + torch.clamp(pos_in_e, 0, C - 1)
+    # the slots this rank's experts own (every kept slot off a mesh)
+    local_e, mine = flat_e, keep
+    if ctx.model is not None:
+        local_e = flat_e - ctx.model_index() * e_loc
+        mine = (local_e >= 0) & (local_e < e_loc) & keep
+        local_e = torch.clamp(local_e, 0, e_loc - 1)
+    slot_addr = local_e * C + torch.clamp(pos_in_e, 0, C - 1)
 
-    # the [E·C] dispatch table of token ids; dropped slots write the
-    # sentinel row E·C (cut off), empty ones keep T (the zero row)
+    # the [E_loc·C] dispatch table of token ids; dropped and foreign
+    # slots write the sentinel row E_loc·C (cut off), empty ones keep T
+    # (the zero row)
     tok_ids = torch.arange(tk, device=dev) // k
-    addr = torch.where(keep, slot_addr, E * C)
-    table = torch.full((E * C + 1,), T, dtype=torch.int64, device=dev)
-    table.scatter_(0, addr, torch.where(keep, tok_ids, T))
+    addr = torch.where(mine, slot_addr, e_loc * C)
+    table = torch.full((e_loc * C + 1,), T, dtype=torch.int64, device=dev)
+    table.scatter_(0, addr, torch.where(mine, tok_ids, T))
     x_pad = torch.cat([xt, xt.new_zeros((1, D))], dim=0)
-    xe = x_pad[table[:E * C]].view(E, C, D)
+    xe = x_pad[table[:e_loc * C]].view(e_loc, C, D)
 
     h = torch.bmm(xe, p["w_in"])                          # [E, C, F]
     if p.get("w_gate") is not None:
@@ -113,41 +124,44 @@ def moe_apply(p: Dict[str, Any], x: torch.Tensor, act: str,
     # combine: each token's k contributions, weights in ye's dtype, added
     # in slot order in ye's dtype — the reference's scatter-add
     flat_w = w.reshape(-1).to(ye.dtype)
-    gathered = ye.view(E * C, D)[slot_addr]
-    contrib = torch.where(keep[:, None], gathered * flat_w[:, None],
+    gathered = ye.view(e_loc * C, D)[slot_addr]
+    contrib = torch.where(mine[:, None], gathered * flat_w[:, None],
                           torch.zeros((), dtype=ye.dtype, device=dev))
     contrib = contrib.view(T, k, D)
     y = contrib[:, 0]
     for j in range(1, k):
         y = y + contrib[:, j]
-    y = y.to(x.dtype).view(x.shape)
+    y = ctx.psum_model(y).to(x.dtype).view(x.shape)
     if p.get("dense") is not None:                        # Arctic residual
-        y = y + ffn_apply(p["dense"], x, act)
+        y = y + ffn_apply(p["dense"], x, act, ctx)
     return y
 
 
 def moe_init(gen: torch.Generator, d_model: int, moe: MoEConfig,
              gated: bool, *, lead: Tuple[int, ...] = (),
-             dtype=torch.bfloat16) -> Dict[str, Any]:
+             dtype=torch.bfloat16,
+             cut: Callable = lambda t, rule: t) -> Dict[str, Any]:
     """Seeded ``MoEParams`` with the reference's scales (``moe.py:138``):
     the router f32 ``N(0, 1)/√D``, ``w_in``/``w_gate`` ``1/√D``, ``w_out``
     ``1/√F``; Arctic's dense branch at the dense FFN's scales.  ``lead``
-    prefixes every shape (the layer-group axis)."""
+    prefixes every shape (the layer-group axis); ``cut(tensor, rule)``
+    takes each leaf as drawn to a rank's slice (``models/transformer.py``
+    rules: ``rep``, ``expert``, ``col``, ``row``)."""
     E, F = moe.num_experts, moe.expert_d_ff
     s_in, s_out = 1.0 / math.sqrt(d_model), 1.0 / math.sqrt(F)
-    p = {"router": seeded_normal(gen, lead + (d_model, E), s_in,
-                                 torch.float32),
-         "w_in": seeded_normal(gen, lead + (E, d_model, F), s_in, dtype)}
+
+    def draw(shape, scale, rule, dt=dtype):
+        return cut(seeded_normal(gen, lead + shape, scale, dt), rule)
+
+    p = {"router": draw((d_model, E), s_in, "rep", torch.float32),
+         "w_in": draw((E, d_model, F), s_in, "expert")}
     if gated:
-        p["w_gate"] = seeded_normal(gen, lead + (E, d_model, F), s_in, dtype)
-    p["w_out"] = seeded_normal(gen, lead + (E, F, d_model), s_out, dtype)
+        p["w_gate"] = draw((E, d_model, F), s_in, "expert")
+    p["w_out"] = draw((E, F, d_model), s_out, "expert")
     if moe.dense_ff_residual:
         Fd = moe.dense_residual_d_ff
-        p["dense"] = {"w_in": seeded_normal(gen, lead + (d_model, Fd), s_in,
-                                            dtype)}
+        p["dense"] = {"w_in": draw((d_model, Fd), s_in, "col")}
         if gated:
-            p["dense"]["w_gate"] = seeded_normal(gen, lead + (d_model, Fd),
-                                                 s_in, dtype)
-        p["dense"]["w_out"] = seeded_normal(gen, lead + (Fd, d_model),
-                                            1.0 / math.sqrt(Fd), dtype)
+            p["dense"]["w_gate"] = draw((d_model, Fd), s_in, "col")
+        p["dense"]["w_out"] = draw((Fd, d_model), 1.0 / math.sqrt(Fd), "row")
     return p

@@ -1,10 +1,17 @@
 """Model assembly — the port of ``repro/models/transformer.py`` for
 attention decoders with dense or MoE FFNs, RWKV-6 and the
-RG-LRU/local-attention hybrid (RecurrentGemma) on one device.
+RG-LRU/local-attention hybrid (RecurrentGemma).
 
-The reference's ``ParallelCtx`` (``repro/models/ctx.py``) is dropped:
-on one GPU the model axis is 1 and every collective it wraps is the
-identity, so the port's functions take no context argument.
+The functions that run on a mesh take a ``ctx`` (``models/ctx.py``),
+the single-device context by default, where every collective is the
+identity.  On a model axis of ``ms`` each rank holds its own slice of
+the tree below, cut as the reference's device-major layout cuts it
+(:func:`to_device_major`, ``transformer.py:226–456``): heads (with
+their kv heads, replicated where ``heads_sub`` exceeds them), ``wo``'s
+rows of those heads, ``d_ff / ms`` FFN columns (and ``w_out`` rows),
+``E / ms`` experts, ``V / ms`` vocabulary rows (padded to a multiple of
+``ms`` with zero rows), everything else replicated.  Attention decoders
+with dense or MoE FFNs shard; the other kinds are ROADMAP A.5b.
 
 Parameter tree (the train layout; leaves are tensors):
 
@@ -40,6 +47,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from dataclasses import dataclass
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -52,24 +60,26 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import rwkv6 as rwkv_mod
-from repro_torch.models.layers import (embed_lookup, ffn_apply, rms_norm,
-                                       seeded_normal)
+from repro_torch.models.ctx import SINGLE, ParallelCtx, pick_heads_sub
+from repro_torch.models.layers import (embed_lookup, ffn_apply, padded_vocab,
+                                       rms_norm, seeded_normal)
 
 
 def _check_supported(cfg: ModelConfig) -> None:
     """The port runs decoders whose layers are global attention — MHA or
-    GQA (Llama-style, Granite-8B, Minitron-4B) or MLA (DeepSeek-V2-Lite)
-    —, local (sliding-window) attention and RG-LRU blocks
-    (RecurrentGemma, Gemma-2), with dense FFNs (gated or not) or MoE FFNs
-    (DeepSeek-V2-Lite's 64 experts), tied embeddings or not, post-norms
-    on attention models or not (Gemma-2), and the all-RWKV-6 pattern
-    (RWKV-6 3B); a frontend that splices its embeddings into the prompt
-    (InternVL2-2B) or feeds an encoder whose output every decoder layer
-    cross-attends (SeamlessM4T-medium: global attention, dense FFNs, no
-    post-norms).  q/k/v biases are a later slice (ROADMAP.md); an encoder
-    without a frontend has no input (``encode`` projects the frontend's
-    embeddings), and an encoder beside other layer kinds, MLA or MoE is a
-    combination no registered model has."""
+    GQA (Llama-style, Granite-8B, Minitron-4B), with q/k/v biases or not
+    (Qwen2-72B), or MLA (DeepSeek-V2-Lite) —, local (sliding-window)
+    attention and RG-LRU blocks (RecurrentGemma, Gemma-2), with dense
+    FFNs (gated or not) or MoE FFNs (DeepSeek-V2-Lite's 64 experts), tied
+    embeddings or not, post-norms on attention models or not (Gemma-2),
+    and the all-RWKV-6 pattern (RWKV-6 3B); a frontend that splices its
+    embeddings into the prompt (InternVL2-2B) or feeds an encoder whose
+    output every decoder layer cross-attends (SeamlessM4T-medium: global
+    attention, dense FFNs, no post-norms).  No registered model has the
+    other combinations: an encoder without a frontend has no input
+    (``encode`` projects the frontend's embeddings), and an encoder
+    beside other layer kinds, MLA or MoE, MLA beside other block kinds
+    and biases on MLA do not occur."""
     kinds = set(cfg.layer_kinds)
     if RWKV6 in kinds:
         if (cfg.block_pattern != (RWKV6,) or cfg.encoder or cfg.frontend
@@ -93,18 +103,217 @@ def _check_supported(cfg: ModelConfig) -> None:
             "global-attention decoder layers with dense FFNs and no "
             "post-norms (SeamlessM4T-medium); no registered model has "
             "another combination")
-    if cfg.qkv_bias or (cfg.mla is not None and kinds != {ATTN_GLOBAL}):
+    if cfg.mla is not None and (kinds != {ATTN_GLOBAL} or cfg.qkv_bias):
         raise NotImplementedError(
-            f"{cfg.name}: q/k/v biases (ROADMAP item 11, with qwen2-72b) "
-            "and MLA beside other block kinds are later slices")
+            f"{cfg.name}: MLA beside other block kinds or with q/k/v "
+            "biases (no registered model has either)")
+
+
+# ---------------------------------------------------------------------------
+# Device-major layout (the reference's transformer.py:49–456)
+# ---------------------------------------------------------------------------
+@dataclass(frozen=True)
+class Layout:
+    """Device-major layout of one model axis: ``model_size`` ranks,
+    ``heads_sub`` of them sharding the heads, ``cluster`` the rest
+    (``transformer.py:49``)."""
+
+    model_size: int = 1
+    _heads_sub: int = 0
+
+    def __init__(self, model_size: int = 1, heads_sub: int = 0):
+        object.__setattr__(self, "model_size", model_size)
+        object.__setattr__(self, "_heads_sub", heads_sub or model_size)
+
+    @property
+    def heads_sub(self) -> int:
+        return self._heads_sub
+
+    @property
+    def cluster(self) -> int:
+        return self.model_size // self._heads_sub
+
+
+def layout_for(cfg: ModelConfig, model_size: int) -> Layout:
+    return Layout(model_size, pick_heads_sub(cfg.n_heads, cfg.n_kv_heads,
+                                             model_size))
+
+
+def _dm_replicate(x: torch.Tensor, ms: int) -> torch.Tensor:
+    return x[None].expand((ms,) + tuple(x.shape))
+
+
+def _dm_split(x: torch.Tensor, ms: int, axis: int) -> torch.Tensor:
+    """``axis`` cut into ``ms`` shards → a leading device axis."""
+    a = axis % x.ndim
+    n = x.shape[a]
+    if n % ms:
+        raise ValueError(f"axis {a} of {tuple(x.shape)} does not split "
+                         f"over {ms} ranks")
+    shaped = x.reshape(x.shape[:a] + (ms, n // ms) + x.shape[a + 1:])
+    return torch.movedim(shaped, a, 0)
+
+
+def _dm_heads(x: torch.Tensor, lay: Layout, head_axis: int,
+              hd_axis: Optional[int], n_kv_repl: int = 1) -> torch.Tensor:
+    """``head_axis`` over ``heads_sub`` (each head repeated ``n_kv_repl``
+    times first: GQA kv heads), ``hd_axis`` over ``cluster`` (or
+    replicated over it); device order heads-major (``transformer.py:236``).
+    Axes count from either end (a stacked group axis may lead)."""
+    hs, cl, ms = lay.heads_sub, lay.cluster, lay.model_size
+    ha = head_axis % x.ndim
+    hda = None if hd_axis is None else hd_axis % x.ndim
+    if n_kv_repl > 1:
+        x = torch.repeat_interleave(x, n_kv_repl, dim=ha)
+    nh = x.shape[ha]
+    x = x.reshape(x.shape[:ha] + (hs, nh // hs) + x.shape[ha + 1:])
+    x = torch.movedim(x, ha, 0)                          # [hs, ...]
+    if hda is not None:
+        a = hda + 1
+        hdn = x.shape[a]
+        x = x.reshape(x.shape[:a] + (cl, hdn // cl) + x.shape[a + 1:])
+        x = torch.movedim(x, a, 1)                       # [hs, cl, ...]
+    else:
+        x = x[:, None].expand((hs, cl) + tuple(x.shape[1:]))
+    return x.reshape((ms,) + tuple(x.shape[2:]))
+
+
+def _dm(x: torch.Tensor, rule: str, cfg: ModelConfig, lay: Layout
+        ) -> torch.Tensor:
+    """One leaf → ``[ms, *local]`` by its rule: ``rep`` replicated;
+    ``q`` heads on axis −2 and the head dim on −1 (``wq``, ``bq``, MLA's
+    ``wq``); ``kv`` the same with GQA replication (``wk``, ``wv``,
+    ``bk``, ``bv``); ``heads3`` heads on axis −3 (MLA's ``wuk``,
+    ``wuv``); ``wo`` the rows of each head (``[q·v, D]``); ``dkv`` MLA's
+    latent columns over the cluster, replicated over the heads; ``col``
+    / ``row`` the FFN's ``d_ff`` columns / rows; ``expert`` the expert
+    axis; ``vocab`` the rows, padded to a multiple of ``ms``
+    (``transformer.py:247–420``)."""
+    ms = lay.model_size
+    if rule == "rep":
+        return _dm_replicate(x, ms)
+    if rule == "q":
+        return _dm_heads(x, lay, -2, -1)
+    if rule == "kv":
+        return _dm_heads(x, lay, -2, -1,
+                         max(1, lay.heads_sub // cfg.n_kv_heads))
+    if rule == "heads3":
+        return _dm_heads(x, lay, -3, None)
+    if rule == "wo":
+        nh, d = cfg.n_heads, x.shape[-1]
+        w = x.reshape(x.shape[:-2] + (nh, x.shape[-2] // nh, d))
+        out = _dm_heads(w, lay, -3, None)
+        return out.reshape(out.shape[:-3] + (-1, d))
+    if rule == "dkv":
+        w = _dm_split(x, lay.cluster, -1)
+        w = w[None].expand((lay.heads_sub,) + tuple(w.shape))
+        return w.reshape((ms,) + tuple(w.shape[2:]))
+    if rule == "col":
+        return _dm_split(x, ms, -1)
+    if rule == "row":
+        return _dm_split(x, ms, -2)
+    if rule == "expert":
+        return _dm_split(x, ms, -3)
+    if rule == "vocab":
+        v_pad = padded_vocab(cfg.vocab_size, ms)
+        if x.shape[-2] < v_pad:
+            x = torch.cat([x, x.new_zeros((v_pad - x.shape[-2],)
+                                          + tuple(x.shape[-1:]))])
+        return _dm_split(x, ms, -2)
+    raise KeyError(rule)
+
+
+_ATTN_RULES = {"wq": "q", "wk": "kv", "wv": "kv", "wo": "wo", "bq": "q",
+               "bk": "kv", "bv": "kv"}
+_MLA_RULES = {"wq": "q", "wdkv": "dkv", "wuk": "heads3", "wuv": "heads3",
+              "wo": "wo"}
+_FFN_RULES = {"w_in": "col", "w_gate": "col", "w_out": "row"}
+_MOE_RULES = {"router": "rep", "w_in": "expert", "w_gate": "expert",
+              "w_out": "expert"}
+
+
+def _block_rules(blk: Dict[str, Any]) -> Dict[str, Any]:
+    """The rule of every leaf of a block (``transformer.py:354``)."""
+    out: Dict[str, Any] = {}
+    for name, val in blk.items():
+        if name.startswith("ln") or name.startswith("post_ln"):
+            out[name] = "rep"
+        elif name == "attn":
+            rules = _MLA_RULES if "wdkv" in val else _ATTN_RULES
+            out[name] = {k: rules[k] for k in val}
+        elif name == "ffn":
+            if "router" in val:
+                out[name] = {k: (dict(_FFN_RULES) if k == "dense"
+                                 else _MOE_RULES[k]) for k in val}
+            else:
+                out[name] = {k: _FFN_RULES[k] for k in val}
+        else:
+            raise NotImplementedError(
+                f"{name} blocks on a model axis above 1 (ROADMAP A.5b)")
+    return out
+
+
+def _param_rules(params: Dict[str, Any]) -> Dict[str, Any]:
+    top = {"embed": "vocab", "lm_head": "vocab", "final_norm": "rep"}
+    out: Dict[str, Any] = {}
+    for k, v in params.items():
+        if k in top:
+            out[k] = top[k]
+        elif k in ("blocks", "tail"):
+            out[k] = [_block_rules(b) for b in v]
+        else:
+            raise NotImplementedError(
+                f"{k} on a model axis above 1 (ROADMAP A.5b)")
+    return out
+
+
+def _zip_map(fn, tree, rules):
+    if isinstance(tree, dict):
+        return {k: _zip_map(fn, v, rules[k]) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_zip_map(fn, t, r) for t, r in zip(tree, rules)]
+    return fn(tree, rules)
+
+
+def to_device_major(cfg: ModelConfig, lay: Layout, params: Dict[str, Any]
+                    ) -> Dict[str, Any]:
+    """The logical train tree (model size 1) → every leaf ``[ms, *local]``
+    (a stacked group leaf ``[ms, G, *local]``), the reference's
+    ``to_device_major`` (``transformer.py:413``); views where the cut
+    allows."""
+    return _zip_map(lambda t, r: _dm(t, r, cfg, lay), params,
+                    _param_rules(params))
+
+
+def unwrap_local(params: Dict[str, Any], index: int = 0) -> Dict[str, Any]:
+    """Rank ``index``'s slice of a device-major tree, each leaf a tensor
+    of its own (``transformer.py:458``)."""
+    if isinstance(params, dict):
+        return {k: unwrap_local(v, index) for k, v in params.items()}
+    if isinstance(params, list):
+        return [unwrap_local(v, index) for v in params]
+    return params[index].clone(memory_format=torch.contiguous_format)
+
+
+def shard_params(cfg: ModelConfig, lay: Layout, params: Dict[str, Any],
+                 rank: int) -> Dict[str, Any]:
+    """Rank ``rank``'s slice of the logical train tree: the tree itself at
+    model size 1."""
+    if lay.model_size == 1:
+        return params
+    return unwrap_local(to_device_major(cfg, lay, params), rank)
 
 
 # ---------------------------------------------------------------------------
 # Seeded init (the scales of repro's init_logical_block)
 # ---------------------------------------------------------------------------
 def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda",
-                dtype=torch.bfloat16) -> Dict[str, Any]:
-    """Random train-layout params made on ``device`` from ``seed``.
+                dtype=torch.bfloat16, lay: Optional[Layout] = None,
+                rank: int = 0) -> Dict[str, Any]:
+    """Random train-layout params made on ``device`` from ``seed``; with a
+    ``lay`` of model size > 1, rank ``rank``'s slice (:func:`shard_params`
+    of the same model), each leaf cut as soon as it is drawn, so a rank
+    holds one whole leaf at a time beside its slice.
 
     The scales are the reference's (``init_logical_block``): 1/√D for
     the q/k/v and up/gate projections, 1/√(q·hd) for ``wo``, 1/√F for
@@ -126,9 +335,20 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda",
     gen.manual_seed(seed)
     d, hd, F = cfg.d_model, cfg.resolved_head_dim, cfg.d_ff
     L, nq, nkv = cfg.n_layers, cfg.n_heads, cfg.n_kv_heads
+    lay = lay or Layout()
+    ms = lay.model_size
+    if ms > 1 and (cfg.block_pattern == (RWKV6,) or RECURRENT in
+                   cfg.layer_kinds or cfg.frontend or cfg.encoder):
+        raise NotImplementedError(
+            f"{cfg.name} on a model axis of {ms} (ROADMAP A.5b)")
 
-    def dense(shape, scale):
-        return seeded_normal(gen, shape, scale, dtype)
+    def cut(t, rule):
+        if ms == 1 or rule == "rep":
+            return t
+        return unwrap_local(_dm(t, rule, cfg, lay), rank)
+
+    def dense(shape, scale, rule="rep"):
+        return cut(seeded_normal(gen, shape, scale, dtype), rule)
 
     s_in = 1.0 / math.sqrt(d)
     if cfg.block_pattern == (RWKV6,):
@@ -143,8 +363,8 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda",
                 "blocks": [blk], "tail": []}
 
     def block(kind, lead):
-        def lin(shape, scale):
-            return dense(lead + shape, scale)
+        def lin(shape, scale, rule="rep"):
+            return dense(lead + shape, scale, rule)
 
         blk = {"ln1": torch.zeros(lead + (d,), device=dev),
                "ln2": torch.zeros(lead + (d,), device=dev)}
@@ -158,37 +378,49 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda",
         elif cfg.mla is not None:
             m = cfg.mla
             blk["attn"] = {
-                "wq": lin((d, nq, m.nope_head_dim + m.rope_head_dim), s_in),
-                "wdkv": lin((d, m.kv_lora_rank + m.rope_head_dim), s_in),
-                "wuk": lin((nq, m.nope_head_dim, m.kv_lora_rank), 0.05),
-                "wuv": lin((nq, m.kv_lora_rank, m.v_head_dim), 0.05),
+                "wq": lin((d, nq, m.nope_head_dim + m.rope_head_dim), s_in,
+                          "q"),
+                "wdkv": lin((d, m.kv_lora_rank + m.rope_head_dim), s_in,
+                            "dkv"),
+                "wuk": lin((nq, m.nope_head_dim, m.kv_lora_rank), 0.05,
+                           "heads3"),
+                "wuv": lin((nq, m.kv_lora_rank, m.v_head_dim), 0.05,
+                           "heads3"),
                 "wo": lin((nq * m.v_head_dim, d),
-                          1.0 / math.sqrt(nq * m.v_head_dim)),
+                          1.0 / math.sqrt(nq * m.v_head_dim), "wo"),
             }
         else:
             blk["attn"] = {
-                "wq": lin((d, nq, hd), s_in),
-                "wk": lin((d, nkv, hd), s_in),
-                "wv": lin((d, nkv, hd), s_in),
-                "wo": lin((nq * hd, d), 1.0 / math.sqrt(nq * hd)),
+                "wq": lin((d, nq, hd), s_in, "q"),
+                "wk": lin((d, nkv, hd), s_in, "kv"),
+                "wv": lin((d, nkv, hd), s_in, "kv"),
+                "wo": lin((nq * hd, d), 1.0 / math.sqrt(nq * hd), "wo"),
             }
+            if cfg.qkv_bias:               # transformer.py:100–110: zeros
+                q_loc = nq // lay.heads_sub
+                kv_loc = max(1, nkv // lay.heads_sub)
+                for name, n in (("bq", q_loc), ("bk", kv_loc),
+                                ("bv", kv_loc)):
+                    blk["attn"][name] = torch.zeros(
+                        lead + (n, hd // lay.cluster), dtype=dtype,
+                        device=dev)
         if cfg.moe is not None and kind != RECURRENT:
             blk["ffn"] = moe_mod.moe_init(gen, d, cfg.moe, cfg.ffn_gated,
-                                          lead=lead, dtype=dtype)
+                                          lead=lead, dtype=dtype, cut=cut)
             return blk
-        blk["ffn"] = {"w_in": lin((d, F), s_in)}
+        blk["ffn"] = {"w_in": lin((d, F), s_in, "col")}
         if cfg.ffn_gated:                   # ungated (relu2): no gate
-            blk["ffn"]["w_gate"] = lin((d, F), s_in)
-        blk["ffn"]["w_out"] = lin((F, d), 1.0 / math.sqrt(F))
+            blk["ffn"]["w_gate"] = lin((d, F), s_in, "col")
+        blk["ffn"]["w_out"] = lin((F, d), 1.0 / math.sqrt(F), "row")
         return blk
 
     period = len(cfg.block_pattern)
     G = L // period
     blocks = [block(kind, (G,)) for kind in cfg.block_pattern]
     tail = [block(kind, ()) for kind in cfg.layer_kinds[G * period:]]
-    params = {"embed": dense((cfg.vocab_size, d), 0.02)}
+    params = {"embed": dense((cfg.vocab_size, d), 0.02, "vocab")}
     if not cfg.tie_embeddings:
-        params["lm_head"] = dense((cfg.vocab_size, d), s_in)
+        params["lm_head"] = dense((cfg.vocab_size, d), s_in, "vocab")
     params.update(final_norm=torch.zeros((d,), device=dev), blocks=blocks,
                   tail=tail)
     if cfg.frontend is not None:
@@ -223,11 +455,13 @@ def head_table(cfg: ModelConfig, params: Dict[str, Any]) -> torch.Tensor:
 
 
 def embed_tokens(cfg: ModelConfig, table: torch.Tensor,
-                 tokens: torch.Tensor) -> torch.Tensor:
-    """The embedding, times ``√d_model`` rounded to the model dtype first
-    when the embeddings are tied (``transformer.py:594–595``): bf16
-    11.3125 at ``d_model`` 128, exactly 64 at 4096."""
-    x = embed_lookup(table, tokens)
+                 tokens: torch.Tensor, ctx: ParallelCtx = SINGLE
+                 ) -> torch.Tensor:
+    """The embedding (vocab-parallel on a mesh), times ``√d_model``
+    rounded to the model dtype first when the embeddings are tied
+    (``transformer.py:594–595``): bf16 11.3125 at ``d_model`` 128,
+    exactly 64 at 4096."""
+    x = embed_lookup(table, tokens, ctx)
     if cfg.tie_embeddings:
         x = x * torch.full((), math.sqrt(cfg.d_model), dtype=x.dtype,
                            device=x.device)
@@ -248,34 +482,39 @@ def _leaf_to_torch(arr, device) -> torch.Tensor:
 
 
 def from_reference_params(cfg: ModelConfig, tree: Dict[str, Any], *,
+                          lay: Optional[Layout] = None, rank: int = 0,
                           device="cuda") -> Dict[str, Any]:
-    """The JAX package's device-major train params at model size 1 —
-    as nested dicts / lists of numpy arrays, NamedTuple fields
-    (``AttnParams``, ``MLAAttnParams``, ``MoEParams``, ``RGLRUParams``,
-    …) turned into dict keys and the leading device axis (size 1) kept —
-    → the port's train params (same tree, device axis stripped — a MoE
-    leaf keeps its expert axis behind it —, vocabulary padding cut)."""
+    """The JAX package's device-major train params — as nested dicts /
+    lists of numpy arrays, NamedTuple fields (``AttnParams``,
+    ``MLAAttnParams``, ``MoEParams``, ``RGLRUParams``, …) turned into
+    dict keys and the leading model axis (size ``lay.model_size``, 1 by
+    default) kept — → model rank ``rank``'s train params in the port's
+    tree (the device axis stripped — a MoE leaf keeps its expert axis
+    behind it —; at model size 1 the vocabulary padding cut, on a mesh
+    the rank's padded vocabulary shard kept)."""
     _check_supported(cfg)
     dev = resolve_device(device)
+    ms = (lay or Layout()).model_size
 
     def conv(node):
         if isinstance(node, dict):
             return {k: conv(v) for k, v in node.items() if v is not None}
         if isinstance(node, (list, tuple)):
             return [conv(v) for v in node]
-        if node.shape[0] != 1:
-            raise ValueError(
-                f"expected a leading model axis of size 1, got {node.shape}")
-        return _leaf_to_torch(node[0], dev)
+        if node.shape[0] != ms:
+            raise ValueError(f"expected a leading model axis of size {ms}, "
+                             f"got {node.shape}")
+        return _leaf_to_torch(node[rank], dev)
 
     keys = ("embed", "final_norm", "blocks", "tail") + (
         () if cfg.tie_embeddings else ("lm_head",)) + tuple(
         k for k in ("frontend_proj", "encoder", "enc_final_norm",
                     "cross_attn") if k in tree)
     out = conv({k: tree[k] for k in keys})
-    for k in ("embed", "lm_head"):
-        if k in out:
-            out[k] = out[k][:cfg.vocab_size]
+    if ms == 1:
+        for k in ("embed", "lm_head"):
+            if k in out:
+                out[k] = out[k][:cfg.vocab_size]
     return out
 
 
@@ -315,7 +554,8 @@ def cross_params(params: Dict[str, Any], cfg: ModelConfig
 def apply_block(cfg: ModelConfig, blk: Dict[str, Any], x: torch.Tensor, *,
                 kind: str = ATTN_GLOBAL, return_kv: bool = False,
                 enc_out: Optional[torch.Tensor] = None,
-                cross_blk: Optional[Dict[str, Any]] = None):
+                cross_blk: Optional[Dict[str, Any]] = None,
+                ctx: ParallelCtx = SINGLE):
     """One layer of the train-path forward.  With ``return_kv`` the
     second result is what prefill caches: ``(k, v)`` of GQA attention,
     or MLA's latent entries ``[B, S, l + rope]`` (None for RWKV-6 and
@@ -333,16 +573,16 @@ def apply_block(cfg: ModelConfig, blk: Dict[str, Any], x: torch.Tensor, *,
         a = rglru_mod.rglru_block(blk["rglru"], h)
     elif cfg.mla is not None:
         a, kv = attn_mod.mla_attention_train(blk["attn"], h, cfg,
-                                             return_kv=return_kv)
+                                             return_kv=return_kv, ctx=ctx)
     else:
         a, kv = attn_mod.attention_train(blk["attn"], h, cfg, kind,
-                                         return_kv=return_kv)
+                                         return_kv=return_kv, ctx=ctx)
     x = x + post_norm(blk, "post_ln1", a, eps)
     if cross_blk is not None and enc_out is not None:
         x = x + cross_attention(cross_blk["attn"],
                                 rms_norm(x, cross_blk["ln"], eps), enc_out,
                                 cfg)
-    f = block_ffn(cfg, blk["ffn"], rms_norm(x, blk["ln2"], eps))
+    f = block_ffn(cfg, blk["ffn"], rms_norm(x, blk["ln2"], eps), ctx)
     return x + post_norm(blk, "post_ln2", f, eps), kv
 
 
@@ -354,14 +594,14 @@ def post_norm(blk: Dict[str, Any], key: str, t: torch.Tensor, eps: float
     return rms_norm(t, blk[key], eps) if key in blk else t
 
 
-def block_ffn(cfg: ModelConfig, ffn: Dict[str, Any], h: torch.Tensor
-              ) -> torch.Tensor:
+def block_ffn(cfg: ModelConfig, ffn: Dict[str, Any], h: torch.Tensor,
+              ctx: ParallelCtx = SINGLE) -> torch.Tensor:
     """A block's FFN on its normed input ``h [..., D]``: the MoE
     (``moe_apply``, every token of ``h`` sharing one capacity) or the
     dense FFN (``transformer.py:499–501``)."""
     if moe_mod.is_moe(ffn):
-        return moe_mod.moe_apply(ffn, h, cfg.ffn_act, cfg.moe)
-    return ffn_apply(ffn, h, cfg.ffn_act)
+        return moe_mod.moe_apply(ffn, h, cfg.ffn_act, cfg.moe, ctx)
+    return ffn_apply(ffn, h, cfg.ffn_act, ctx)
 
 
 def cross_attention(p: Dict[str, torch.Tensor], x: torch.Tensor,
@@ -438,15 +678,17 @@ def splice_frontend(cfg: ModelConfig, params: Dict[str, Any],
 
 
 def forward(cfg: ModelConfig, params: Dict[str, Any], tokens: torch.Tensor,
-            frontend_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+            frontend_embeds: Optional[torch.Tensor] = None,
+            ctx: ParallelCtx = SINGLE) -> torch.Tensor:
     """Tokens [B, S] (and the frontend's embeddings ``[B, P, F]`` on a
     model with a frontend) → final normed hidden states [B, S, D]."""
     x = splice_frontend(cfg, params, embed_tokens(cfg, params["embed"],
-                                                  tokens), frontend_embeds)
+                                                  tokens, ctx),
+                        frontend_embeds)
     enc_out = (encode(cfg, params, frontend_embeds)
                if cfg.encoder is not None else None)
     for kind, blk, cross in zip(cfg.layer_kinds, layer_params(params, cfg),
                                 cross_params(params, cfg)):
         x, _ = apply_block(cfg, blk, x, kind=kind, enc_out=enc_out,
-                           cross_blk=cross)
+                           cross_blk=cross, ctx=ctx)
     return rms_norm(x, params["final_norm"], cfg.norm_eps)

@@ -67,6 +67,18 @@ beside an encoder, ``engine.py:428``): ``L + 1`` kernel calls fused,
 ``L`` unfused.  InternVL2-2B is a GQA decoder once its prefill has
 spliced the patch embeddings into the prompt.
 
+On a mesh (``ctx``, ``models/ctx.py``; head-parallel, a cluster of 1
+inside each rank) a rank runs its own heads, ``d_ff`` columns, experts
+and vocabulary shard, and the partials meet as in the reference: the
+embedding's ``psum_model``; each attention layer's output in the heads
+reduce (``core/dataflow.py:ClusterSpec``, the tree); on the fused path
+B2's partial (``add_r`` on model rank 0 only) in the tree ClusterReduce
+over the model axis (``psum_model`` on an axis that is not a power of
+two), on the unfused path the FFN's ``psum_model``; the MoE's
+``psum_model``; the head's per-rank top-``CAND_K`` (ids offset by the
+rank's first vocabulary row) merged by the tree with the commutative
+``topk_pair_merge``, so every rank holds the same candidates.
+
 Decode is ragged on attention models: ``state["cache_lens"] [B]`` lets
 every slot advance on its own, and ``−1`` marks a free slot (no KV
 write, no attention work, frozen position).  The KV caches and the
@@ -79,12 +91,13 @@ from __future__ import annotations
 import dataclasses
 import math
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, NamedTuple, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ATTN_LOCAL, RECURRENT, RWKV6, ModelConfig
-from repro_torch.core.dataflow import (KVBlock, MLAWeights,
+from repro_torch.core import primitives as prim
+from repro_torch.core.dataflow import (ClusterSpec, KVBlock, MLAWeights,
                                        PackedFFNWeights, PackedHeadWeights,
                                        PackedMLAWeights,
                                        PackedSplitTokenWeights,
@@ -103,12 +116,14 @@ from repro_torch.kernels.fused_ffn.fused_ffn import (fused_ffn_block,
                                                      fused_ffn_plain)
 from repro_torch.kernels.fused_head.fused_head import (fused_head_block,
                                                        fused_head_plain)
+from repro_torch.kernels.fused_head.topk import topk_pair_merge
 from repro_torch.kernels.fused_mla_decode.fused_mla_decode import (
     fused_mla_decode_attention, fused_mla_decode_plain)
 from repro_torch.kernels.rglru_scan.rglru_scan import (rglru_scan,
                                                        rglru_scan_plain)
 from repro_torch.kernels.rwkv6_scan.rwkv6_scan import (rwkv6_scan,
                                                        rwkv6_scan_plain)
+from repro_torch.models.ctx import SINGLE, ParallelCtx
 from repro_torch.models.layers import lm_head_logits, rms_norm, softcap
 from repro_torch.models.rglru import rglru_block_step, rglru_state_init
 from repro_torch.models.rwkv6 import (rwkv6_channel_step, rwkv6_state_init,
@@ -127,6 +142,9 @@ from repro_torch.serving.sampling import (CAND_K, advance_sampling_step,
 class ServeConfig:
     max_seq: int                   # cache capacity (positions)
     batch_local: int               # slots
+    # the ranks sharding the heads (ParallelCtx.heads_size): a rank's
+    # caches hold max(1, n_kv / heads_size) kv heads
+    heads_size: int = 1
     # "xla" = the unfused dataflow around B5; "pallas" = the fused kernels
     # (resolved from "auto" by core/autotune.py, as in the reference)
     backend: str = "xla"
@@ -213,9 +231,12 @@ def init_decode_state(cfg: ModelConfig, scfg: ServeConfig, *,
     the flags (``engine.py:191–235``): ``nonfinite``, ``work_blocks``,
     ``head_val`` and ``head_tok`` ``[B]``, ``head_resid [B, D]`` bf16,
     ``kv_fp`` (one ``[G, B]`` int32 per block-pattern position) and
-    ``kv_fp_tail`` (one ``[B]`` per tail layer)."""
+    ``kv_fp_tail`` (one ``[B]`` per tail layer).  On a mesh ``B`` is the
+    rank's slots and ``kv`` its kv heads, ``max(1, n_kv /
+    scfg.heads_size)`` (``engine.py:144–167``)."""
     dev = resolve_device(device)
     B, S = scfg.batch_local, scfg.max_seq
+    kv_loc = max(1, cfg.n_kv_heads // scfg.heads_size)
     period = len(cfg.block_pattern)
     G = cfg.n_layers // period
 
@@ -232,8 +253,7 @@ def init_decode_state(cfg: ModelConfig, scfg: ServeConfig, *,
             v_shape = (S, B, 1)
         else:
             span = min(cfg.sliding_window, S) if kind == ATTN_LOCAL else S
-            k_shape = v_shape = (span, B * cfg.n_kv_heads,
-                                 cfg.resolved_head_dim)
+            k_shape = v_shape = (span, B * kv_loc, cfg.resolved_head_dim)
         return KVBlock(
             k=torch.zeros(lead + k_shape, dtype=torch.bfloat16, device=dev),
             v=torch.zeros(lead + v_shape, dtype=torch.bfloat16, device=dev),
@@ -315,37 +335,71 @@ def _finite_violations(cfg: ModelConfig, resid: torch.Tensor,
 
 
 def _fused_ffn_tail(cfg: ModelConfig, blk: Dict[str, Any], x: torch.Tensor,
-                    a: torch.Tensor, kernels: Kernels) -> torch.Tensor:
+                    a: torch.Tensor, kernels: Kernels,
+                    ctx: ParallelCtx = SINGLE) -> torch.Tensor:
     """Block tail in one B2 launch: ``x + a + FFN(rms(x + a, ln2))``
-    (``add_r = 1`` on the single rank), ``a`` first normed by ``post_ln1``
-    inside the kernel where the bundle has it.  With ``post_ln2``
-    (Gemma-2) the kernel adds no residual (``add_r = 0``) and the second
-    add runs after it on its ``r``: ``r + rms(f, post_ln2)``
-    (``engine.py:339–373``)."""
+    (``add_r = 1`` on model rank 0, the residual folded into one rank's
+    partial; 0 on the others), ``a`` first normed by ``post_ln1`` inside
+    the kernel where the bundle has it; on a mesh the ranks' partials
+    then meet in the tree ClusterReduce over the model axis
+    (``psum_model`` where the axis is not a power of two).  With
+    ``post_ln2`` (Gemma-2) the kernel adds no residual (``add_r = 0``)
+    and the second add runs after it on its ``r``: ``r + rms(f,
+    post_ln2)`` (``engine.py:339–373``)."""
     w: PackedFFNWeights = blk["ffn"]
     post2 = "post_ln2" in blk
+    add_r = 0.0 if post2 or ctx.model_index() != 0 else 1.0
     o, r = kernels.ffn(x, a, w.w_in, w.w_gate, w.w_out, w.ln2,
-                       post_ln1=w.post_ln1, add_r=0.0 if post2 else 1.0,
+                       post_ln1=w.post_ln1, add_r=add_r,
                        act=cfg.ffn_act, eps=cfg.norm_eps)
+    n = ctx.model_size
+    if ctx.model is not None:
+        o = (ctx.psum_model(o) if n & (n - 1)
+             else prim.cluster_reduce(o, ctx.model, "sum"))
     return r + post_norm(blk, "post_ln2", o, cfg.norm_eps) if post2 else o
 
 
+def _merge_vocab_shards(ctx: ParallelCtx, v_loc: int, vals: torch.Tensor,
+                        ids: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A rank's top-``CAND_K`` over its vocabulary shard → the whole
+    vocabulary's on every rank: ids offset by the shard's first row, then
+    the tree with the commutative ``topk_pair_merge`` (``engine.py:533–
+    540``); the identity off a mesh."""
+    if ctx.model is None:
+        return vals, ids
+    ids = ids + ctx.model_index() * v_loc
+    return prim.cluster_reduce_pairs((vals, ids), ctx.model, topk_pair_merge)
+
+
 def _fused_head_tail(cfg: ModelConfig, w: PackedHeadWeights, x: torch.Tensor,
-                     kernels: Kernels) -> Tuple[torch.Tensor, torch.Tensor]:
+                     kernels: Kernels, ctx: ParallelCtx = SINGLE
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Final norm + LM head + logit softcap + top-``CAND_K`` in one B3
-    launch (``engine.py:531``)."""
-    return kernels.head(x, w.table, w.ln, eps=cfg.norm_eps,
-                        logit_softcap=cfg.logit_softcap, k=CAND_K)
+    launch over the rank's vocabulary (``engine.py:497–540``)."""
+    vals, ids = kernels.head(x, w.table, w.ln, eps=cfg.norm_eps,
+                             logit_softcap=cfg.logit_softcap, k=CAND_K)
+    return _merge_vocab_shards(ctx, w.table.shape[0], vals, ids)
 
 
 def _loose_head_tail(cfg: ModelConfig, params: Dict[str, Any],
-                     x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+                     x: torch.Tensor, ctx: ParallelCtx = SINGLE
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The unfused head (``engine.py:664–672``): final norm, full f32
-    logits, softcap, then the top-``CAND_K`` candidates."""
+    logits of the rank's vocabulary, softcap, then the top-``CAND_K``
+    candidates (``sampling.py:head_candidates``)."""
     xh = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = softcap(lm_head_logits(head_table(cfg, params), xh),
-                     cfg.logit_softcap)
-    return head_candidates(logits, CAND_K)
+    table = head_table(cfg, params)
+    logits = softcap(lm_head_logits(table, xh), cfg.logit_softcap)
+    return _merge_vocab_shards(ctx, table.shape[0],
+                               *head_candidates(logits, CAND_K))
+
+
+def _spec(ctx: ParallelCtx) -> Optional[ClusterSpec]:
+    """The dataflow's axes (``engine.py:320``); None off a mesh."""
+    if ctx.model is None:
+        return None
+    return ClusterSpec(heads=ctx.heads)
 
 
 def _split_token_weights(a: Dict[str, torch.Tensor]) -> SplitTokenWeights:
@@ -385,8 +439,8 @@ def hoist_serve_weights(params: Dict[str, Any]) -> Dict[str, Any]:
 
 def decode_block(cfg: ModelConfig, kind: str, blk: Dict[str, Any],
                  x: torch.Tensor, cache, cache_lens: torch.Tensor, cos, sin,
-                 kernels: Kernels = KERNELS, cross=None, enc_kv=None
-                 ) -> torch.Tensor:
+                 kernels: Kernels = KERNELS, cross=None, enc_kv=None,
+                 ctx: ParallelCtx = SINGLE) -> torch.Tensor:
     """One layer, ``x [B, D] → [B, D]``; the reference's ``decode_block``
     at cluster size 1.
 
@@ -404,7 +458,7 @@ def decode_block(cfg: ModelConfig, kind: str, blk: Dict[str, Any],
     a ring cache for a local-attention layer, with the post-norms where
     the block has them (:func:`_ffn_tail`); :class:`MLAWeights` the
     same around the unfused :func:`mla_attention`.  The MoE branch is
-    the reference's ``engine.py:437–448`` without ``dff_shard`` (A.5): the
+    the reference's ``engine.py:437–448`` without ``dff_shard`` (A.5b): the
     slots' ``B`` tokens share one capacity.  RG-LRU (``engine.py:390–392``):
     ``rglru_block_step`` with its recurrence in one B6 launch in place of
     the attention, the same FFN tail; the layer's ``RGLRUState`` is
@@ -431,32 +485,36 @@ def decode_block(cfg: ModelConfig, kind: str, blk: Dict[str, Any],
         return _ffn_tail(cfg, blk, x, a)
     w = blk["attn"]
     window = cfg.sliding_window if kind == ATTN_LOCAL else 0
+    spec = _spec(ctx)
     if isinstance(w, PackedMLAWeights):
         a = mla_attention_packed(x, w, cache, cache_lens, cos, sin,
                                  nope_dim=cfg.mla.nope_head_dim,
                                  rope_dim=cfg.mla.rope_head_dim,
-                                 norm_eps=eps, kernel=kernels.mla)
+                                 norm_eps=eps, kernel=kernels.mla, spec=spec)
     elif isinstance(w, PackedSplitTokenWeights):
         a = split_token_attention_packed(x, w, cache, cache_lens, cos, sin,
                                          window=window,
                                          attn_softcap=cfg.attn_softcap,
-                                         norm_eps=eps, kernel=kernels.decode)
+                                         norm_eps=eps, kernel=kernels.decode,
+                                         spec=spec)
     elif isinstance(w, MLAWeights):
         a = mla_attention(rms_norm(x, blk["ln1"], eps), w, cache,
                           cache_lens, cos, sin,
                           nope_dim=cfg.mla.nope_head_dim,
-                          rope_dim=cfg.mla.rope_head_dim)
+                          rope_dim=cfg.mla.rope_head_dim, spec=spec)
     else:
         a = split_token_attention(
             rms_norm(x, blk["ln1"], eps), w, cache, cache_lens, cos, sin,
-            window=window, attn_softcap=cfg.attn_softcap, kernel=kernels.flash)
+            window=window, attn_softcap=cfg.attn_softcap, kernel=kernels.flash,
+            spec=spec)
     if isinstance(blk["ffn"], PackedFFNWeights) and enc_kv is None:
-        return _fused_ffn_tail(cfg, blk, x, a, kernels)
-    return _ffn_tail(cfg, blk, x, a, cross, enc_kv)
+        return _fused_ffn_tail(cfg, blk, x, a, kernels, ctx)
+    return _ffn_tail(cfg, blk, x, a, cross, enc_kv, ctx)
 
 
 def _ffn_tail(cfg: ModelConfig, blk: Dict[str, Any], x: torch.Tensor,
-              a: torch.Tensor, cross=None, enc_kv=None) -> torch.Tensor:
+              a: torch.Tensor, cross=None, enc_kv=None,
+              ctx: ParallelCtx = SINGLE) -> torch.Tensor:
     """The unfused block tail (``engine.py:430–452``): ``x + a`` (``a``
     normed by ``post_ln1`` first where the block has it), the
     cross-attention's ``x + ca`` where the layer has one,
@@ -466,7 +524,7 @@ def _ffn_tail(cfg: ModelConfig, blk: Dict[str, Any], x: torch.Tensor,
     x = x + post_norm(blk, "post_ln1", a, eps)
     if enc_kv is not None:
         x = x + _cross_decode(cross, x, enc_kv, cfg)
-    f = block_ffn(cfg, blk["ffn"], rms_norm(x, blk["ln2"], eps))
+    f = block_ffn(cfg, blk["ffn"], rms_norm(x, blk["ln2"], eps), ctx)
     return x + post_norm(blk, "post_ln2", f, eps)
 
 
@@ -560,7 +618,8 @@ def _fit_block_s(S: int, block_s: int) -> int:
 
 def decode_step(cfg: ModelConfig, scfg: ServeConfig, params: Dict[str, Any],
                 state: Dict[str, Any], tokens,
-                *, kernels: Kernels = KERNELS, sampled: bool = False
+                *, kernels: Kernels = KERNELS, sampled: bool = False,
+                ctx: ParallelCtx = SINGLE
                 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """One ragged decode step: tokens ``[B]`` → ``(next tokens [B] int32,
     new state)``: the layer groups, then the tail layers
@@ -579,14 +638,16 @@ def decode_step(cfg: ModelConfig, scfg: ServeConfig, params: Dict[str, Any],
     noise); otherwise every slot takes candidate 0, the same tokens
     with none of the sampler's arithmetic.  ``tokens`` already on the
     state's device is taken as is (no copy: a CUDA graph captures the
-    step on a fixed token buffer)."""
+    step on a fixed token buffer).  ``ctx``: this rank's mesh axes (the
+    rank's slots, tokens ``[B_loc]``); every rank of the model axis must
+    run the step together."""
     _check_not_param_pair(params, "serve")
     params = hoist_serve_weights(params)
     cache_lens = state["cache_lens"]
     dev = cache_lens.device
     if not (torch.is_tensor(tokens) and tokens.device == dev):
         tokens = torch.as_tensor(tokens, device=dev)
-    x = embed_tokens(cfg, params["embed"], tokens)
+    x = embed_tokens(cfg, params["embed"], tokens, ctx)
     cos = sin = None
     if not cfg.is_attention_free:
         # RoPE spans the head dim, or only MLA's rope part (64, not 128)
@@ -610,16 +671,17 @@ def decode_step(cfg: ModelConfig, scfg: ServeConfig, params: Dict[str, Any],
                 enc_kv = (enc["k"][li], enc["v"][li])
             x = decode_block(cfg, kind, _layer(blk, g), x,
                              _layer(caches, g), cache_lens, cos, sin,
-                             kernels, cross, enc_kv)
+                             kernels, cross, enc_kv, ctx)
     for kind, blk, cache in zip(cfg.layer_kinds[G * period:],
                                 params["tail"], state["tail"]):
         x = decode_block(cfg, kind, blk, x, cache, cache_lens, cos, sin,
-                         kernels)
+                         kernels, ctx=ctx)
     samp = state["sampling"]
     if isinstance(params.get("head"), PackedHeadWeights):
-        cand_v, cand_i = _fused_head_tail(cfg, params["head"], x, kernels)
+        cand_v, cand_i = _fused_head_tail(cfg, params["head"], x, kernels,
+                                          ctx)
     else:
-        cand_v, cand_i = _loose_head_tail(cfg, params, x)
+        cand_v, cand_i = _loose_head_tail(cfg, params, x, ctx)
     if sampled:
         gumbel = state["gumbel"]
         noise = gumbel[torch.arange(gumbel.shape[0], device=dev),

@@ -41,7 +41,10 @@ computed alone, over its own prompt: its caches and first token are then
 the same bits whatever else the admit carries and wherever its slot is
 — on the card a product's rounding depends on its shape, and a recovery
 replay (``serving/router.py``) re-admits a request beside other
-neighbours than the first time.  A MoE layer is not
+neighbours than the first time.  On a mesh (``ctx``) each rank runs its
+own heads, FFN columns, experts and vocabulary shard, with the
+reference's collectives (``psum_heads``, ``psum_model``, the head's
+tree merge), the same runs on every rank.  A MoE layer is not
 row-independent: its capacity is per call, over all ``T = B·S`` tokens,
 so which tokens drop depends on the whole batch.  On a MoE config
 prefill therefore runs every slot's whole ``[B, S]`` row through every
@@ -62,6 +65,7 @@ import torch
 from repro_torch.configs.base import ATTN_LOCAL, RECURRENT, RWKV6, ModelConfig
 from repro_torch.core.dataflow import KVBlock
 from repro_torch.models import rglru as rglru_mod
+from repro_torch.models.ctx import SINGLE, ParallelCtx
 from repro_torch.models.layers import lm_head_logits, rms_norm, softcap
 from repro_torch.models.rwkv6 import (RWKV6State, rwkv6_channel_mix,
                                       rwkv6_time_mix)
@@ -70,7 +74,8 @@ from repro_torch.models.transformer import (apply_block, block_ffn,
                                             encode, head_table,
                                             layer_params, splice_frontend)
 from repro_torch.serving.engine import (ServeConfig, _check_not_param_pair,
-                                        _finite_violations, _layer)
+                                        _finite_violations, _layer,
+                                        _merge_vocab_shards)
 from repro_torch.serving.integrity import kv_entry_fp
 from repro_torch.serving.sampling import (admit_sampling_state,
                                           finalize_candidates, gumbel_table,
@@ -181,7 +186,8 @@ def _write_enc_kv(cfg: ModelConfig, params: Dict[str, Any],
 
 def prefill(cfg: ModelConfig, scfg: ServeConfig, params: Dict[str, Any],
             state: Dict[str, Any], tokens, frontend_embeds=None, *,
-            lengths=None, sampling: Optional[Dict[str, np.ndarray]] = None
+            lengths=None, sampling: Optional[Dict[str, np.ndarray]] = None,
+            ctx: ParallelCtx = SINGLE
             ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """tokens ``[B, S_prompt]`` → ``(first token [B] int32, state)``.
 
@@ -224,7 +230,7 @@ def prefill(cfg: ModelConfig, scfg: ServeConfig, params: Dict[str, Any],
         else:                      # each admitted request alone
             runs = [([r], [r], int(lens_np[r])) for r in adm_rows]
         outs = [_prefill_rows(cfg, params, state, tokens, frontend_embeds,
-                              run, sel, s_eff, lens_np)
+                              run, sel, s_eff, lens_np, ctx)
                 for run, sel, s_eff in runs]
         last_raw, cand_v, cand_i = (torch.cat([o[i] for o in outs])
                                     for i in range(3))
@@ -273,7 +279,8 @@ def prefill(cfg: ModelConfig, scfg: ServeConfig, params: Dict[str, Any],
 
 def _prefill_rows(cfg: ModelConfig, params: Dict[str, Any],
                   state: Dict[str, Any], tokens: torch.Tensor,
-                  frontend_embeds, run, sel, s_eff: int, lens_np: np.ndarray
+                  frontend_embeds, run, sel, s_eff: int, lens_np: np.ndarray,
+                  ctx: ParallelCtx = SINGLE
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The forward of slots ``run`` over their first ``s_eff`` tokens,
     writing the caches of slots ``sel`` (a subset of ``run``) in place;
@@ -287,7 +294,7 @@ def _prefill_rows(cfg: ModelConfig, params: Dict[str, Any],
     lens_a = torch.as_tensor(lens_np[np.asarray(sel)], device=dev)
     fe = None if frontend_embeds is None else frontend_embeds[run_t]
     x = splice_frontend(cfg, params, embed_tokens(
-        cfg, params["embed"], tokens[run_t, :s_eff]), fe)
+        cfg, params["embed"], tokens[run_t, :s_eff], ctx), fe)
     enc_out = None
     if cfg.encoder is not None:     # every slot: lengths refused above
         enc_out = encode(cfg, params, fe)
@@ -306,16 +313,17 @@ def _prefill_rows(cfg: ModelConfig, params: Dict[str, Any],
             x = _prefill_rglru(cfg, blk, x, cache)
             continue
         x, kv = apply_block(cfg, blk, x, kind=kind, return_kv=True,
-                            enc_out=enc_out, cross_blk=cross)
+                            enc_out=enc_out, cross_blk=cross, ctx=ctx)
         if cfg.mla is not None:            # prefill.py:145–149
             kv = (kv, kv[..., :1])
         fill = _fill_ring if kind == ATTN_LOCAL else _fill_global
         fill(cache, *(t[pick] for t in kv), sel_t, lens_a)
     last_raw = x[pick, lens_a - 1]
     last = rms_norm(last_raw, params["final_norm"], cfg.norm_eps)
-    logits = softcap(lm_head_logits(head_table(cfg, params), last),
-                     cfg.logit_softcap)
-    cand_v, cand_i = head_candidates(logits)
+    table = head_table(cfg, params)
+    logits = softcap(lm_head_logits(table, last), cfg.logit_softcap)
+    cand_v, cand_i = _merge_vocab_shards(ctx, table.shape[0],
+                                         *head_candidates(logits))
     return last_raw, cand_v, cand_i
 
 

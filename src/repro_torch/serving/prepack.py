@@ -92,7 +92,7 @@ def share_packed_qkv(train: Dict[str, Any], serve: Dict[str, Any]
                      ) -> Dict[str, Any]:
     """``train`` with every packed block's (groups' and tail's) ``wq``,
     ``wk`` and ``wv`` replaced by views of the serve tree's ``wqkv`` (the
-    same values), so
+    same values) — and ``bq``, ``bk``, ``bv`` by views of ``bqkv`` —, so
     the train layout's own copies are released once nothing else holds
     them: at Gemma-2 27B's width they are 3.47 GB, room the 8 slots'
     caches need beside the 54.5 GB of weights on an 80 GB card.  Prefill
@@ -102,12 +102,15 @@ def share_packed_qkv(train: Dict[str, Any], serve: Dict[str, Any]
         a = packed.get("attn")
         if not isinstance(a, PackedSplitTokenWeights):
             return blk
-        views, c0 = {}, 0
-        for name in ("wq", "wk", "wv"):
-            shape = blk["attn"][name].shape     # [G, D, heads, hd]; tail [D, …]
-            n = shape[-2] * shape[-1]
-            views[name] = a.wqkv[..., c0:c0 + n].unflatten(-1, shape[-2:])
-            c0 += n
+        views = {}
+        for names, fused in ((("wq", "wk", "wv"), a.wqkv),
+                             (("bq", "bk", "bv"), a.bqkv)):
+            c0 = 0
+            for name in names if fused is not None else ():
+                shape = blk["attn"][name].shape  # [G, D, heads, hd]; tail [D, …]
+                n = shape[-2] * shape[-1]
+                views[name] = fused[..., c0:c0 + n].unflatten(-1, shape[-2:])
+                c0 += n
         return dict(blk, attn=dict(blk["attn"], **views))
 
     return dict(train, **{part: [share(b, p) for b, p in

@@ -157,13 +157,13 @@ class SlotScheduler:
             np.ones((self.n_slots,), np.int32))
 
     def cache_lens(self) -> np.ndarray:
-        return self.state["cache_lens"].cpu().numpy()
+        return self.eng.to_global(self.state["cache_lens"]).cpu().numpy()
 
     def work_blocks(self) -> np.ndarray:
         """Per-slot attend-step counters (``track_work``)."""
         if "work_blocks" not in self.state:
             raise ValueError("build the engine with track_work=True")
-        return self.state["work_blocks"].cpu().numpy()
+        return self.eng.to_global(self.state["work_blocks"]).cpu().numpy()
 
     def expected_cache_lens(self) -> np.ndarray:
         """What ``cache_lens`` must read if the device ran exactly the
@@ -188,7 +188,8 @@ class SlotScheduler:
         """Read the per-slot violations before the retire can reset
         them (``integrity_latch``)."""
         st = self.state
-        if "nonfinite" in st and bool((st["nonfinite"] > 0).any()):
+        if "nonfinite" in st and bool(
+                (self.eng.to_global(st["nonfinite"]) > 0).any()):
             self.latched.append("detect_nonfinite")
         lens = self.cache_lens()
         if (lens < -1).any() or (lens > self.eng.scfg.max_seq).any():

@@ -1,0 +1,242 @@
+"""Runs one function on every rank of a CPU world of gloo processes, for
+the port's model-axis tests.
+
+:func:`run_ranks` spawns ``world`` processes, each with one torch thread
+(the default threads make the CPU tests many times slower under the
+parallel run), joins them through a ``FileStore`` under the test's
+``tmp_path`` (no rendezvous port), calls ``module:function(rank, world,
+*args)`` in each and returns the ranks' results (``torch.save``d to
+``tmp_path``).  Every collective waits at most ``RANK_TIMEOUT`` for a
+missing peer, and the whole run at most ``timeout``: a rank that does
+not post its round fails the test instead of hanging it.
+
+The rank bodies below import torch and the port only.
+"""
+from __future__ import annotations
+
+import datetime
+import importlib
+import os
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+import torch.multiprocessing as mp
+
+RANK_TIMEOUT = datetime.timedelta(seconds=120)
+
+
+def _entry(rank, world, store_path, out_dir, target, args):
+    torch.set_num_threads(1)
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import init_world
+    init_world(rank, world, device="cpu",
+               store=dist.FileStore(store_path, world), timeout=RANK_TIMEOUT)
+    try:
+        mod, name = target.split(":")
+        result = getattr(importlib.import_module(mod), name)(rank, world,
+                                                             *args)
+        torch.save(result, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def run_ranks(target: str, world: int, tmp_path, *args, timeout: float = 300):
+    """``[result of rank 0, …]`` of ``target`` (``"module:function"``, a
+    module importable from ``tests/``) run on ``world`` gloo ranks."""
+    out = Path(tmp_path) / f"ranks_{target.replace(':', '_')}"
+    out.mkdir(parents=True, exist_ok=True)
+    ctx = mp.start_processes(
+        _entry, args=(world, str(out / "store"), str(out), target, args),
+        nprocs=world, join=False, start_method="spawn")
+    deadline = time.monotonic() + timeout
+    while not ctx.join(timeout=max(1.0, deadline - time.monotonic())):
+        if time.monotonic() > deadline:
+            for p in ctx.processes:
+                p.kill()
+            raise AssertionError(f"{target}: the {world} ranks did not finish "
+                                 f"within {timeout} s")
+    return [torch.load(out / f"rank{r}.pt", weights_only=False)
+            for r in range(world)]
+
+
+def to_np(t):
+    """A tensor (bf16 through f32) or a tree of them → numpy."""
+    if isinstance(t, dict):
+        return {k: to_np(v) for k, v in t.items()}
+    if isinstance(t, (list, tuple)):
+        return type(t)(to_np(v) for v in t)
+    if torch.is_tensor(t):
+        t = t.detach()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+    return t
+
+
+# ---------------------------------------------------------------------------
+# Rank bodies
+# ---------------------------------------------------------------------------
+def primitives_body(rank, world, data):
+    """Every primitive of ``core/primitives.py`` on this rank's rows of
+    ``data``: on the model axis of a 2 × 4 mesh (``model/…``, the backend's
+    all-reduce and all-gather too) and on the heads 2 × cluster 4 sub-axes
+    of the 1 × 8 mesh (``heads/…``, ``clus/…``); then the model code's
+    ``ParallelCtx`` on that line at heads 2 and 8 (``ctx2/…``,
+    ``ctx8/…``)."""
+    from repro_torch.core import primitives as prim
+    from repro_torch.launch.mesh import make_mesh, make_test_mesh
+    from repro_torch.models.ctx import make_train_ctx
+    x, m, l, o = (torch.from_numpy(data[k][rank]) for k in "xmlo")
+    out = {}
+    model = make_test_mesh(device="cpu").axes["model"]
+    line = make_mesh(1, 8, device="cpu").axes["model"]
+    axes = {"model": model, "heads": prim.SubAxis(line, 2, minor_size=4),
+            "clus": prim.SubAxis(line, 4, minor_size=1)}
+    for name, ax in axes.items():
+        for op in ("sum", "max", "min"):
+            out[f"{name}/reduce_{op}"] = prim.cluster_reduce(x, ax, op)
+        out[f"{name}/gather"] = prim.cluster_gather(x, ax)
+        out[f"{name}/gather_tiled1"] = prim.cluster_gather_tiled(x, ax, 1)
+        out[f"{name}/pairs"] = prim.cluster_reduce_pairs(
+            (m, l, o), ax, prim.flash_merge)
+        for fused in (True, False):
+            out[f"{name}/flash_{fused}"] = prim.cluster_flash_combine(
+                m, l, o, ax, fused=fused)
+    out["model/xla_sum"] = prim.cluster_reduce_xla(x, model, "sum")
+    out["model/xla_max"] = prim.cluster_reduce_xla(x, model, "max")
+    out["model/xla_gather"] = prim.cluster_gather_xla(x, model, dim=1)
+    out["model/offchip_sum"] = prim.offchip_reduce(x, model, "sum")
+    out["model/offchip_max"] = prim.offchip_reduce(x, model, "max")
+    for hs in (2, 8):
+        c = make_train_ctx(line, heads_sub=hs, model_size=8)
+        out[f"ctx{hs}/psum_model"] = c.psum_model(x)
+        out[f"ctx{hs}/psum_heads"] = c.psum_heads(x)
+        out[f"ctx{hs}/gather_cluster"] = c.gather_cluster(x, 1)
+        out[f"ctx{hs}/reduce_cluster_max"] = c.reduce_cluster(x, "max")
+        out[f"ctx{hs}/index"] = np.array(
+            [c.heads_index(), c.cluster_index(), c.model_index()], np.int32)
+    return to_np(out)
+
+
+def _near_tie_gaps(cfg, eng, state, got, want, model_axis):
+    """For each slot where ``got`` ≠ ``want`` (global tokens): the gap
+    between the two tokens' f32 logits in this engine, from the stashed
+    pre-head residual (``shadow_head``) over the whole vocabulary (the
+    ranks' shards gathered)."""
+    from repro_torch.core import primitives as prim
+    from repro_torch.models.layers import lm_head_logits, rms_norm
+    from repro_torch.models.transformer import head_table
+    p = eng.params["train"]
+    x = rms_norm(state["head_resid"], p["final_norm"], cfg.norm_eps)
+    logits = prim.cluster_gather_xla(
+        lm_head_logits(head_table(cfg, p), x.to(torch.bfloat16)),
+        model_axis, dim=-1)
+    logits = eng.to_global(logits)
+    return [float(abs(logits[b, int(got[b])] - logits[b, int(want[b])]))
+            for b in range(len(got)) if got[b] != want[b]]
+
+
+def engines_body(rank, world, cases):
+    """Each case's engine on the 2 × 4 mesh, with the reference's weights
+    (this rank's model slice): its prefill and forced decode tokens and,
+    where a token differs from the reference's, the near-tie gap."""
+    import dataclasses
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.serve import build_engine_full
+    from repro_torch.launch.specs import serving_layout
+    from repro_torch.models.transformer import from_reference_params
+    from repro_torch.serving.engine import EngineOptions
+    mesh = make_test_mesh(device="cpu")
+    out = {}
+    for key, case in cases.items():
+        cfg = dataclasses.replace(reduced(get_config(case["arch"])),
+                                  **case["replace"])
+        lay = serving_layout(cfg, mesh.shape["model"])
+        train = from_reference_params(
+            cfg, case["params"], lay=lay,
+            rank=mesh.axes["model"].index, device="cpu")
+        eng = build_engine_full(
+            cfg, mesh=mesh, max_seq=case["max_seq"],
+            batch_global=case["prompts"].shape[0], train_params=train,
+            options=EngineOptions(backend=case["backend"], shadow_head=True))
+        tok, st = eng.prefill_fn(eng.params["train"], eng.state,
+                                 case["prompts"])
+        toks, gaps = [tok.numpy()], []
+        gaps += _near_tie_gaps(cfg, eng, st, toks[-1], case["want"][0],
+                               mesh.axes["model"])
+        for t, forced in enumerate(case["forced"]):
+            tok, st = eng.decode_fn(eng.params["serve"], st, forced)
+            toks.append(tok.numpy())
+            gaps += _near_tie_gaps(cfg, eng, st, toks[-1],
+                                   case["want"][t + 1], mesh.axes["model"])
+        out[key] = dict(tokens=np.stack(toks), gaps=gaps,
+                        cache_lens=eng.to_global(st["cache_lens"]).numpy(),
+                        kv_shape=tuple(st["layers"][0].k.shape))
+    return out
+
+
+def forward_body(rank, world, cases):
+    """The f32 train-path forward on the 2 × 4 mesh: this rank's data rows
+    of the final hidden states and the greedy tokens of its last
+    position (the head's vocabulary shards merged by the tree)."""
+    import dataclasses
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.specs import ctx_for, serving_layout
+    from repro_torch.models.layers import lm_head_logits
+    from repro_torch.models.transformer import (forward, from_reference_params,
+                                                head_table)
+    from repro_torch.serving.engine import _merge_vocab_shards
+    from repro_torch.serving.sampling import head_candidates
+    mesh = make_test_mesh(device="cpu")
+    out = {}
+    for key, case in cases.items():
+        cfg = dataclasses.replace(reduced(get_config(case["arch"])),
+                                  **case["replace"])
+        lay = serving_layout(cfg, mesh.shape["model"])
+        ctx = ctx_for(mesh, lay)
+        p = from_reference_params(cfg, case["params"], lay=lay,
+                                  rank=ctx.model_index(), device="cpu")
+        b_loc = case["tokens"].shape[0] // mesh.shape["data"]
+        rows = case["tokens"][ctx.data_index() * b_loc:][:b_loc]
+        h = forward(cfg, p, torch.from_numpy(rows), ctx=ctx)
+        table = head_table(cfg, p)
+        _, ids = _merge_vocab_shards(ctx, table.shape[0], *head_candidates(
+            lm_head_logits(table, h[:, -1]), 8))
+        out[key] = dict(hidden=h.numpy(), tokens=ids[:, 0].numpy())
+    return out
+
+
+def model_axis_body(rank, world, cases, fwd_cases):
+    """:func:`engines_body` then :func:`forward_body`, in one world."""
+    return dict(engines=engines_body(rank, world, cases),
+                forward=forward_body(rank, world, fwd_cases))
+
+
+def scheduler_body(rank, world, trace_spec):
+    """The same trace through ``SlotScheduler`` on ``"xla"`` and on
+    ``"pallas"`` on a 4 × 2 mesh (a 2-device model axis, one slot a data
+    rank): each backend's (request, tokens) and events."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.serve import build_engine_full
+    from repro_torch.serving.engine import EngineOptions
+    from repro_torch.serving.scheduler import (Request, SlotScheduler,
+                                               replay_trace)
+    cfg = reduced(get_config("llama2-7b"))
+    mesh = make_mesh(4, 2, device="cpu")
+    out = {}
+    for backend in ("xla", "pallas"):
+        eng = build_engine_full(cfg, mesh=mesh, max_seq=32, batch_global=4,
+                                options=EngineOptions(backend=backend,
+                                                      track_work=True))
+        sched = SlotScheduler(eng, prompt_cap=8)
+        res = replay_trace(sched, [(a, Request(rid, prompt, new))
+                                   for rid, (a, prompt, new)
+                                   in enumerate(trace_spec)])
+        out[backend] = dict(
+            tokens=[(r, res[r].tokens) for r in sorted(res)],
+            events=list(sched.events), work=sched.work_blocks(),
+            lens=sched.cache_lens(), prepack=eng.scfg.prepack)
+    return out

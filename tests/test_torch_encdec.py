@@ -347,7 +347,7 @@ def test_cluster_plan_at_head_dim_64(monkeypatch, heads, kv, D, hd, plan):
         return
     b1.fused_decode_cuda(*args, **kw)
     (got,) = calls
-    assert got[16:24] == (B, D, S, heads, kv, hd, *plan)
+    assert got[17:25] == (B, D, S, heads, kv, hd, *plan)   # after bqkv
 
 
 def _close_ulps(got, want, n):

@@ -44,7 +44,10 @@ def test_every_module_imports_without_jax():
             "repro_torch.configs.gemma2_27b",
             "repro_torch.serving.step_graph", "repro_torch.core.threefry",
             "repro_torch.serving.integrity", "repro_torch.serving.faults",
-            "repro_torch.serving.router", "repro_torch.serving.sweep"
+            "repro_torch.serving.router", "repro_torch.serving.sweep",
+            "repro_torch.core.primitives", "repro_torch.models.ctx",
+            "repro_torch.launch.mesh", "repro_torch.launch.specs",
+            "repro_torch.configs.qwen2_72b"
             } <= set(_modules())
 
 
@@ -78,6 +81,11 @@ def test_entry_points_default_to_the_card():
         rwkv6_state_init(2, 2, 16, 32)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         rglru_state_init(2, 32)
+    from repro_torch.launch.mesh import init_world, make_mesh
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_world(0, 2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_mesh(1, 2)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_engine_full(reduced(get_config("recurrentgemma-9b")),
                           max_seq=16, batch_global=2)

@@ -182,16 +182,16 @@ def test_fused_decode_plain_at_rank_split_edges(lens):
 
 
 def test_fused_decode_unported_modes_raise():
-    """``fuse_out`` True/False, ``bqkv`` and an unfused norm still raise;
-    the window and the softcap (Gemma-2's modes, ported) run and give
-    ``ref.py``'s result (their full cases: ``tests/test_torch_gemma2
-    .py``)."""
+    """``fuse_out`` True/False, ``pos_base`` ≠ 0 and an unfused norm still
+    raise; the window and the softcap (Gemma-2's modes, ported) run and
+    give ``ref.py``'s result (their full cases: ``tests/test_torch_gemma2
+    .py``; ``bqkv``'s: ``tests/test_torch_qwen2.py``)."""
     j, t = _b1_inputs((1, 2, 3, 30), "owner", "f32")
     args = (t["x"], t["wqkv"], t["wo"], t["ln1"], t["kc"], t["vc"],
             t["pos"], t["lens"], t["inc"], t["cos"], t["sin"])
     kw = dict(q_heads=4, kv_heads=4)
     for bad in (dict(fuse_out=True), dict(fuse_out=False),
-                dict(bqkv=torch.zeros(12 * 16))):
+                dict(pos_base=16)):
         with pytest.raises(NotImplementedError):
             b1.fused_decode_attention(*args, **kw, **bad)
     with pytest.raises(NotImplementedError):
@@ -777,7 +777,8 @@ def test_fused_decode_wrapper_cluster_size(monkeypatch, heads, kv, D, C, H):
         torch.zeros(B, hd // 2, dtype=f32), torch.zeros(B, hd // 2, dtype=f32),
         q_heads=heads, kv_heads=kv, scale=hd ** -0.5, norm_eps=1e-6)
     (args,) = calls
-    assert args[16:24] == (B, D, S, heads, kv, hd, C, H)
+    assert args[11] is None                      # no bqkv: a null pointer
+    assert args[17:25] == (B, D, S, heads, kv, hd, C, H)
 
 
 def _record_empty(monkeypatch):
@@ -953,12 +954,12 @@ def test_rwkv6_scan_wrapper_passes_its_pointers(monkeypatch, alias):
 def test_cluster_kernels_refuse_unported_shapes(monkeypatch):
     """B1 at head_dim 256 (GQA 8/2: RecurrentGemma's fused arm, A.4c), a
     d_model no cluster size splits into 64-row multiples, query heads
-    that are no multiple of the kv heads, and q_per_kv 5 and 8 (no
-    instance) raise before the library is reached — q_per_kv 2
-    (Gemma-2's, ported) reaches it; so do B2 shapes its plan cannot
+    that are no multiple of the kv heads, and q_per_kv 5 (no instance)
+    raise before the library is reached — q_per_kv 2 and 8 (Gemma-2's
+    and Qwen2-72B's, ported) reach it; so do B2 shapes its plan cannot
     split (d_ff not a multiple of 16, d_model not a multiple of 16 or
-    over 640 rows a rank) and B4 shapes outside MLA's geometry or with a
-    d_model whose eighth is not a multiple of 64 up to 512."""
+    over 1024 rows a rank) and B4 shapes outside MLA's geometry or with
+    a d_model whose eighth is not a multiple of 64 up to 512."""
     def no_library(*_a, **_k):
         raise AssertionError("an unsupported input reached the library")
 
@@ -968,7 +969,7 @@ def test_cluster_kernels_refuse_unported_shapes(monkeypatch):
                              (6, 4, 256, 128), (10, 2, 256, 128),
                              (16, 2, 512, 128), (8, 4, 256, 128)):
         B, S = 1, 4
-        ported = heads == 2 * kv                # Gemma-2's q_per_kv 2
+        ported = heads in (2 * kv, 8 * kv)      # q_per_kv 2 and 8
         with pytest.raises(AssertionError if ported
                            else NotImplementedError,
                            match="library" if ported else "fused_decode"):
@@ -982,7 +983,7 @@ def test_cluster_kernels_refuse_unported_shapes(monkeypatch):
                 torch.zeros(B, dtype=i32), torch.zeros(B, hd // 2, dtype=f32),
                 torch.zeros(B, hd // 2, dtype=f32), q_heads=heads,
                 kv_heads=kv, scale=hd ** -0.5, norm_eps=1e-6)
-    for D, F in ((64, 100), (8, 16), (6144, 16384)):
+    for D, F in ((64, 100), (8, 16), (9216, 16)):
         assert b2.cluster_plan(D, F) == (0, 0)
         z = lambda *s: torch.zeros(s, dtype=bf)
         with pytest.raises(NotImplementedError, match="fused_ffn"):

@@ -227,7 +227,7 @@ def test_cluster_plan_at_head_dim_256(monkeypatch, heads, kv, D, hd, plan):
         return
     b1.fused_decode_cuda(*args, **kw)
     (got,) = calls
-    assert got[16:24] == (B, Dn, S, heads, kv, hd, *plan)
+    assert got[17:25] == (B, Dn, S, heads, kv, hd, *plan)  # after bqkv
 
 
 # ---------------------------------------------------------------------------

@@ -346,8 +346,10 @@ def test_unservable_combinations_raise_naming_the_roadmap():
     """MLA on ``"xla"`` is served now (item 4b, with MoE or without), and
     post-norms (item 10, Gemma-2's) on both backends; ``"pallas"`` with
     prepack off on an attention model (B1's and B4's ``fuse_out=False``
-    modes, Queue B), q/k/v biases (item 11) and an encoder without a
-    frontend raise before any weight is made, while SeamlessM4T-medium's
+    modes, Queue B), q/k/v biases on MLA (no registered model has them)
+    and an encoder without a frontend raise before any weight is made,
+    while Qwen2-72B's q/k/v biases on GQA attention build on both
+    backends and SeamlessM4T-medium's
     encoder (item 14) builds on both backends; an attention-free model may
     turn prepack off."""
     mla = reduced(get_config("deepseek-v2-lite"))
@@ -372,12 +374,17 @@ def test_unservable_combinations_raise_naming_the_roadmap():
         build_engine_full(post, max_seq=16, batch_global=2, device="cpu",
                           options=EngineOptions(backend="pallas",
                                                 prepack="off"))
-    for bad, item in (({"qkv_bias": True}, "item 11"),
-                      ({"encoder": EncoderConfig(2, 4, 4, 384)},
-                       "fed by a frontend")):
+    for base, bad, item in ((mla, {"qkv_bias": True}, "biases"),
+                            (llama, {"encoder": EncoderConfig(2, 4, 4, 384)},
+                             "fed by a frontend")):
         with pytest.raises(NotImplementedError, match=item):
-            build_engine_full(dataclasses.replace(llama, **bad), max_seq=16,
+            build_engine_full(dataclasses.replace(base, **bad), max_seq=16,
                               batch_global=2, device="cpu")
+    for backend in ("xla", "pallas"):
+        eng = build_engine_full(dataclasses.replace(llama, qkv_bias=True),
+                                max_seq=16, batch_global=2, device="cpu",
+                                options=EngineOptions(backend=backend))
+        assert "bq" in eng.params["train"]["blocks"][0]["attn"]
     seamless = reduced(get_config("seamless-m4t-medium"))
     for backend in ("xla", "pallas"):
         eng = build_engine_full(seamless, max_seq=16, batch_global=2,
