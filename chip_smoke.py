@@ -121,7 +121,27 @@ hand-written kernels from
    table; the cluster kernels (B1, B2, B3, B4,
    B5) and B7 launched twice on the same inputs give the same bits (their
    ranks' and clusters' partials merge in a fixed order; B3's merges
-   select without arithmetic);
+   select without arithmetic); check-only, a cluster across devices (the
+   KV sequence over the ranks of a cluster, ROADMAP A.5b): B1 on each
+   rank's 512-row shard of a 1024-row cache (``pos_base`` 0 and 512,
+   the new token on its owner rank only, ``CLUSTER_LENS``: slots whose
+   rank holds none of their rows) at one rank's heads on 16 GPUs at a
+   cluster of 2 (``CLUSTER_RANKS``: Qwen2-72B's 8/1 with ``bqkv`` at
+   ``D`` 8192, Granite-8B's 4/1, Minitron-4B's 3/1), Gemma-2's local
+   layer at an explicit cluster of 2 (each rank's 2048-slot ring shard,
+   ``pos_base`` −1, window and cap), B4 at DeepSeek-V2-Lite's widths
+   with 8 heads a rank (4 GPUs, cluster 2) on shards at ``pos_base`` 0
+   and 512, and B5's rank-local mode (stored-pos mask, the f32 partial
+   ``(o, m, l)``: each (slot, head) to ``FLASH_F32_REL_TOL``, empty
+   partials exactly ``(−1e30, 0, 0)``) at Llama2-7B's and Gemma-2's
+   unfused shapes;
+3b. the shard merge (``[shard_merge]`` lines): B1 at Llama2-7B's full
+   width and B4 at DeepSeek-V2-Lite's, each launched on the ``n``
+   shards of one cache for ``n`` = 2 and 4 and the ranks' ``(m, l, o)``
+   merged with ``core/primitives.py:flash_merge`` in this one process,
+   against one launch over the whole cache: ``o / l`` and ``m`` of every
+   live slot within ``MERGE_REL_TOL`` of each (slot, head)'s largest
+   element — the identity that makes a cluster across devices right;
 4. per path, builds the engine, whose ``decode_fn`` replays the decode
    step captured once in a CUDA graph (``serving/step_graph.py``), and
    serves through it; per attention path a staggered 12-request trace
@@ -287,6 +307,7 @@ from repro_torch.kernels.rglru_scan.rglru_scan import (  # noqa: E402
 from repro_torch.kernels.rwkv6_scan.rwkv6_scan import (  # noqa: E402
     rwkv6_scan, rwkv6_scan_plain)
 from repro_torch.core import threefry  # noqa: E402
+from repro_torch.core.primitives import flash_merge  # noqa: E402
 from repro_torch.launch.serve import (  # noqa: E402
     build_engine_full, build_replicas, generate)
 from repro_torch.models.layers import lm_head_logits  # noqa: E402
@@ -577,8 +598,38 @@ GQA_EDGE_LENS = [64, 64, 128, 192, 63, 65, 255, 193]
 HD64_EDGE_LENS = [127, 128, 129, 383, 384, 385, 641, MAX_SEQ - 1]
 
 
+def shard_of(pos, lens, n: int, r: int, ring: bool):
+    """Rank ``r`` of a cluster of ``n`` ranks across devices: its rows of
+    the whole cache's ``pos`` (``S / n`` rows from ``r·S / n``),
+    ``include_new`` on the owner of each slot's append only (the
+    reference's ``_append_slot``: row ``cache_len``, or ring slot
+    ``cache_len mod S``) and its ``pos_base`` (``r·S / n``; −1 on a
+    ring)."""
+    S = pos.shape[0]
+    s_sh = S // n
+    slot = torch.remainder(lens, S) if ring else lens
+    owner = ((torch.div(slot, s_sh, rounding_mode="floor") == r)
+             & (lens >= 0)).to(torch.int32)
+    return (pos[r * s_sh:(r + 1) * s_sh].contiguous(), owner,
+            -1 if ring else r * s_sh)
+
+
+def shard_live(pos, lens, pos_base, window=0, newest=False):
+    """The rows a rank's shard holds for its slots' attention: stored
+    positions in ``[0, cache_len)`` (``newest``: up to ``cache_len``) and
+    the window, within the rank-local span."""
+    cl = lens[None, :]
+    valid = (pos >= 0) & ((pos <= cl) if newest else (pos < cl))
+    if window:
+        valid &= pos > cl - window
+    span = torch.clamp(lens + int(newest) - max(pos_base, 0), 0,
+                       pos.shape[0])
+    return valid & (torch.arange(pos.shape[0], device=pos.device)[:, None]
+                    < span[None, :])
+
+
 def gqa_case(cfg, gen, lens=None, *, S=MAX_SEQ, ring=False,
-             check_only=None, heads=None):
+             check_only=None, heads=None, shard=None):
     """B1 at ``cfg``'s widths with its attention softcap and, on a model
     with q/k/v biases, a seeded ``bqkv``, on a linear cache of ``S`` rows
     — or, with ``ring``, as Gemma-2's local layers call it: on their ring
@@ -586,7 +637,9 @@ def gqa_case(cfg, gen, lens=None, *, S=MAX_SEQ, ring=False,
     ``lens``, a check-only case (no path runs those lengths, so it has no
     phase 6 row) unless ``check_only`` is False; with ``heads``
     ``(mesh size, query heads, kv heads)`` a check-only case at one
-    rank's heads of that mesh."""
+    rank's heads of that mesh; with ``shard`` ``(n, r)``, rank ``r``'s
+    shard of the cache on a cluster of ``n`` across devices
+    (:func:`shard_of`: ``pos_base``, the owner's ``include_new``)."""
     B, D = SLOTS, cfg.d_model
     nq, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     if heads is not None:
@@ -600,10 +653,11 @@ def gqa_case(cfg, gen, lens=None, *, S=MAX_SEQ, ring=False,
         pos = ring_positions(S, lens)
     else:
         lens, pos, _ = decode_lens(S, lens)
-    valid = (pos >= 0) & (pos < lens[None, :])
-    if window:
-        valid &= pos > lens[None, :] - window
-    live = int(valid.sum())
+    include_new, pos_base = (lens >= 0).to(torch.int32), 0
+    if shard is not None:
+        pos, include_new, pos_base = shard_of(pos, lens, *shard, ring)
+        S = pos.shape[0]
+    live = int(shard_live(pos, lens, pos_base, window).sum())
     cos, sin = rope_at(lens, hd, cfg.rope_theta)
     dec = dict(
         x=randn(gen, (B, D), 1.0),
@@ -612,7 +666,7 @@ def gqa_case(cfg, gen, lens=None, *, S=MAX_SEQ, ring=False,
         norm_scale=randn(gen, (D,), 0.1, torch.float32),
         k_cache=randn(gen, (S, B * nkv, hd), 1.0),
         v_cache=randn(gen, (S, B * nkv, hd), 1.0),
-        pos=pos, cache_lens=lens, include_new=(lens >= 0).to(torch.int32),
+        pos=pos, cache_lens=lens, include_new=include_new,
         cos=cos, sin=sin)
     dec_bytes = (B * D * 2 + D * P * 2 + nq * hd * D * 2 + D * 4
                  + 2 * live * nkv * hd * 2 + live * 4 + B * 4 * (2 + hd)
@@ -622,6 +676,8 @@ def gqa_case(cfg, gen, lens=None, *, S=MAX_SEQ, ring=False,
     kw = dict(q_heads=nq, kv_heads=nkv, scale=hd ** -0.5,
               norm_eps=cfg.norm_eps, window=window,
               attn_softcap=cfg.attn_softcap)
+    if shard is not None:
+        kw["pos_base"] = pos_base
     if cfg.qkv_bias:
         kw["bqkv"] = randn(gen, (P,), 0.5)
         dec_bytes += P * 2
@@ -629,7 +685,13 @@ def gqa_case(cfg, gen, lens=None, *, S=MAX_SEQ, ring=False,
                 plain=fused_decode_plain, args=dec, kw=kw,
                 cost=(dec_bytes, dec_ops),
                 replaces="src/repro/kernels/fused_decode/fused_decode.py:276")
-    if heads is not None:
+    if shard is not None:
+        case.update(check_only=True, stage=(
+            f"cluster {shard[0]} rank {shard[1]}"
+            + (f" of {heads[0]} GPUs" if heads else "")
+            + f": {nq}/{nkv} heads, {S} rows, pos_base {pos_base}, "
+              f"lengths {lens.tolist()}"))
+    elif heads is not None:
         case.update(check_only=True, stage=f"a rank of {heads[0]} GPUs: "
                     f"{nq}/{nkv} heads")
     elif check_only:
@@ -674,11 +736,12 @@ def ring_positions(S: int, lens: torch.Tensor) -> torch.Tensor:
 B4_EDGE_LENS = [95, 97, 96, 96, 24, 168, 1, 191]
 
 
-def mla_case(cfg, gen, lens=None, heads=None):
+def mla_case(cfg, gen, lens=None, heads=None, shard=None):
     """B4 at ``cfg``'s widths; with ``lens`` a check-only case (no path
     runs those lengths, so it has no phase 6 row); with ``heads``
     ``(mesh size, heads)`` a check-only case at one rank's heads of that
-    mesh."""
+    mesh; with ``shard`` ``(n, r)`` rank ``r``'s shard of the latent
+    cache on a cluster of ``n`` across devices (:func:`shard_of`)."""
     B, D, S = SLOTS, cfg.d_model, MAX_SEQ
     m = cfg.mla
     nq, nope, rope, lat = (heads[1] if heads else cfg.n_heads,
@@ -686,6 +749,11 @@ def mla_case(cfg, gen, lens=None, heads=None):
     lr, Pq = lat + rope, nq * (nope + rope)
     edge = lens is not None
     lens, pos, live = decode_lens(S, lens)
+    include_new = ((lens >= 0) & (lens < S)).to(torch.int32)
+    if shard is not None:
+        pos, include_new, pos_base = shard_of(pos, lens, *shard, False)
+        S = pos.shape[0]
+        live = int(shard_live(pos, lens, pos_base).sum())
     cos, sin = rope_at(lens, rope, cfg.rope_theta)
     args = dict(
         x=randn(gen, (B, D), 1.0),
@@ -696,8 +764,7 @@ def mla_case(cfg, gen, lens=None, heads=None):
         wproj=randn(gen, (nq, lat, D), 0.05 / nq ** 0.5),
         norm_scale=randn(gen, (D,), 0.1, torch.float32),
         c_cache=randn(gen, (S, B, lr), 1.0),
-        pos=pos, cache_lens=lens,
-        include_new=((lens >= 0) & (lens < S)).to(torch.int32),
+        pos=pos, cache_lens=lens, include_new=include_new,
         cos=cos, sin=sin)
     n_bytes = (B * D * 2 + D * Pq * 2 + D * lr * 2 + nq * nope * lat * 2
                + nq * lat * D * 2 + D * 4 + live * lr * 2 + live * 4
@@ -719,6 +786,13 @@ def mla_case(cfg, gen, lens=None, heads=None):
     if heads:
         case.update(check_only=True,
                     stage=f"a rank of {heads[0]} GPUs: {nq} heads")
+    if shard is not None:
+        case["kw"]["pos_base"] = pos_base
+        case.update(check_only=True, stage=(
+            f"cluster {shard[0]} rank {shard[1]}"
+            + (f" of {heads[0]} GPUs" if heads else "")
+            + f": {nq} heads, {S} rows, pos_base {pos_base}, "
+              f"lengths {lens.tolist()}"))
     return case
 
 
@@ -856,6 +930,61 @@ def flash_case(cfg, gen, *, q_heads=None, kv_heads=None, q_scale=1.0,
     return case
 
 
+# A cluster across devices (ROADMAP A.5b): each rank holds S / n rows of
+# every cache.  Cache lengths on 1024 positions split at 512: a free slot,
+# slots whose positions all lie on rank 0 (rank 1 holds none of their rows
+# and does not own their token: 37, 300, 511), 512 (rank 1 owns the new
+# token and holds no row), and slots on both ranks
+CLUSTER_LENS = [-1, 0, 37, 300, 511, 512, 513, 1000]
+# one rank's query/kv heads on a model axis of 16 at the reference's
+# pick of a cluster of 2 (launch/specs.py:serving_layout)
+CLUSTER_RANKS = {QWEN: (16, 8, 1), "granite-8b": (16, 4, 1),
+                 "minitron-4b": (16, 3, 1)}
+MERGE_REL_TOL = 1e-3           # n shards' f32 partials merged against one
+                               # launch over the whole cache: summation
+                               # order only, relative to each (slot,
+                               # head)'s largest element
+
+
+def rank_flash_case(cfg, gen, shard, lens, *, ring=False, q_scale=1.0):
+    """B5's rank-local mode (a cluster across devices: the stored-pos
+    mask, the f32 partial ``(o, m, l)``) on rank ``r`` of ``n``'s shard
+    (``shard = (n, r)``) of the unfused path's per-slot cache after the
+    append (positions up to each slot's ``cache_len``): Llama2-7B's
+    1024-row linear cache, or Gemma-2's 4096-slot local ring with the
+    window and the cap, ``q`` scaled so the cap bites; check-only."""
+    B, hd = SLOTS, cfg.resolved_head_dim
+    nq, nkv = cfg.n_heads, cfg.n_kv_heads
+    lens = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    if ring:
+        W, window, cap = cfg.sliding_window, cfg.sliding_window, \
+            cfg.attn_softcap
+        pos = ring_positions(W, lens + 1)
+    else:
+        W, window, cap = MAX_SEQ, 0, 0.0
+        pos = decode_lens(W, (lens + 1).tolist())[1]
+    pos, _, pos_base = shard_of(pos, lens, *shard, ring)
+    S = pos.shape[0]
+    live_rows = shard_live(pos, lens, pos_base, window, newest=True)
+    live = int(live_rows.sum())
+    span = int(torch.clamp(lens + 1 - max(pos_base, 0), 0, S).sum())
+    args = dict(q=randn(gen, (B, nq, hd), q_scale),
+                k_cache=randn(gen, (S, B, nkv, hd), 1.0),
+                v_cache=randn(gen, (S, B, nkv, hd), 1.0), cache_len=lens)
+    n_bytes = (2 * live * nkv * hd * 2 + span * 4 + B * nq * hd * 2
+               + 2 * B * 4 + B * nq * hd * 4 + 2 * B * nq * 4)
+    n_ops = 4 * live * nq * hd
+    return dict(name="flash_decode", fn=flash_decode_attention,
+                plain=flash_decode_plain, args=args,
+                kw=dict(window=window, attn_softcap=cap, pos=pos,
+                        pos_base=pos_base),
+                cost=(n_bytes, n_ops), check_only=True,
+                stage=f"cluster {shard[0]} rank {shard[1]}, rank-local "
+                      f"partial: {nq}/{nkv} heads, {S} rows, pos_base "
+                      f"{pos_base}, newest positions {lens.tolist()}",
+                replaces="src/repro/kernels/flash_decode/flash_decode.py:73")
+
+
 def kernel_cases(path, cfg, backend):
     """The kernels of ``path`` at its widths: on ``"pallas"`` the
     attention kernel (B1, or B4 for MLA), B2 and B3 — or, on RWKV-6, B7
@@ -911,15 +1040,25 @@ def kernel_cases(path, cfg, backend):
                             lens=[min(max(n + 1, 0), S) for n in lens])
                  for S, lens in ((cfg.sliding_window, GEMMA_LENS),
                                  (TRACE_MAX_SEQ[GEMMA], GLOBAL_LENS))]
+        # the rank-local partial on a ring shard of a cluster of 2
+        cases += [rank_flash_case(cfg, gen, (2, r), GEMMA_LENS, ring=True,
+                                  q_scale=8.0) for r in range(2)]
     elif path == GEMMA:
         cases = [gqa_case(cfg, gen, GEMMA_LENS, ring=True, check_only=False),
                  ffn_case(cfg, gen), head_case(cfg, gen),
                  gqa_case(cfg, gen, GLOBAL_LENS, S=TRACE_MAX_SEQ[GEMMA]),
                  ffn_case(cfg, gen, slots=5)]
+        # an explicit cluster of 2 across devices: each rank's 2048-slot
+        # shard of a local layer's ring (pos_base −1), window and cap
+        cases += [gqa_case(cfg, gen, GEMMA_LENS, ring=True, shard=(2, r))
+                  for r in range(2)]
     elif backend == "xla" and cfg.q_per_kv > 1:
         cases = [flash_case(cfg, gen)]          # the path's GQA shape
     elif backend == "xla":
         cases = [flash_case(cfg, gen),
+                 # the rank-local partial of a cluster of 2 across devices
+                 *(rank_flash_case(cfg, gen, (2, r), CLUSTER_LENS)
+                   for r in range(2)),
                  flash_case(cfg, gen, q_heads=32, kv_heads=8, q_scale=8.0,
                             window=256, cap=50.0),
                  flash_case(cfg, gen, q_heads=32, kv_heads=4, window=300),
@@ -934,10 +1073,13 @@ def kernel_cases(path, cfg, backend):
         attn = (mla_case(cfg, gen) if cfg.mla is not None
                 else gqa_case(cfg, gen))
         if cfg.mla is not None:
-            # and one rank's heads of a 2- and a 4-GPU model axis
+            # and one rank's heads of a 2- and a 4-GPU model axis, and a
+            # rank's shard of a cluster of 2 on 4 GPUs (8 heads a rank)
             edges = [mla_case(cfg, gen, B4_EDGE_LENS)] + [
                 mla_case(cfg, gen, heads=(ms, cfg.n_heads // ms))
-                for ms in (2, 4)]
+                for ms in (2, 4)] + [
+                mla_case(cfg, gen, CLUSTER_LENS, heads=(4, cfg.n_heads // 2),
+                         shard=(2, r)) for r in range(2)]
         elif cfg.q_per_kv == 1:
             edges = [gqa_case(cfg, gen, B1_EDGE_LENS),
                      head_case(cfg, gen, RAGGED_VOCAB)]
@@ -949,6 +1091,11 @@ def kernel_cases(path, cfg, backend):
                 edges += [gqa_case(cfg, gen, heads=(ms, nq, nkv)),
                           ffn_case(cfg, gen, width=(cfg.d_model, f_loc)),
                           head_case(cfg, gen, v_loc)]
+        if path in CLUSTER_RANKS:
+            # each rank's shard of a cluster of 2 on 16 GPUs
+            edges += [gqa_case(cfg, gen, CLUSTER_LENS,
+                               heads=CLUSTER_RANKS[path], shard=(2, r))
+                      for r in range(2)]
         cases = [attn, ffn_case(cfg, gen), head_case(cfg, gen)] + edges
         # B2 with fewer slots than 8 (its instances that take the batch
         # at run time), at the path's widths
@@ -1161,6 +1308,19 @@ def check_kernel(case) -> float:
                                      f"{slot}: {want[0][slot, :2].tolist()} "
                                      f"{want[1][slot, :2].tolist()}")
         return close_head(name, got, want)
+    if name == "flash_decode" and isinstance(got, tuple):
+        # the rank-local partial: f32 o per (slot, head), m and l; a row
+        # with no valid cache row holds (−1e30, 0, 0) on both sides
+        (o, m, l), (wo, wm, wl) = got, want
+        empty = wm <= -1e29
+        if not torch.equal(m <= -1e29, empty) or (l[empty] != 0).any() \
+                or o[empty].any():
+            raise AssertionError("flash_decode: an empty partial is not "
+                                 "(-1e30, 0, 0)")
+        close_rel(f"{name}[m]", torch.where(empty, 0.0, m),
+                  torch.where(empty, 0.0, wm), FLASH_F32_REL_TOL)
+        close_rel(f"{name}[l]", l, wl, FLASH_F32_REL_TOL)
+        return close_rel(f"{name}[o]", o, wo, FLASH_F32_REL_TOL, lead=2)
     if name == "flash_decode":
         empty = case["args"]["cache_len"] <= 0
         if got[empty].any():
@@ -1178,6 +1338,76 @@ def check_kernel(case) -> float:
     errs = [close_bf16(f"{name}[{i}]", g, w)
             for i, (g, w) in enumerate(zip(got, want))]
     return errs[0]
+
+
+# ---------------------------------------------------------------------------
+# Phase 3b: a cluster across devices on one card — n launches over n shards
+# of one cache, merged, equal one launch over the whole cache
+# ---------------------------------------------------------------------------
+def merge_shards(case, n: int):
+    """Launch ``case``'s kernel (B1 or B4) on each of ``n`` shards of its
+    whole cache (``pos_base = r·S / n``, the new token on its owner only)
+    and merge the ranks' ``(m, l, o)`` in rank order with
+    ``core/primitives.py:flash_merge``, in this one process (no
+    collective): the combine a cluster across devices runs over its
+    ranks.  Returns the merged ``(m, l, o)``."""
+    args, kw = case["args"], case["kw"]
+    cache = "k_cache" if case["name"] == "fused_decode" else "c_cache"
+    parts = []
+    for r in range(n):
+        pos, owner, pos_base = shard_of(args["pos"], args["cache_lens"], n,
+                                        r, False)
+        s_sh = pos.shape[0]
+        sh = dict(args, pos=pos, include_new=owner)
+        for key in (("k_cache", "v_cache") if cache == "k_cache"
+                    else ("c_cache",)):
+            sh[key] = args[key][r * s_sh:(r + 1) * s_sh]
+        out = case["fn"](**sh, **dict(kw, pos_base=pos_base))
+        o, m, l = (out[0], out[3], out[4]) if cache == "k_cache" \
+            else (out[0], out[2], out[3])
+        parts.append((m, l, o))
+    merged = parts[0]
+    for p in parts[1:]:
+        merged = flash_merge(merged, p)
+    return merged
+
+
+def shard_merge_phase() -> None:
+    """The identity that makes a cluster across devices right, at full
+    width on the card: B1 at Llama2-7B's (32/32, ``D`` 4096, ``S`` 1024,
+    8 slots) and B4 at DeepSeek-V2-Lite's (16 heads, ``D`` 2048) — each
+    launched on the ``n`` shards of one cache for ``n`` = 2 and 4 and
+    merged (:func:`merge_shards`) — against one launch over the whole
+    cache, ``(o / l)`` of every live slot and head within
+    ``MERGE_REL_TOL`` of its largest element, and ``m`` likewise.  The
+    lengths leave ranks holding none of a live slot's rows."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 3)
+    cases = (gqa_case(path_config("llama2-7b"), gen, CLUSTER_LENS),
+             mla_case(path_config("deepseek-v2-lite"), gen, CLUSTER_LENS))
+    for case in cases:
+        out = case["fn"](**case["args"], **case["kw"])
+        whole = ((out[3], out[4], out[0]) if case["name"] == "fused_decode"
+                 else (out[2], out[3], out[0]))
+        live = case["args"]["cache_lens"] >= 0
+        for n in (2, 4):
+            m, l, o = merge_shards(case, n)
+            torch.cuda.synchronize()
+            norm = lambda t: (t[2] / t[1][..., None])[live]
+            err_o = close_rel(f"merge {case['name']} n={n} [o/l]",
+                              norm((m, l, o)), norm(whole), MERGE_REL_TOL,
+                              lead=2)
+            want_o = norm(whole)
+            rel = float(((norm((m, l, o)) - want_o).abs().amax(dim=-1)
+                         / want_o.abs().amax(dim=-1).clamp(min=1e-30)).max())
+            close_rel(f"merge {case['name']} n={n} [m]", m[live],
+                      whole[0][live], MERGE_REL_TOL)
+            say("shard_merge", kernel=case["name"],
+                width=f"{case['args']['x'].shape[1]}", n=n,
+                lengths=",".join(map(str, CLUSTER_LENS)),
+                max_rel_err=f"{rel:.3e}", max_abs_err=f"{err_o:.3e}",
+                tolerance=MERGE_REL_TOL, ok=True)
+        del case
 
 
 # ---------------------------------------------------------------------------
@@ -2455,6 +2685,9 @@ def main() -> int:
             case["host_args"] = {k: v.cpu() if torch.is_tensor(v) else v
                                  for k, v in args.items()}
         del args
+
+    # a cluster across devices: n shards' launches merged, against one
+    shard_merge_phase()
 
     # the host's cost of a graph launch before any profiler trace (a
     # trace leaves the host's graph launches slower for the rest of the

@@ -18,8 +18,8 @@ Each run's full output goes to ``DIR/compare_<i>_<tree>.log`` (default
 median step and host issue time (phase 4; where the run has a
 ``[graph]`` line, also its graphed and eager medians from the same
 state), device time per step by kernel group (phase 5), the empty
-launch's floor and the ``kernels`` line's device ms per call (phase
-6).
+launch's floor, the ``kernels`` line's device ms per call (phase 6)
+and the run's wall seconds (host clock around the process).
 Exits nonzero if any run failed.
 """
 from __future__ import annotations
@@ -30,6 +30,7 @@ import os
 import re
 import subprocess
 import sys
+import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -86,14 +87,17 @@ def main() -> int:
     order = (("parent", parent), ("change", change), ("change", change),
              ("parent", parent)) * args.rounds
     for i, (tag, tree) in enumerate(order):
+        t0 = time.perf_counter()
         run = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tree,
                              capture_output=True, text=True)
+        seconds = round(time.perf_counter() - t0, 1)
         log = run.stdout + run.stderr
         with open(os.path.join(out, f"compare_{i + 1}_{tag}.log"), "w") as f:
             f.write(log)
         ok &= run.returncode == 0
         print(json.dumps(dict(run=i + 1, tree=tag, rc=run.returncode,
-                              **summarize(log))), flush=True)
+                              seconds=seconds, **summarize(log))),
+              flush=True)
     return 0 if ok else 1
 
 

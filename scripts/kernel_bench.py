@@ -16,8 +16,10 @@ Each tree (an unpacked ``git archive``, or this checkout) runs in a
 process of its own, importing that tree's ``chip_smoke.py`` and
 ``repro_torch``, in the order given; each prints one JSON line a case
 (``tree``, ``name``, ``path``, ``stage``, ``max_abs_err``, ``ms``,
-``bound_ms``, ``products_ms``; ``--all`` times the check-only cases
-too, such as one rank's shapes of a mesh), one of its build (registers and
+``call_ms`` — one call with its host work —, ``plain_ms``, ``bound_ms``,
+``products_ms``; ``--all`` times the check-only cases too, such as one
+rank's shapes of a mesh or of a cluster across devices), one of its
+build (registers and
 spills per kernel instance, from ``nvcc -Xptxas -v``) and one of the
 card (``nvidia-smi``'s name and power limit).  Full output of
 run i goes to ``DIR/bench_<i>.log`` (default ``build/bench``).  Exits
@@ -79,8 +81,13 @@ def run_tree(tree: str, names, time_all: bool = False) -> int:
                 ms, covered = cs.cuda_ms(lambda: case["fn"](**args, **kw), 20)
                 b_ms, b_by = cs.bound(*case["cost"],
                                       case.get("rate", cs.BF16_FLOPS))
-                row.update(ms=round(ms, 4), bound_ms=round(b_ms, 4),
-                           bound_by=b_by, queued_under_spin=covered)
+                plain_ms, _ = cs.cuda_ms(
+                    lambda: case["plain"](*args.values(), **kw), 5)
+                row.update(ms=round(ms, 4), call_ms=round(cs.call_ms(
+                    lambda: case["fn"](**args, **kw), 20), 4),
+                           plain_ms=round(plain_ms, 4),
+                           bound_ms=round(b_ms, 4), bound_by=b_by,
+                           queued_under_spin=covered)
                 prod = {"fused_ffn": "ffn_products",
                         "fused_head": "head_products"}.get(case["name"])
                 if prod and hasattr(cs, prod):

@@ -1,7 +1,10 @@
 """Backend and prepack resolution — the port's copy of
 ``repro/core/autotune.py:_backend_for`` (line 256) and ``_prepack_for``
-(line 266).  The autotuner's TPU cost model is not ported (ROADMAP item
-18): the port has no block sizes to tune.
+(line 266) — and the reference's serve-cluster rule
+(:func:`tune_cluster`, ``autotune.py:85``), which
+``launch/specs.py:serving_layout`` applies.  The reference's block-size
+tuning is not ported (ROADMAP item 18): the port has no block sizes to
+tune.
 
 * ``"xla"``: the unfused dataflow, the paper's baseline — q/k/v
   products, RoPE, the append, B5 ``flash_decode``, the ``wo`` product, a
@@ -27,11 +30,99 @@ Every model the port registers serves on both backends.
 """
 from __future__ import annotations
 
-from typing import Tuple
+import math
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Tuple
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import dataflow as df
 
 BACKENDS = ("xla", "pallas")
+
+# The reference's latency model picks the serve cluster from these — its
+# TPU v5e constants (reference ``autotune.py:29–33``), kept so the port
+# picks the reference's layouts.  They are not this card's numbers: the
+# model has yet to be re-derived for the H100 and NVLink (ROADMAP A.12).
+REF_PEAK_FLOPS = 197e12
+REF_HBM_BW = 819e9
+REF_ICI_BW = 50e9
+REF_ICI_LAT = 1e-6
+
+
+@dataclass(frozen=True)
+class TunePoint:
+    cluster_size: int
+    dataflow: str               # "split_token" | "split_head" | "mla"
+    est_seconds: float
+    terms: Dict[str, float]
+
+
+def _attn_decode_time(cfg: ModelConfig, seq_len: int, batch: int,
+                      model_axis: int, n: int, flow: str
+                      ) -> Tuple[float, Dict[str, float]]:
+    """The reference's per-layer decode latency estimate at cluster ``n``
+    (``autotune.py:48–82``): the KV and weight bytes a device reads over
+    its memory rate against the FLOPs over its peak, plus the paper's
+    collective traffic over the link rate and a latency a round."""
+    hd = cfg.resolved_head_dim
+    d = cfg.d_model
+    heads_axis = model_axis // n
+    q_local = max(1, cfg.n_heads // heads_axis)
+    kv_local = max(1, cfg.n_kv_heads // heads_axis)
+    bpe = 2
+    if cfg.mla is not None and flow == "mla":
+        l_rank = cfg.mla.kv_lora_rank
+        kv_bytes = batch * seq_len * (l_rank + cfg.mla.rope_head_dim) * bpe
+        traffic = df.traffic_mla(hd, l_rank, cfg.n_heads * hd, n,
+                                 bytes_per_el=bpe, batch=batch) * q_local
+        flops = (2 * batch * q_local * seq_len
+                 * (l_rank + cfg.mla.rope_head_dim) * 2)
+    elif flow == "split_head":
+        kv_bytes = batch * seq_len * kv_local * hd * 2 * bpe
+        traffic = df.traffic_split_head(seq_len, d, n, batch=batch) * q_local
+        flops = 2 * batch * q_local * seq_len * hd * 2 / n
+    else:
+        kv_bytes = batch * seq_len * kv_local * hd * 2 * bpe / n
+        traffic = df.traffic_split_token(hd, d, n, bytes_per_el=bpe,
+                                         batch=batch) * q_local
+        flops = 2 * batch * q_local * seq_len * hd * 2 / n
+    w_bytes = (d * (q_local + 2 * kv_local) * hd
+               / (1 if flow == "split_head" else n)
+               + q_local * hd * d / n) * bpe
+    t_mem = (kv_bytes + w_bytes) / REF_HBM_BW
+    t_comp = flops / REF_PEAK_FLOPS
+    t_ici = (traffic / (n * REF_ICI_BW)
+             + math.log2(max(n, 2)) * REF_ICI_LAT * (0 if n == 1 else 1))
+    return max(t_mem, t_comp) + t_ici, {"mem": t_mem, "comp": t_comp,
+                                        "ici": t_ici,
+                                        "traffic_bytes": traffic}
+
+
+def tune_cluster(cfg: ModelConfig, *, seq_len: int, batch: int,
+                 model_axis: int = 16,
+                 flows: Optional[List[str]] = None) -> TunePoint:
+    """The reference's serve-cluster pick (``autotune.py:85``): the
+    ``(cluster, dataflow)`` of least :func:`_attn_decode_time` over the
+    powers of two up to ``model_axis`` (ties to the smaller cluster).
+    This is the reference's model with its TPU constants, so the port
+    serves the layouts the reference serves; ROADMAP A.12 re-derives it
+    for the H100."""
+    if flows is None:
+        flows = (["mla"] if cfg.mla is not None
+                 else ["split_token", "split_head"])
+    best: Optional[TunePoint] = None
+    n = 1
+    while n <= model_axis:
+        heads_axis = model_axis // n
+        if cfg.n_heads % heads_axis == 0 or heads_axis <= cfg.n_heads:
+            for flow in flows:
+                t, terms = _attn_decode_time(cfg, seq_len, batch,
+                                             model_axis, n, flow)
+                if best is None or t < best.est_seconds:
+                    best = TunePoint(n, flow, t, terms)
+        n *= 2
+    assert best is not None
+    return best
 
 
 def _backend_for(cfg: ModelConfig, backend: str) -> str:

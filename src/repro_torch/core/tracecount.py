@@ -124,11 +124,13 @@ def replays() -> int:
 
 
 def live_attend_blocks(cache_lens: torch.Tensor, *, s_blk: int,
-                       block_s: int, window: int = 0,
+                       block_s: int, rank: int = 0, window: int = 0,
                        ring: bool = False) -> torch.Tensor:
     """Per-slot attend-step count of one attention layer, int32 ``[B]``:
     the reference's formula (``repro/core/tracecount.py:
-    live_attend_blocks`` at cluster rank 0), blocks of ``min(block_s,
+    live_attend_blocks``) on this process's cluster rank ``rank`` (its
+    shard's live span starts at position ``rank·s_blk`` on a linear
+    cache; a ring counts from 0), blocks of ``min(block_s,
     s_blk)`` rows — the Pallas kernels' tiles at the reference's
     ``block_s``, so ``work_blocks`` counts what the reference's counts.
     B1's and B5's own tiles differ (they mask a ragged last tile and
@@ -136,6 +138,8 @@ def live_attend_blocks(cache_lens: torch.Tensor, *, s_blk: int,
     a slot's live span, not of the port's launches.  A free slot
     (``cache_len`` −1) counts 0."""
     cl = cache_lens.to(torch.int32)
+    if rank and not ring:
+        cl = cl - rank * s_blk
     blk = min(block_s, s_blk)
     n_blocks = max(1, s_blk // max(blk, 1))
     hi = torch.clamp(torch.div(cl + blk - 1, blk, rounding_mode="floor") - 1,

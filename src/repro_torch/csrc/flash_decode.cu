@@ -17,6 +17,21 @@
 // and p stays f32 for p·v (flash_decode.py:44-64); m starts at -1e30 and
 // l is clamped to 1e-30, so a length-0 slot returns zeros, not NaN.
 //
+// The rank-local mode (a cluster across devices: one rank's shard of the
+// KV sequence, its partial merged with the other ranks' afterwards, as
+// the reference's bucketed_flash_attention feeds cluster_flash_combine,
+// core/dataflow.py:264 and :557) takes the per-slot form with the
+// stored positions pos [S, B] and each slot's cache_len: L is then the
+// rank-local span the wrapper computes, no row is culled by its offset
+// (on a ring shard offsets are not positions), and row s is valid iff
+// 0 <= pos <= cache_len and, with a window, pos > cache_len - window; a
+// row masked so scores -inf, so its p is 0 whatever the running max.
+// Its output is the unnormalized f32 acc with m and l, for the combine.
+// The mode is a template parameter (POS): the one-device instances are
+// the kernel as it was, and the rank-local instances are bf16 at head dim
+// 128, the caches of every model the port shards (a third of the build
+// time the other head dims' would add).
+//
 // Bound on an H100: bytes.  Each valid K and V row is read once for all
 // nq = NB·qpk query rows of its (group, kv head), at 4·nq FLOPs per
 // 2·hd·2 bytes — under the ~295 FLOP/byte ridge even at nq = 32.  Design:
@@ -83,7 +98,7 @@ constexpr size_t smax_(size_t a, size_t b) { return a > b ? a : b; }
 // consecutive rows fall on distinct banks; MAXQ query rows held, QT of
 // them (one group's) scored a tile (or, warp-split, each warp's partial
 // over WS rows); the partial m, l, acc of MAXQ rows.
-template <typename T, int HD, int RPT, int MT, int WS>
+template <typename T, int HD, int RPT, int MT, int WS, bool POS>
 struct Geo {
   static constexpr int ROWB = HD * (int)sizeof(T);
   static constexpr int TR_ = MT > 0 ? 64 : CC_TILE_ROWS;
@@ -110,7 +125,8 @@ struct Geo {
                                    (size_t)NW * (2 * WS + WS * HD) * 4);
     const size_t corr = part + (size_t)(cluster::acc_offset(R) + R * HD) * 4;
     const size_t tab = corr + (size_t)MAXQ * 4;
-    return {qs, ps, part, corr, tab, tab + (size_t)(3 * MAXQ + 4) * 4};
+    return {qs, ps, part, corr, tab,
+            tab + (size_t)((POS ? 4 : 3) * MAXQ + 4) * 4};
   }
 };
 
@@ -123,8 +139,10 @@ DEVI size_t q_off(int g, int r, int h, int NB, int kv, int qpk, int HD) {
 
 // A score as the Pallas kernel forms it: scaled, optionally softcapped,
 // -1e30 for a row past the tile's valid ones.
-DEVI float finish_score(float d, bool valid, float scale, float cap) {
+DEVI float finish_score(float d, bool valid, float scale, float cap,
+                         bool live = true) {
   if (!valid) return -1e30f;
+  if (!live) return -INFINITY;      // masked by its stored pos
   float s = d * scale;
   if (cap > 0.f) s = tanhf(s / cap) * cap;
   return s;
@@ -136,13 +154,16 @@ DEVI float finish_score(float d, bool valid, float scale, float cap) {
 // keys of a tile with its own running m, l, acc, merged at a group's
 // end: no barrier inside a tile); else the CUDA cores, RPT query rows a
 // thread in p·v.
-template <typename T, int HD, int RPT, int MT, int WS>
+template <typename T, int HD, int RPT, int MT, int WS, bool POS>
 __global__ void __launch_bounds__(NT)
 flash_cluster_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const int* __restrict__ lens,
                      T* __restrict__ o, int G, int GB, int NB, int S, int kv,
-                     int qpk, float scale, float cap, int window) {
-  using Q = Geo<T, HD, RPT, MT, WS>;
+                     int qpk, float scale, float cap, int window,
+                     const int* __restrict__ pos, const int* __restrict__ clens,
+                     float* __restrict__ of, float* __restrict__ m_out,
+                     float* __restrict__ l_out) {
+  using Q = Geo<T, HD, RPT, MT, WS, POS>;
   constexpr int TR = Q::TR, RS = Q::RS, PSR = Q::PSR, NRG = NT / HD;
   static_assert(MT == 0 || sizeof(T) == 2, "tensor cores: bf16 only");
   // warp-split: KPW keys a warp, LPK lanes a key
@@ -169,9 +190,13 @@ flash_cluster_kernel(const T* __restrict__ q, const T* __restrict__ k,
   int* sa = reinterpret_cast<int*>(smem + Lz.tab);   // [GB]: run in group j
   int* se = sa + MAXQ;
   int* first = se + MAXQ;                            // [GB + 1] tile prefix
+  int* gcl = first + MAXQ + 4;                       // [GB] cache_len (POS)
 
   // the lengths, then the query rows (zero past R), go in flight first
-  if (tid < GB) first[tid] = lens[g0 + tid];
+  if (tid < GB) {
+    first[tid] = lens[g0 + tid];
+    if constexpr (POS) gcl[tid] = clens[g0 + tid];
+  }
   for (int i = tid; i < (R + 16) * Q::VR; i += NT) {
     const int r = i / Q::VR, j = (i % Q::VR) * Q::VEC;
     const bool live = r < R;
@@ -188,7 +213,7 @@ flash_cluster_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int j = 0; j < GB; ++j) {
       int L = first[j];
       L = L < 0 ? 0 : (L < S ? L : S);
-      const int lo = window > 0 ? max(0, L - window + 1) : 0;
+      const int lo = window > 0 && !POS ? max(0, L - window + 1) : 0;
       const int n = L - lo, per = (n + C - 1) / C;
       sa[j] = lo + min(n, rank * per);
       se[j] = lo + min(n, rank * per + per);
@@ -203,6 +228,15 @@ flash_cluster_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if (tid < MAXQ) corr[tid] = 1.f;
   __syncthreads();
 
+  // the rank-local mode's mask by stored pos: row p of tile t of group j
+  auto live_row = [&](int j, int s0, int p) {
+    if constexpr (!POS) {
+      return true;
+    } else {
+      const int ps_ = pos[(size_t)(s0 + p) * G + g0 + j], cl = gcl[j];
+      return ps_ >= 0 && ps_ <= cl && (window <= 0 || ps_ > cl - window);
+    }
+  };
   // rows past a tile's valid ones are zero-filled: the tensor cores
   // multiply them by p = 0, which must not meet a NaN
   const size_t srow = (size_t)G * kv * HD;            // cache row stride
@@ -271,7 +305,8 @@ flash_cluster_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (t + Q::STAGES - 1 < nt) load_tile(t + Q::STAGES - 1);
     cp_async_commit();
     const int j = group_of(t), t_in = t - first[j];
-    const int nv = min(TR, se[j] - (sa[j] + t_in * TR));
+    const int s0 = sa[j] + t_in * TR;
+    const int nv = min(TR, se[j] - s0);
     const int rb = j * nq;                 // the group's first row
     const T* ks = ring + (size_t)(t % Q::STAGES) * 2 * TR * RS;
     const T* vs = ks + TR * RS;
@@ -300,7 +335,7 @@ flash_cluster_kernel(const T* __restrict__ q, const T* __restrict__ k,
         }
 #pragma unroll
         for (int u = 1; u < LPK; u <<= 1) d += __shfl_xor_sync(0xffffffffu, d, u);
-        s_[r] = finish_score(d, kval, scale, cap);
+        s_[r] = finish_score(d, kval, scale, cap, kval && live_row(j, s0, key));
       }
       // the warp's online softmax over its KPW keys (lanes of one sub)
 #pragma unroll
@@ -401,12 +436,14 @@ flash_cluster_kernel(const T* __restrict__ q, const T* __restrict__ k,
           const int p = n8 * 8 + ti * 2, r0 = mt * 16 + gi, r1 = r0 + 8;
           if (r0 < nq)
             *reinterpret_cast<float2*>(ps + r0 * PSR + p) = make_float2(
-                finish_score(c[0], p < nv, scale, cap),
-                finish_score(c[1], p + 1 < nv, scale, cap));
+                finish_score(c[0], p < nv, scale, cap, p < nv && live_row(j, s0, p)),
+                finish_score(c[1], p + 1 < nv, scale, cap,
+                             p + 1 < nv && live_row(j, s0, p + 1)));
           if (r1 < nq)
             *reinterpret_cast<float2*>(ps + r1 * PSR + p) = make_float2(
-                finish_score(c[2], p < nv, scale, cap),
-                finish_score(c[3], p + 1 < nv, scale, cap));
+                finish_score(c[2], p < nv, scale, cap, p < nv && live_row(j, s0, p)),
+                finish_score(c[3], p + 1 < nv, scale, cap,
+                             p + 1 < nv && live_row(j, s0, p + 1)));
         }
       }
     } else {
@@ -429,7 +466,9 @@ flash_cluster_kernel(const T* __restrict__ q, const T* __restrict__ k,
         }
         d += __shfl_xor_sync(0xffffffffu, d, 1);
         d += __shfl_xor_sync(0xffffffffu, d, 2);
-        if (l4 == 0) ps[r * PSR + p] = finish_score(d, p < nv, scale, cap);
+        if (l4 == 0)
+          ps[r * PSR + p] = finish_score(d, p < nv, scale, cap,
+                                         p < nv && live_row(j, s0, p));
       }
     }
     __syncthreads();
@@ -563,10 +602,16 @@ flash_cluster_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int E = R * HD, slice = (E + C - 1) / C;
   const int begin = min(E, rank * slice), end = min(E, begin + slice);
   cluster::flash_merge(m_run, R, HD, begin, end,
-                       [&](int el, float, float l, float4 x) {
+                       [&](int el, float m, float l, float4 x) {
     const int row = el / HD, d = el % HD;
+    const size_t qo = q_off(g0 + row / nq, row % nq, h, NB, kv, qpk, HD);
+    if constexpr (POS) {               // the rank-local partial, unnormalized
+      *reinterpret_cast<float4*>(of + qo + d) = x;
+      if (d == 0) { m_out[qo / HD] = m; l_out[qo / HD] = l; }
+      return;
+    }
     const float lc = fmaxf(l, 1e-30f);
-    T* od = o + q_off(g0 + row / nq, row % nq, h, NB, kv, qpk, HD) + d;
+    T* od = o + qo + d;
     od[0] = from_f<T>(x.x / lc);
     od[1] = from_f<T>(x.y / lc);
     od[2] = from_f<T>(x.z / lc);
@@ -574,41 +619,45 @@ flash_cluster_kernel(const T* __restrict__ q, const T* __restrict__ k,
   });
 }
 
-template <typename T, int HD, int RPT, int MT, int WS = 0>
+template <typename T, int HD, int RPT, int MT, int WS, bool POS>
 int launch(const void* q, const void* k, const void* v, const void* lens,
            void* o, int G, int GB, int NB, int S, int kv, int qpk, int C,
-           float scale, float cap, int window, cudaStream_t st) {
+           float scale, float cap, int window, const int* pos,
+           const int* clens, float* of, float* m, float* l, cudaStream_t st) {
   return (int)cluster::launch(
-      flash_cluster_kernel<T, HD, RPT, MT, WS>, dim3(C, kv * (G / GB)), NT,
-      Geo<T, HD, RPT, MT, WS>::lay(GB * NB * qpk).total, st, C, (const T*)q, (const T*)k,
+      flash_cluster_kernel<T, HD, RPT, MT, WS, POS>, dim3(C, kv * (G / GB)), NT,
+      Geo<T, HD, RPT, MT, WS, POS>::lay(GB * NB * qpk).total, st, C, (const T*)q,
+      (const T*)k,
       (const T*)v, (const int*)lens, (T*)o, G, GB, NB, S, kv, qpk, scale,
-      cap, window);
+      cap, window, pos, clens, of, m, l);
 }
 
 // The instance for nq query rows: bf16 from 16 rows up on the tensor
 // cores (one or two 16-row m tiles), bf16 up to 4 rows warp-split, else
 // the smallest register bucket of rows a thread.
-template <typename T, int HD>
+template <typename T, int HD, bool POS>
 int launch_hd(int nq, const void* q, const void* k, const void* v,
               const void* lens, void* o, int G, int GB, int NB, int S, int kv,
               int qpk, int C, float scale, float cap, int window,
+              const int* pos, const int* clens, float* of, float* m, float* l,
               cudaStream_t st) {
   constexpr int NRG = NT / HD;
   const int need = (nq + NRG - 1) / NRG;
-#define ARGS q, k, v, lens, o, G, GB, NB, S, kv, qpk, C, scale, cap, window, st
+#define ARGS q, k, v, lens, o, G, GB, NB, S, kv, qpk, C, scale, cap, window, \
+    pos, clens, of, m, l, st
   if constexpr (sizeof(T) == 2) {
-    if (nq > 16) return launch<T, HD, 0, 2>(ARGS);
-    if (nq == 16) return launch<T, HD, 0, 1>(ARGS);
-    if (nq == 1) return launch<T, HD, 0, 0, 1>(ARGS);
-    if (nq <= 4) return launch<T, HD, 0, 0, 4>(ARGS);
+    if (nq > 16) return launch<T, HD, 0, 2, 0, POS>(ARGS);
+    if (nq == 16) return launch<T, HD, 0, 1, 0, POS>(ARGS);
+    if (nq == 1) return launch<T, HD, 0, 0, 1, POS>(ARGS);
+    if (nq <= 4) return launch<T, HD, 0, 0, 4, POS>(ARGS);
   }
-  if (need <= 1) return launch<T, HD, 1, 0>(ARGS);
-  if (need <= 4) return launch<T, HD, 4, 0>(ARGS);
-  if (need <= 8) return launch<T, HD, 8, 0>(ARGS);
+  if (need <= 1) return launch<T, HD, 1, 0, 0, POS>(ARGS);
+  if (need <= 4) return launch<T, HD, 4, 0, 0, POS>(ARGS);
+  if (need <= 8) return launch<T, HD, 8, 0, 0, POS>(ARGS);
   if constexpr (HD >= 128) {
-    if (need <= 16) return launch<T, HD, 16, 0>(ARGS);
+    if (need <= 16) return launch<T, HD, 16, 0, 0, POS>(ARGS);
   }
-  if constexpr (HD == 256) return launch<T, HD, 32, 0>(ARGS);
+  if constexpr (HD == 256) return launch<T, HD, 32, 0, 0, POS>(ARGS);
 #undef ARGS
   return (int)cudaErrorInvalidValue;
 }
@@ -620,20 +669,28 @@ extern "C" int flash_decode_launch(const void* q, const void* k,
                                    int G, int GB, int NB, int S, int kv,
                                    int qpk, int hd, int is_f32, int C,
                                    float scale, float cap, int window,
-                                   void* stream) {
+                                   const void* pos, const void* clens,
+                                   void* of, void* m, void* l, void* stream) {
   const int nq = NB * qpk;
   if (G < 1 || GB < 1 || G % GB || NB < 1 || S < 1 || kv < 1 || qpk < 1 ||
-      GB * nq > MAXQ || (long long)kv * (G / GB) > 65535)
+      GB * nq > MAXQ || (long long)kv * (G / GB) > 65535 ||
+      // the rank-local mode (bf16, head dim 128): the per-slot form, pos
+      // and cache_len with the partial's three outputs, or none of them
+      (pos != nullptr && (NB != 1 || is_f32 || hd != 128 || clens == nullptr ||
+                          of == nullptr || m == nullptr || l == nullptr)) ||
+      (pos == nullptr && (of != nullptr || m != nullptr || l != nullptr)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-#define ARGS nq, q, k, v, lens, o, G, GB, NB, S, kv, qpk, C, scale, cap, window, st
+#define ARGS nq, q, k, v, lens, o, G, GB, NB, S, kv, qpk, C, scale, cap, window, \
+    (const int*)pos, (const int*)clens, (float*)of, (float*)m, (float*)l, st
   switch (hd * 2 + (is_f32 ? 1 : 0)) {
-    case 64 * 2: return launch_hd<bf16, 64>(ARGS);
-    case 128 * 2: return launch_hd<bf16, 128>(ARGS);
-    case 256 * 2: return launch_hd<bf16, 256>(ARGS);
-    case 64 * 2 + 1: return launch_hd<float, 64>(ARGS);
-    case 128 * 2 + 1: return launch_hd<float, 128>(ARGS);
-    case 256 * 2 + 1: return launch_hd<float, 256>(ARGS);
+    case 64 * 2: return launch_hd<bf16, 64, false>(ARGS);
+    case 128 * 2: return pos ? launch_hd<bf16, 128, true>(ARGS)
+                             : launch_hd<bf16, 128, false>(ARGS);
+    case 256 * 2: return launch_hd<bf16, 256, false>(ARGS);
+    case 64 * 2 + 1: return launch_hd<float, 64, false>(ARGS);
+    case 128 * 2 + 1: return launch_hd<float, 128, false>(ARGS);
+    case 256 * 2 + 1: return launch_hd<float, 256, false>(ARGS);
     default: return (int)cudaErrorInvalidValue;
   }
 #undef ARGS

@@ -54,9 +54,12 @@
 //      the projection and before RoPE) where given; applies RoPE in f32;
 //      rank 0 of the kv head's first cluster writes the rounded
 //      k_new/v_new;
-//   5. attends over its share of the rows [0, min(cache_len, S)) of each
-//      slot (run r of C of equal length: a slot's split depends on its
-//      own length alone), rows with pos in [0, cache_len) and, with a
+//   5. attends over its share of the rows [0, L) of each slot, L =
+//      clamp(cache_len − max(pos_base, 0), 0, S) (pos_base: the first
+//      position of this shard of a cluster across devices, r·S on its
+//      rank r; 0 on one device; −1 on a ring shard, whose offsets are
+//      not positions) — run r of C of equal length: a slot's split
+//      depends on its own length alone —, rows with pos in [0, cache_len) and, with a
 //      window, pos > cache_len − window (by stored pos: on a wrapped ring
 //      the row the append will overwrite still holds cache_len − S, and
 //      offsets are not positions, so no row is culled by its offset);
@@ -201,7 +204,7 @@ fused_decode_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wqkv,
                     float* __restrict__ o, bf16* __restrict__ k_new,
                     bf16* __restrict__ v_new, float* __restrict__ m_out,
                     float* __restrict__ l_out, int D, int S, int nq, int nkv,
-                    int window, float scale, float eps, float cap) {
+                    int window, int pos_base, float scale, float eps, float cap) {
   using L_ = Lay<B, H, HD>;
   constexpr int NC = L_::NC, NCP = L_::NCP, R = L_::R;
   constexpr int NTW = NC / 8 / NW;   // 8-column n tiles a warp projects
@@ -264,13 +267,17 @@ fused_decode_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wqkv,
   // this rank's share of the live rows: each slot's rows [0, L_b) cut
   // into C runs of equal length, rank r taking run r, in tiles of TA
   // rows — a slot's split depends on its own length alone, so its bits
-  // do not depend on the other slots (what a recovery replay needs)
+  // do not depend on the other slots (what a recovery replay needs).
+  // L_b counts from the shard's first position: a slot whose positions
+  // all lie before this shard reads nothing here, and unless it owns its
+  // new token its partial is the free slot's (m −1e30, the new token at
+  // weight exp(0) = 1), which the combine over the shards weighs 0
   if (tid < BP) clen[tid] = tid < B ? cache_lens[tid] : 0;
   __syncthreads();
   if (tid == 0) {
     int f = 0;
     for (int b = 0; b < BP; ++b) {
-      const int cl = clen[b];
+      const int cl = clen[b] - (pos_base > 0 ? pos_base : 0);
       const int L = cl < 0 ? 0 : (cl < S ? cl : S);
       const int per = (L + C - 1) / C;
       sa[b] = min(L, rank * per);
@@ -922,13 +929,13 @@ int launch(int C, const bf16* x, const bf16* wqkv, const bf16* wo,
            const int* cache_lens, const int* include_new, const float* cosv,
            const float* sinv, const bf16* bqkv, float* o, bf16* k_new,
            bf16* v_new, float* m, float* l, int D, int S, int nq, int nkv,
-           int window, float scale, float eps, float cap,
+           int window, int pos_base, float scale, float eps, float cap,
            cudaStream_t stream) {
   return (int)cluster::launch(
       fused_decode_kernel<B, H, HD>, dim3(nq / H * C), NT,
       smem_bytes<B, H, HD>(D, C), stream, C, x, wqkv, wo, ln1, kc, vc, pos,
       cache_lens, include_new, cosv, sinv, bqkv, o, k_new, v_new, m, l, D,
-      S, nq, nkv, window, scale, eps, cap);
+      S, nq, nkv, window, pos_base, scale, eps, cap);
 }
 
 template <int H, int HD>
@@ -937,11 +944,11 @@ int launch_b(int B, int C, const bf16* x, const bf16* wqkv, const bf16* wo,
              const int* cache_lens, const int* include_new, const float* cosv,
              const float* sinv, const bf16* bqkv, float* o, bf16* k_new,
              bf16* v_new, float* m, float* l, int D, int S, int nq, int nkv,
-             int window, float scale, float eps, float cap,
+             int window, int pos_base, float scale, float eps, float cap,
              cudaStream_t stream) {
 #define ARGS C, x, wqkv, wo, ln1, kc, vc, pos, cache_lens, include_new, cosv, \
-    sinv, bqkv, o, k_new, v_new, m, l, D, S, nq, nkv, window, scale, eps, cap, \
-    stream
+    sinv, bqkv, o, k_new, v_new, m, l, D, S, nq, nkv, window, pos_base, scale, \
+    eps, cap, stream
   switch (B) {
     case 1: return launch<1, H, HD>(ARGS);
     case 2: return launch<2, H, HD>(ARGS);
@@ -994,15 +1001,16 @@ extern "C" int fused_decode_launch(
     const void* include_new, const void* cosv, const void* sinv,
     const void* bqkv, void* o, void* k_new, void* v_new, void* m, void* l,
     int B, int D, int S, int nq,
-    int nkv, int hd, int C, int H, int window, float scale, float eps,
-    float cap, void* stream) {
-  if (!plan_ok(nq, nkv, hd, D, C, H)) return (int)cudaErrorInvalidValue;
+    int nkv, int hd, int C, int H, int window, int pos_base, float scale,
+    float eps, float cap, void* stream) {
+  if (!plan_ok(nq, nkv, hd, D, C, H) || pos_base < -1)
+    return (int)cudaErrorInvalidValue;
 #define ARGS B, C, (const bf16*)x, (const bf16*)wqkv, (const bf16*)wo,           \
     (const float*)ln1, (const bf16*)kc, (const bf16*)vc, (const int*)pos,        \
     (const int*)cache_lens, (const int*)include_new, (const float*)cosv,         \
     (const float*)sinv, (const bf16*)bqkv, (float*)o, (bf16*)k_new,              \
-    (bf16*)v_new, (float*)m, (float*)l, D, S, nq, nkv, window, scale, eps, cap,  \
-    (cudaStream_t)stream
+    (bf16*)v_new, (float*)m, (float*)l, D, S, nq, nkv, window, pos_base, scale,  \
+    eps, cap, (cudaStream_t)stream
   if (hd == 256) return launch_b<2, 256>(ARGS);
   if (hd == 64) return launch_b<1, 64>(ARGS);
   switch (H) {

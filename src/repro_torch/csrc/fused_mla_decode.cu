@@ -8,7 +8,8 @@
 // fused_mla_decode_attention (the Pallas kernel at its pallas_call, line
 // 261) in the serving mode of core/dataflow.py:_mla_attention_pallas_packed:
 // fuse_out="partial_o", fused ln1, linear latent cache with per-slot pos,
-// include_new from the append rule, pos_base = 0; MLA's geometry of nope
+// include_new from the append rule, pos_base ≥ 0 (the shard's first
+// position on a cluster across devices: r·S on rank r); MLA's geometry of nope
 // 128, rope 64 and a 512-wide latent (DeepSeek-V2/V3).
 //
 // Bound on an H100: bytes.  At DeepSeek-V2-Lite widths a layer reads wq
@@ -143,7 +144,8 @@ fused_mla_decode_kernel(
     const int* __restrict__ include_new, const float* __restrict__ cosv,
     const float* __restrict__ sinv, float* __restrict__ o,
     const bf16* __restrict__ c_new, float* __restrict__ m_out,
-    float* __restrict__ l_out, int D, int S, int nq, float scale, float eps) {
+    float* __restrict__ l_out, int D, int S, int nq, int pos_base, float scale,
+    float eps) {
   const int rank = blockIdx.x % CL, h = blockIdx.x / CL;
   const Lay L{D / CL};
   const int Dr = L.Dr, d0 = rank * Dr, xrow = L.xrow();
@@ -286,11 +288,13 @@ fused_mla_decode_kernel(
   // this rank's share of the live rows: each slot's rows [0, L_b) cut
   // into CL runs of equal length, rank r taking run r, in tiles of TRA
   // rows — a slot's split depends on its own length alone, so its bits
-  // do not depend on the other slots (what a recovery replay needs)
+  // do not depend on the other slots (what a recovery replay needs).
+  // L_b counts from the shard's first position pos_base: a slot whose
+  // positions all lie before this shard reads nothing here
   if (tid == 0) {
     int f = 0;
     for (int b = 0; b < BP; ++b) {
-      const int cl = clen[b];
+      const int cl = clen[b] - pos_base;
       const int L = cl < 0 ? 0 : (cl < S ? cl : S);
       const int per = (L + CL - 1) / CL;
       sa[b] = min(L, rank * per);
@@ -832,7 +836,8 @@ int launch(const bf16* x, const bf16* wq, const bf16* wdkv, const bf16* wuk,
            const bf16* wproj, const float* ln1, const bf16* cache, const int* pos,
            const int* cache_lens, const int* include_new, const float* cosv,
            const float* sinv, float* o, bf16* c_new, float* m, float* l_out,
-           int D, int S, int nq, float scale, float eps, cudaStream_t stream) {
+           int D, int S, int nq, int pos_base, float scale, float eps,
+           cudaStream_t stream) {
   const LayC LC{D / CL};
   cudaError_t e = cluster::launch(mla_ckv_kernel<B>, dim3(LR / CQ * CL), NT,
                                   LC.total(), stream, CL, x, wdkv, ln1, cosv,
@@ -842,7 +847,7 @@ int launch(const bf16* x, const bf16* wq, const bf16* wdkv, const bf16* wuk,
   return (int)cluster::launch(
       fused_mla_decode_kernel<B>, dim3(nq * CL), NT, L.total(), stream, CL,
       x, wq, wuk, wproj, ln1, cache, pos, cache_lens, include_new, cosv,
-      sinv, o, (const bf16*)c_new, m, l_out, D, S, nq, scale, eps);
+      sinv, o, (const bf16*)c_new, m, l_out, D, S, nq, pos_base, scale, eps);
 }
 
 }  // namespace
@@ -852,16 +857,16 @@ extern "C" int fused_mla_decode_launch(
     const void* wproj, const void* ln1, const void* cache, const void* pos,
     const void* cache_lens, const void* include_new, const void* cosv,
     const void* sinv, void* o, void* c_new, void* m, void* l_out, int B,
-    int D, int S, int nq, int nope, int rope, int l, int C, float scale,
-    float eps, void* stream) {
+    int D, int S, int nq, int nope, int rope, int l, int C, int pos_base,
+    float scale, float eps, void* stream) {
   if (nope != NOPE || rope != ROPE || l != LAT || C != CL || D % CL != 0 ||
-      !rows_ok(D / CL) || nq < 1)
+      !rows_ok(D / CL) || nq < 1 || pos_base < 0)
     return (int)cudaErrorInvalidValue;
 #define ARGS (const bf16*)x, (const bf16*)wq, (const bf16*)wdkv, (const bf16*)wuk,   \
     (const bf16*)wproj, (const float*)ln1, (const bf16*)cache, (const int*)pos,      \
     (const int*)cache_lens, (const int*)include_new, (const float*)cosv,             \
     (const float*)sinv, (float*)o, (bf16*)c_new, (float*)m, (float*)l_out, D, S, nq, \
-    scale, eps, (cudaStream_t)stream
+    pos_base, scale, eps, (cudaStream_t)stream
   switch (B) {
     case 1: return launch<1>(ARGS);
     case 2: return launch<2>(ARGS);

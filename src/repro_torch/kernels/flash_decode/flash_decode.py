@@ -23,6 +23,23 @@ length-0 slot returns zeros, where ``ref.py``'s softmax gives NaN.
 ``block_s`` has no counterpart: the CUDA kernel masks its ragged last
 chunk.
 
+The rank-local mode (``pos`` given; a cluster across devices, where each
+rank holds a shard of every slot's KV sequence) takes the per-slot form
+with the stored positions ``pos [S, B]``: row ``s`` is valid iff ``0 ≤
+pos ≤ cache_len`` and, with a window, ``pos > cache_len − window`` — the
+reference's mask of the unfused path (``core/dataflow.py:551–555``),
+exact on a ring shard, whose offsets are not positions —, and only the
+rank-local span ``[0, clamp(cache_len + 1 − max(pos_base, 0), 0, S))``
+is read (``pos_base`` ``r·S`` on rank ``r`` of a linear cache, −1 on a
+ring).  It returns the rank's partial ``(o, m, l)``: the UNNORMALIZED
+f32 accumulator and the f32 softmax stats, the contract of the
+reference's ``bucketed_flash_attention`` (``dataflow.py:264``), which
+``cluster_flash_combine`` merges over the ranks; a rank with no valid
+row of a slot holds ``(−1e30, 0, 0)``.  Only a cluster above 1 uses it;
+on the card it has kernel instances of its own (bf16, the caches' dtype,
+at head dim 128: every model the port shards) and the one-device
+instances are unchanged.
+
 CUDA kernel: ``csrc/flash_decode.cu``.  What bounds it on an H100: the
 bytes of the valid K/V rows, each read once for all query heads of its
 group.  One thread-block cluster of ``C`` CTAs per kv head and block of
@@ -60,15 +77,27 @@ def flash_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                            v_cache: torch.Tensor, cache_len, *,
                            scale: Optional[float] = None,
                            attn_softcap: float = 0.0,
-                           window: int = 0) -> torch.Tensor:
+                           window: int = 0,
+                           pos: Optional[torch.Tensor] = None,
+                           pos_base: int = 0):
     """``q [B, q_loc, hd]`` against ``k_cache``/``v_cache [S, kv_loc, hd]``
     with a scalar ``cache_len``, or ``[S, B, kv_loc, hd]`` with an int32
-    ``cache_len [B]`` → ``o [B, q_loc, hd]`` in ``q.dtype``.
+    ``cache_len [B]`` → ``o [B, q_loc, hd]`` in ``q.dtype``; with ``pos
+    [S, B]`` (the rank-local mode, per-slot form only) → ``(o [B, q_loc,
+    hd], m [B, q_loc], l [B, q_loc])`` f32, ``o`` unnormalized.
 
     A CUDA tensor launches the kernel; a CPU tensor takes the plain
     version; any other device raises."""
     tracecount.call("flash_decode")
     kw = dict(scale=scale, attn_softcap=attn_softcap, window=window)
+    if pos is not None:
+        if k_cache.dim() != 4 or pos.shape != (k_cache.shape[0],
+                                               k_cache.shape[1]):
+            raise ValueError("flash_decode's rank-local mode takes the "
+                             "per-slot cache [S, B, kv, hd] and pos [S, B]")
+        if pos_base < -1:
+            raise ValueError(f"pos_base ≥ −1, got {pos_base}")
+        kw.update(pos=pos, pos_base=pos_base)
     if q.is_cuda:
         return flash_decode_cuda(q, k_cache, v_cache, cache_len, **kw)
     if q.device.type == "cpu":
@@ -82,11 +111,21 @@ def _lengths(cache_len, device) -> torch.Tensor:
         torch.int32).reshape(-1)
 
 
+def _span(lens: torch.Tensor, S: int, pos_base: int) -> torch.Tensor:
+    """The rank-local mode's rows a slot reads: ``clamp(cache_len + 1 −
+    max(pos_base, 0), 0, S)`` (its newest row is ``cache_len``)."""
+    return torch.clamp(lens + 1 - max(pos_base, 0), 0, S).to(torch.int32)
+
+
 def flash_decode_plain(q, k_cache, v_cache, cache_len, *, scale=None,
-                       attn_softcap=0.0, window=0):
+                       attn_softcap=0.0, window=0, pos=None, pos_base=0):
     """Plain PyTorch version: one masked f32 softmax over every position,
     with the Pallas kernel's −1e30 mask and ``l`` clamp (zeros for an
-    empty span)."""
+    empty span); with ``pos``, the rank-local mode's masked pass and its
+    unnormalized partial."""
+    if pos is not None:
+        return _rank_partial_plain(q, k_cache, v_cache, cache_len, pos,
+                                   pos_base, scale, attn_softcap, window)
     B, q_loc, hd = q.shape
     S, kv_loc = k_cache.shape[0], k_cache.shape[-2]
     qpk = q_loc // kv_loc
@@ -110,8 +149,37 @@ def flash_decode_plain(q, k_cache, v_cache, cache_len, *, scale=None,
     return o.reshape(B, q_loc, hd).to(q.dtype)
 
 
+def _rank_partial_plain(q, k_cache, v_cache, cache_len, pos, pos_base,
+                        scale, attn_softcap, window):
+    """The rank-local mode in plain torch: the reference's masked pass
+    (``dataflow.py:bucketed_flash_attention``) over the slot's span, ``p``
+    in f32."""
+    B, q_loc, hd = q.shape
+    S, _, kv_loc, _ = k_cache.shape
+    qpk = q_loc // kv_loc
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    lens = _lengths(cache_len, q.device)
+    qg = q.float().reshape(B, kv_loc, qpk, hd)
+    s = torch.einsum("bkqh,sbkh->bkqs", qg, k_cache.float()) * scale
+    if attn_softcap > 0:
+        s = torch.tanh(s / attn_softcap) * attn_softcap
+    cl = lens[None, :]
+    valid = (pos >= 0) & (pos <= cl)                          # [S, B]
+    if window > 0:
+        valid &= pos > cl - window
+    valid &= torch.arange(S, device=q.device)[:, None] < _span(lens, S,
+                                                               pos_base)
+    valid = valid.T[:, None, None, :]
+    s = torch.where(valid, s, -1e30)
+    m = s.amax(dim=-1)
+    p = torch.where(valid, torch.exp(s - m[..., None]), 0.0)
+    o = torch.einsum("bkqs,sbkh->bkqh", p, v_cache.float())
+    return (o.reshape(B, q_loc, hd), m.reshape(B, q_loc),
+            p.sum(dim=-1).reshape(B, q_loc))
+
+
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 \
-    + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p]
+    + [ctypes.c_float] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 6
 
 
 def _pow2_at_least(n: int) -> int:
@@ -140,7 +208,7 @@ def cluster_plan(S: int, G: int, kv: int, rows: int):
 
 
 def flash_decode_cuda(q, k_cache, v_cache, cache_len, *, scale=None,
-                      attn_softcap=0.0, window=0):
+                      attn_softcap=0.0, window=0, pos=None, pos_base=0):
     """Launch ``csrc/flash_decode.cu`` on the current stream: one device
     launch of ``C``-CTA clusters, one per kv head and block of ``GB``
     groups (:func:`cluster_plan`)."""
@@ -155,12 +223,16 @@ def flash_decode_cuda(q, k_cache, v_cache, cache_len, *, scale=None,
             or k_cache.shape != want_cache or v_cache.shape != want_cache
             or q_loc != qpk * kv_loc or NB * qpk > _MAX_ROWS
             or lens.shape != (G,) or window < 0 or attn_softcap < 0
-            or kv_loc * G > 65535):
+            or kv_loc * G > 65535
+            or (pos is not None and (q.dtype != torch.bfloat16
+                                     or hd != 128))):
         raise NotImplementedError(
             f"flash_decode CUDA kernel: head dim in {_HEAD_DIMS}, bf16 or "
             f"f32, q [B, q_loc, hd] with q_loc a multiple of kv_loc, cache "
             f"[S, kv_loc, hd] with a scalar length or [S, B, kv_loc, hd] "
-            f"with lengths [B], at most {_MAX_ROWS} query rows per cache and "
+            f"with lengths [B] (the rank-local mode: bf16 at head dim "
+            f"128), at most "
+            f"{_MAX_ROWS} query rows per cache and "
             f"kv head; got q {tuple(q.shape)} {q.dtype}, cache "
             f"{tuple(k_cache.shape)}, lengths {tuple(lens.shape)}")
     tensors = dict(q=q, k_cache=k_cache, v_cache=v_cache, cache_len=lens)
@@ -171,13 +243,23 @@ def flash_decode_cuda(q, k_cache, v_cache, cache_len, *, scale=None,
             "flash_decode CUDA kernel: q and the caches must start on a "
             "16-byte boundary")
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
-    o = torch.empty_like(q)
     GB, C = cluster_plan(S, G, kv_loc, NB * qpk)
     fn = _build.function("flash_decode", "flash_decode_launch", _ARGTYPES)
+    if pos is None:
+        o = torch.empty_like(q)
+        extra = [None] * 5
+    else:
+        _build.require("flash_decode", dict(pos=pos), dict(pos=torch.int32))
+        clens, lens = lens, _span(lens, S, pos_base)
+        o = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+        m = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
+        l = torch.empty_like(m)
+        extra = [pos.data_ptr(), clens.data_ptr(), o.data_ptr(),
+                 m.data_ptr(), l.data_ptr()]
     err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
              lens.data_ptr(), o.data_ptr(), G, GB, NB, S, kv_loc, qpk, hd,
              int(q.dtype == torch.float32), C, scale, attn_softcap, window,
-             _build.stream_ptr(q))
+             *extra, _build.stream_ptr(q))
     _build.check(err, "flash_decode")
     tracecount.launch("flash_decode")
-    return o
+    return o if pos is None else (o, m, l)

@@ -10,10 +10,11 @@ and GQA 8 (Qwen2-72B's 64/8) at ``head_dim`` 128, MQA 16/1 at
 ``head_dim`` 256 (RecurrentGemma-9B's local layers) and MHA at
 ``head_dim`` 64 (SeamlessM4T-medium's decoder), on a linear cache or —
 the local layers of Gemma-2 and RecurrentGemma — a sliding window over
-a ring cache, with or without the attention softcap.  The other modes
-(other ``head_dim``/``q_per_kv`` pairs, ``pos_base``, ``fuse_out``
+a ring cache, with or without the attention softcap; on one device or
+on one rank's shard of a cluster across devices (``pos_base``, below).
+The other modes (other ``head_dim``/``q_per_kv`` pairs, ``fuse_out``
 ``True``/``False``, more than 8 slots) raise ``NotImplementedError``
-(ROADMAP.md: ``pos_base`` is A.5b, the rest Queue B: B1).
+(ROADMAP.md, Queue B: B1).
 
 CUDA kernel: ``csrc/fused_decode.cu``.  What bounds it on an H100: bytes.
 At Llama2-7B widths one layer streams ``wqkv`` (100.7 MB) and ``wo``
@@ -55,8 +56,13 @@ once for all of them), the ``(m, l, acc)`` partials merge on chip in
 rank order, and each rank projects every head through its ``D/C``
 columns of that head's ``wo``.
 Attention covers only each slot's rows that may be live: the first
-``min(cache_len, S)`` (``cache_len`` ragged, ``−1`` = free slot: no KV
-read at all), each masked by its stored ``pos`` — ``0 ≤ pos <
+``clamp(cache_len − max(pos_base, 0), 0, S)`` (``cache_len`` ragged,
+``−1`` = free slot: no KV read at all; ``pos_base`` the first position
+of this rank's shard of a cluster across devices — ``r·S`` on rank
+``r`` of a linear cache, the reference's ``_append_slot``; 0 on one
+device; −1 on a ring shard, where offsets are not positions and every
+row up to ``cache_len`` may hold one), each masked by its stored ``pos``
+— RoPE stays at the global ``cache_len`` — ``0 ≤ pos <
 cache_len`` and, with a window, ``pos > cache_len − window``, which on
 a wrapped ring masks the row the coming append overwrites (it still
 holds ``cache_len − S``).  No row is culled by its offset (on a ring
@@ -68,7 +74,12 @@ Numerics follow the Pallas kernel: x rounds to the model dtype after
 the norm (``fused_decode.py:100``); q/k/v stay f32; the new token
 attends with the f32 rotated k and v while ``k_new``/``v_new`` leave
 rounded (``:117-121``); ``m`` starts at −1e30 (``:122``), so a free slot
-ends with ``l = 1`` and ``o = v_new·wo`` rather than NaN.
+ends with ``l = 1`` and ``o = v_new·wo`` rather than NaN.  So does a
+live slot on a rank of a cluster that holds none of its rows and does
+not own its new token (``include_new = 0``), as the reference's kernel
+does (``m`` −1e30 from ``:122``, the gated new token at ``exp(0) = 1``,
+``:213–219``): the combine over the ranks weighs that partial
+``exp(−1e30 − m) = 0``.
 """
 from __future__ import annotations
 
@@ -152,10 +163,15 @@ def _check_mode(fuse_out, norm_scale, pos_base):
             "the port's fused_decode runs fuse_out='partial_o' with a fused "
             "ln1; fuse_out True/False and an unfused norm are ROADMAP "
             "Queue B: B1 item 3")
-    if pos_base:
-        raise NotImplementedError(
-            "fused_decode with pos_base ≠ 0 (a cluster across devices) is "
-            "ROADMAP A.5b")
+    if int(pos_base) < -1:
+        raise ValueError(f"fused_decode: pos_base ≥ −1, got {pos_base}")
+
+
+def span(cache_lens: torch.Tensor, S: int, pos_base: int) -> torch.Tensor:
+    """Each slot's rows of this rank's shard that may be live:
+    ``clamp(cache_len − max(pos_base, 0), 0, S)`` (B1's and B4's rule,
+    the reference's rank-local live span, ``fused_decode.py:147``)."""
+    return torch.clamp(cache_lens - max(int(pos_base), 0), 0, S)
 
 
 def fused_decode_attention(
@@ -198,7 +214,7 @@ def fused_decode_attention(
             include_new, cos, sin)
     kw = dict(q_heads=q_heads, kv_heads=kv_heads, scale=scale,
               norm_eps=norm_eps, bqkv=bqkv, window=window,
-              attn_softcap=attn_softcap)
+              attn_softcap=attn_softcap, pos_base=int(pos_base))
     if x.is_cuda:
         return fused_decode_cuda(*args, **kw)
     if x.device.type == "cpu":
@@ -209,12 +225,12 @@ def fused_decode_attention(
 def fused_decode_plain(x, wqkv, wo, norm_scale, k_cache, v_cache, pos,
                        cache_lens, include_new, cos, sin, *, q_heads,
                        kv_heads, scale, norm_eps, bqkv=None, window=0,
-                       attn_softcap=0.0):
+                       attn_softcap=0.0, pos_base=0):
     """Plain PyTorch version (the reference's ``ref.py`` batched over
     slots): the bias added to the f32 projection, full f32 softmax over
-    every cached position with ``pos ≥ 0 and pos < cache_len`` (and
-    ``pos > cache_len − window``), plus the new token, the scores
-    softcapped first."""
+    every cached position of the slot's :func:`span` with ``pos ≥ 0 and
+    pos < cache_len`` (and ``pos > cache_len − window``), plus the new
+    token, the scores softcapped first."""
     B, D = x.shape
     S, _, hd = k_cache.shape
     q_loc, kv_loc = q_heads, kv_heads
@@ -250,6 +266,9 @@ def fused_decode_plain(x, wqkv, wo, norm_scale, k_cache, v_cache, pos,
     valid = (pos >= 0) & (pos < cache_lens[None, :])           # [S, B]
     if window > 0:
         valid &= pos > cache_lens[None, :] - window
+    if pos_base:
+        valid &= torch.arange(S, device=x.device)[:, None] < span(
+            cache_lens, S, pos_base)[None, :]
     s_cache = torch.where(valid.T[:, None, None, :], s_cache, -torch.inf)
     s_all = torch.cat([s_cache, s_self[..., None]], dim=-1)
     m = s_all.amax(dim=-1)
@@ -262,14 +281,14 @@ def fused_decode_plain(x, wqkv, wo, norm_scale, k_cache, v_cache, pos,
             m.reshape(B, q_loc), l.reshape(B, q_loc))
 
 
-_ARGTYPES = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 9 \
+_ARGTYPES = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 10 \
     + [ctypes.c_float] * 3 + [ctypes.c_void_p]
 
 
 def fused_decode_cuda(x, wqkv, wo, norm_scale, k_cache, v_cache, pos,
                       cache_lens, include_new, cos, sin, *, q_heads,
                       kv_heads, scale, norm_eps, bqkv=None, window=0,
-                      attn_softcap=0.0):
+                      attn_softcap=0.0, pos_base=0):
     """Launch ``csrc/fused_decode.cu`` on the current stream (one launch
     for the whole batch, ``q_heads / H`` clusters of ``C`` CTAs)."""
     B, D = x.shape
@@ -308,7 +327,8 @@ def fused_decode_cuda(x, wqkv, wo, norm_scale, k_cache, v_cache, pos,
     err = fn(*ptrs,
              o.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
              m.data_ptr(), l.data_ptr(), B, D, S, q_heads, kv_heads, hd, C,
-             H, int(window), scale, norm_eps, float(attn_softcap),
+             H, int(window), int(pos_base), scale, norm_eps,
+             float(attn_softcap),
              _build.stream_ptr(x))
     _build.check(err, "fused_decode")
     tracecount.launch("fused_decode")

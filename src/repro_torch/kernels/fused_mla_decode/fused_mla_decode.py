@@ -9,8 +9,14 @@ line 261) in the mode the serving path runs
 (``core/dataflow.py:_mla_attention_pallas_packed``): ``partial_o``
 through the prepacked ``wproj = W_UV·W_O``, a fused ``ln1``, a linear
 latent cache with per-slot ``pos``, ``include_new`` from the append rule
-and ``pos_base = 0``.  The other modes raise ``NotImplementedError``
-(ROADMAP.md); they never fall back to the plain version.
+and ``pos_base`` the first position of this rank's shard (0 on one
+device, ``r·S`` on rank ``r`` of a cluster across devices): each slot
+reads the rows ``[0, clamp(cache_len − pos_base, 0, S))``, RoPE at the
+global ``cache_len``; a live slot on a rank that holds none of its rows
+and does not own its new token ends as a free slot does (``m`` −1e30,
+``l = 1``), weighed 0 by the combine over the ranks.  The other modes
+raise ``NotImplementedError`` (ROADMAP.md); they never fall back to the
+plain version.
 
 CUDA kernel: ``csrc/fused_mla_decode.cu``.  What bounds it on an H100:
 bytes.  At DeepSeek-V2-Lite widths one layer reads ``wq`` (12.6 MB),
@@ -76,11 +82,10 @@ def _check_mode(fuse_out, norm_scale, pos_base):
             "the port's fused_mla_decode runs fuse_out='partial_o' with a "
             "fused ln1; fuse_out=True/False and an unfused norm are later "
             "work (ROADMAP.md, Queue B: B4)")
-    if pos_base != 0:
-        raise NotImplementedError(
-            "the port's fused_mla_decode runs a linear cache at cluster "
-            "size 1 (pos_base = 0); other pos_base values come with a "
-            "cluster across devices (ROADMAP.md A.5b)")
+    if int(pos_base) < 0:
+        raise ValueError(
+            f"fused_mla_decode: pos_base ≥ 0 (a linear latent cache; the "
+            f"reference's MLA cache has no ring), got {pos_base}")
 
 
 def fused_mla_decode_attention(
@@ -116,7 +121,7 @@ def fused_mla_decode_attention(
     args = (x, wq, wdkv, wuk, wproj, norm_scale, c_cache, pos, cache_lens,
             include_new, cos, sin)
     kw = dict(q_heads=q_heads, nope=nope, rope_d=rope_d, l_rank=l_rank,
-              norm_eps=norm_eps)
+              norm_eps=norm_eps, pos_base=int(pos_base))
     if x.is_cuda:
         return fused_mla_decode_cuda(*args, **kw)
     if x.device.type == "cpu":
@@ -127,10 +132,11 @@ def fused_mla_decode_attention(
 
 def fused_mla_decode_plain(x, wq, wdkv, wuk, wproj, norm_scale, c_cache, pos,
                            cache_lens, include_new, cos, sin, *, q_heads,
-                           nope, rope_d, l_rank, norm_eps):
+                           nope, rope_d, l_rank, norm_eps, pos_base=0):
     """Plain PyTorch version: the reference's ``ref.py`` batched over
-    slots (full f32 softmax over every cached position with
-    ``pos ≥ 0 and pos < cache_len``, plus the new token), changed in one
+    slots (full f32 softmax over every cached position of the slot's
+    span with ``pos ≥ 0 and pos < cache_len``, plus the new token),
+    changed in one
     place to follow the Pallas kernel: the new token is attended with
     ``c_new`` ROUNDED to the cache dtype, where ``ref.py`` uses the f32
     ``c_lat``/``c_rope`` (ROADMAP C4)."""
@@ -163,6 +169,9 @@ def fused_mla_decode_plain(x, wq, wdkv, wuk, wproj, norm_scale, c_cache, pos,
     # −1e30 (not −inf) keeps m finite for a free slot, as the reference
     s_self = torch.where(include_new[:, None] > 0, s_self, -1e30)
     valid = (pos >= 0) & (pos < cache_lens[None, :])        # [S, B]
+    if pos_base:
+        valid &= torch.arange(S, device=x.device)[:, None] < torch.clamp(
+            cache_lens - pos_base, 0, S)[None, :]
     s_cache = torch.where(valid.T[:, None, :], s_cache, -torch.inf)
     s_all = torch.cat([s_cache, s_self[..., None]], dim=-1)
     m = s_all.amax(dim=-1)
@@ -174,13 +183,13 @@ def fused_mla_decode_plain(x, wq, wdkv, wuk, wproj, norm_scale, c_cache, pos,
     return o, c_new, m, l
 
 
-_ARGTYPES = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 8 \
+_ARGTYPES = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 9 \
     + [ctypes.c_float] * 2 + [ctypes.c_void_p]
 
 
 def fused_mla_decode_cuda(x, wq, wdkv, wuk, wproj, norm_scale, c_cache, pos,
                           cache_lens, include_new, cos, sin, *, q_heads,
-                          nope, rope_d, l_rank, norm_eps):
+                          nope, rope_d, l_rank, norm_eps, pos_base=0):
     """Launch ``csrc/fused_mla_decode.cu`` on the current stream: one C
     entry, two device launches (``c_new``, then one cluster per head as
     ``cluster_plan`` says) for the whole batch."""
@@ -216,7 +225,8 @@ def fused_mla_decode_cuda(x, wq, wdkv, wuk, wproj, norm_scale, c_cache, pos,
     l = torch.empty_like(m)
     err = fn(*(t.data_ptr() for t in tensors.values()), o.data_ptr(),
              c_new.data_ptr(), m.data_ptr(), l.data_ptr(), B, D, S, nq, nope,
-             rope_d, l_rank, C, 1.0 / math.sqrt(nope + rope_d), norm_eps,
+             rope_d, l_rank, C, int(pos_base),
+             1.0 / math.sqrt(nope + rope_d), norm_eps,
              _build.stream_ptr(x))
     _build.check(err, "fused_mla_decode")
     tracecount.launch("fused_mla_decode")

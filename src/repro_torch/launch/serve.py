@@ -31,9 +31,11 @@ and ``SlotScheduler`` refuses both, as the reference asserts.
 On a mesh (``mesh=``, ``launch/mesh.py``: ``data × model`` processes,
 each calling :func:`build_engine_full` with the same arguments) the
 engine is the reference's ``build_engine_full(cfg, mesh, …)``
-(``launch/serve.py:121``): the layout is head-parallel
-(``launch/specs.py:serving_layout``; a cluster across devices raises,
-ROADMAP A.5b), each process holds its model rank's slice of the weights
+(``launch/serve.py:121``): the layout is the reference's pick
+(``launch/specs.py:serving_layout``: heads over the model axis, or a
+cluster across devices that splits the KV sequence) or
+``EngineOptions(cluster=n)``'s ``Layout(ms, ms // n)``, each process
+holds its model rank's slice of the weights
 (made from ``seed`` as the whole model would be, or ``train_params``
 given as that slice) and the decode state of its data rank's
 ``batch_global / data`` slots, and every step takes and returns the
@@ -135,10 +137,15 @@ def build_engine_full(cfg: ModelConfig, *, max_seq: int, batch_global: int,
     lay, ctx, b_loc, d0 = Layout(), SINGLE, batch_global, 0
     if mesh is None:
         dev = resolve_device(device)
+        if opt.cluster not in (None, 1):
+            raise ValueError(f"a serve cluster of {opt.cluster} spans "
+                             "devices: it needs a mesh (mesh=...)")
     else:
         dev = mesh.device
-        lay = serving_layout(cfg, mesh.shape["model"])
-        ctx = ctx_for(mesh, lay)
+        ms = mesh.shape["model"]
+        lay = serving_layout(cfg, ms, seq_len=max_seq, batch=batch_global,
+                             cluster=opt.cluster)
+        ctx = ctx_for(mesh, lay, fused_combine=opt.fused_combine)
         dp = mesh.shape["data"]
         if batch_global % dp == 0 and batch_global >= dp:
             b_loc = batch_global // dp
@@ -160,11 +167,12 @@ def build_engine_full(cfg: ModelConfig, *, max_seq: int, batch_global: int,
     train = train_params if train_params is not None else fresh_params()
     serve = train
     if prepack:
-        serve = prepack_for_serving(cfg, train, backend=backend)
+        serve = prepack_for_serving(cfg, train, backend=backend, ctx=ctx)
         train = share_packed_qkv(train, serve)
     params = {"train": train, "serve": serve}
     scfg = ServeConfig(max_seq=max_seq, batch_local=b_loc,
-                       heads_size=ctx.heads_size, backend=backend,
+                       heads_size=ctx.heads_size,
+                       cluster_size=ctx.cluster_size, backend=backend,
                        prepack=prepack,
                        check_finite=opt.check_finite,
                        track_work=opt.track_work,
@@ -214,7 +222,7 @@ def build_engine_full(cfg: ModelConfig, *, max_seq: int, batch_global: int,
         # the train tree aliases the serve tensors, so it heals with them
         fresh = fresh_params()
         if prepack:
-            fresh = prepack_for_serving(cfg, fresh, backend=backend)
+            fresh = prepack_for_serving(cfg, fresh, backend=backend, ctx=ctx)
         with torch.no_grad():
             for (_, live), (_, clean) in zip(weight_leaves(serve),
                                              weight_leaves(fresh)):

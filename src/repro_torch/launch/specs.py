@@ -2,27 +2,30 @@
 ``repro/launch/specs.py`` (``_cluster_ok`` :42, ``serving_layout`` :61,
 ``ctx_for`` :81).
 
-The reference picks the serve cluster with its tuning model
-(``core/autotune.py:tune_cluster``, a TPU cost model the port does not
-carry over).  On every registered attention model that model picks a
-cluster of 1 — heads over the whole model axis — up to a model axis of
-8, and a cluster of 2 across devices first at 16 (qwen2-72b, arctic,
-kimi-k2, Minitron-4B).  The port serves the head-parallel layout: the
-head count must divide the model axis (:func:`_cluster_ok` at ``n`` 1),
-and a layout that would put a cluster across devices — a model axis
-past 8, or heads that do not divide it — raises ``NotImplementedError``
-(ROADMAP A.5b: the KV sequence over cluster ranks).
+The serve cluster is picked as the reference picks it: its tuning model
+(``core/autotune.py:tune_cluster``, carried over in the port's
+``core/autotune.py`` as the reference's rule, TPU constants and all),
+then halved until :func:`_cluster_ok` holds, falling back to the train
+factoring (``layout_for``) where no cluster does.  On the registered
+models that model keeps the cluster inside one device (heads over the
+whole model axis) up to a model axis of 8, and picks a cluster of 2
+across devices at 16 for Qwen2-72B, Granite-8B and Minitron-4B.  An
+explicit ``cluster`` wins (the reference's ``serve.py:181–183``).
+
+The port shards attention decoders with dense or MoE FFNs and no
+frontend or encoder; the recurrent, RWKV-6 and modality models on a
+model axis above 1 raise ``NotImplementedError`` (ROADMAP A.5b, second
+half).
 """
 from __future__ import annotations
 
+from typing import Optional
+
 from repro_torch.configs.base import (ATTN_GLOBAL, ATTN_LOCAL, ModelConfig)
+from repro_torch.core.autotune import tune_cluster
 from repro_torch.launch.mesh import Mesh
 from repro_torch.models.ctx import ParallelCtx, make_train_ctx
-from repro_torch.models.transformer import Layout
-
-# the widest model axis on which the reference's tuner keeps the cluster
-# inside one device for every registered model
-_HEAD_PARALLEL_MAX = 8
+from repro_torch.models.transformer import Layout, layout_for
 
 
 def _cluster_ok(cfg: ModelConfig, ms: int, n: int) -> bool:
@@ -47,29 +50,41 @@ def _cluster_ok(cfg: ModelConfig, ms: int, n: int) -> bool:
 def check_mesh_model(cfg: ModelConfig, ms: int) -> None:
     """Raise where the port does not serve ``cfg`` on a model axis of
     ``ms`` > 1: only attention decoders (dense FFNs or MoE) without a
-    frontend or an encoder shard (ROADMAP A.5b)."""
+    frontend or an encoder shard (ROADMAP A.5b's second half)."""
     if ms == 1:
         return
     if (set(cfg.layer_kinds) - {ATTN_GLOBAL, ATTN_LOCAL}
             or cfg.frontend is not None or cfg.encoder is not None):
         raise NotImplementedError(
             f"{cfg.name}: recurrent, RWKV-6 and modality models on a model "
-            f"axis of {ms} are ROADMAP A.5b; the port shards attention "
-            "decoders with dense or MoE FFNs")
+            f"axis of {ms} are ROADMAP A.5b's second half; the port shards "
+            "attention decoders with dense or MoE FFNs")
 
 
-def serving_layout(cfg: ModelConfig, ms: int) -> Layout:
-    """The head-parallel layout, ``heads_sub = ms`` and a cluster of 1;
-    ``NotImplementedError`` (ROADMAP A.5b) where the reference would put
-    a cluster across devices."""
+def serving_layout(cfg: ModelConfig, ms: int, *, seq_len: int, batch: int,
+                   cluster: Optional[int] = None) -> Layout:
+    """The serve layout on a model axis of ``ms`` for a cache of
+    ``seq_len`` positions and ``batch`` slots (``specs.py:61–74``): the
+    cluster ``tune_cluster`` picks, halved until :func:`_cluster_ok`,
+    else ``layout_for``'s factoring; ``cluster`` given: ``Layout(ms, ms //
+    cluster)``, which must divide the axis and pass :func:`_cluster_ok`
+    (``ValueError`` otherwise)."""
     check_mesh_model(cfg, ms)
-    if ms > _HEAD_PARALLEL_MAX or not _cluster_ok(cfg, ms, 1):
-        raise NotImplementedError(
-            f"{cfg.name} on a model axis of {ms}: {cfg.n_heads} heads need "
-            "a cluster across devices there (the KV sequence over cluster "
-            "ranks, ROADMAP A.5b); the port serves heads over the whole "
-            f"axis, up to {_HEAD_PARALLEL_MAX}")
-    return Layout(ms, heads_sub=ms)
+    if cluster is not None:
+        if cluster < 1 or ms % cluster or not _cluster_ok(cfg, ms, cluster):
+            raise ValueError(
+                f"{cfg.name}: a serve cluster of {cluster} on a model axis "
+                f"of {ms} does not divide its heads, head dim, d_model or "
+                "window")
+        return Layout(ms, heads_sub=ms // cluster)
+    best = tune_cluster(cfg, seq_len=seq_len, batch=max(1, batch),
+                        model_axis=ms)
+    n = best.cluster_size
+    while n > 1 and not _cluster_ok(cfg, ms, n):
+        n //= 2
+    if not _cluster_ok(cfg, ms, n):
+        return layout_for(cfg, ms)
+    return Layout(ms, heads_sub=ms // n)
 
 
 def ctx_for(mesh: Mesh, lay: Layout, **kw) -> ParallelCtx:

@@ -1,9 +1,14 @@
 """Training / prefill attention — the port of ``repro/models/attention.py``
-for the dense GQA path (with the optional q/k/v biases) and MLA at
-cluster size 1.  On a mesh (``ctx``) a rank holds its heads' columns of
-``wq``/``wk``/``wv`` (kv heads replicated where the heads outnumber
-them) and the rows of ``wo`` they project through; the partial outputs
-meet in ``psum_heads`` (``attention.py:185``).
+for the dense GQA path (with the optional q/k/v biases) and MLA.  On a
+mesh (``ctx``) a rank holds its heads' columns of ``wq``/``wk``/``wv``
+(kv heads replicated where the heads outnumber them) and the rows of
+``wo`` they project through; the partial outputs meet in ``psum_heads``
+(``attention.py:185``).  With a cluster sub-axis of ``n > 1`` a rank
+holds ``1/n`` of each head's dims (MLA: of ``wq``'s and ``wdkv``'s
+columns): the segments are gathered over the cluster (ClusterGather)
+before RoPE, the rank attends the query block ``cluster_index()·S/n …``
+of the sequence against every key, and the blocks' outputs are gathered
+back along the sequence (``attention.py:127–185``, ``:190–247``).
 
 ``_flash`` mirrors the reference's chunked online-softmax oracle in
 plain torch ops (no fused library attention): prefill attention stays
@@ -87,7 +92,8 @@ def attention_train(p: dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
     ``attention.py:135``).  The biases add to q/k/v in the model dtype
     before RoPE (``attention.py:160``)."""
     B, S, D = x.shape
-    q_loc, hd = p["wq"].shape[1], p["wq"].shape[2]
+    n = ctx.cluster_size
+    q_loc, hd = p["wq"].shape[1], p["wq"].shape[2] * n
     kv_loc = p["wk"].shape[1]
     qpk = q_loc // kv_loc
     window = cfg.sliding_window if kind == ATTN_LOCAL else 0
@@ -96,16 +102,18 @@ def attention_train(p: dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
     v = torch.einsum("bsd,dkh->bskh", x, p["wv"])
     if p.get("bq") is not None:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q, k, v = (ctx.gather_cluster(t, 3) for t in (q, k, v))
     cos, sin = rope_cos_sin(torch.arange(S, device=x.device), hd,
                             cfg.rope_theta)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     kv_out = (k, v) if return_kv else None
-    qg = q.reshape(B, S, kv_loc, qpk, hd)
-    out = _flash(qg, k, v, q_offset=0, causal=causal, window=window,
+    s_blk, q_off = S // n, ctx.cluster_index() * (S // n)
+    qg = q[:, q_off:q_off + s_blk].reshape(B, s_blk, kv_loc, qpk, hd)
+    out = _flash(qg, k, v, q_offset=q_off, causal=causal, window=window,
                  cap=cfg.attn_softcap, scale=1.0 / math.sqrt(hd))
-    y = out.reshape(B, S, q_loc * hd) @ p["wo"]
-    return ctx.psum_heads(y), kv_out
+    y = ctx.psum_heads(out.reshape(B, s_blk, q_loc * hd) @ p["wo"])
+    return ctx.gather_cluster(y, 1) if n > 1 else y, kv_out
 
 
 def mla_attention_train(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
@@ -122,8 +130,10 @@ def mla_attention_train(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     nope, rope_d, l_rank, v_dim = (m.nope_head_dim, m.rope_head_dim,
                                    m.kv_lora_rank, m.v_head_dim)
     q_loc = p["wq"].shape[1]
+    n = ctx.cluster_size
     q = torch.einsum("bsd,dqh->bsqh", x, p["wq"])       # [B,S,q,nope+rope]
     c = x @ p["wdkv"]                                    # [B,S,l+rope]
+    q, c = ctx.gather_cluster(q, 3), ctx.gather_cluster(c, 2)
     q_nope, q_rope = q[..., :nope], q[..., nope:]
     c_lat, c_rope = c[..., :l_rank], c[..., l_rank:]
     cos, sin = rope_cos_sin(torch.arange(S, device=x.device), rope_d,
@@ -132,11 +142,13 @@ def mla_attention_train(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     c_rope = apply_rope(c_rope[:, :, None, :], cos, sin)[:, :, 0, :]
     kk = torch.cat([c_lat, c_rope], dim=-1)              # [B,S,l+rope]
     q_lat = torch.einsum("bsqn,qnl->bsql", q_nope, p["wuk"])
-    qq = torch.cat([q_lat, q_rope], dim=-1)              # [B,S,q,l+rope]
+    s_blk, q_off = S // n, ctx.cluster_index() * (S // n)
+    qq = torch.cat([q_lat, q_rope], dim=-1)[:, q_off:q_off + s_blk]
     out = _flash(qq[:, :, None], kk[:, :, None], c_lat[:, :, None],
-                 q_offset=0, causal=True, window=0, cap=0.0,
+                 q_offset=q_off, causal=True, window=0, cap=0.0,
                  scale=1.0 / math.sqrt(nope + rope_d))
-    a_lat = out[:, :, 0]                                 # [B,S,q,l]
+    a_lat = out[:, :, 0]                                 # [B,s_blk,q,l]
     o_head = torch.einsum("bsql,qlv->bsqv", a_lat, p["wuv"])
-    y = o_head.reshape(B, S, q_loc * v_dim) @ p["wo"]
-    return ctx.psum_heads(y), (kk if return_kv else None)
+    y = ctx.psum_heads(o_head.reshape(B, s_blk, q_loc * v_dim) @ p["wo"])
+    return (ctx.gather_cluster(y, 1) if n > 1 else y,
+            kk if return_kv else None)

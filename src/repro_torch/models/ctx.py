@@ -25,13 +25,16 @@ class ParallelCtx:
     (a :class:`MeshAxis`) or None; ``heads``: the sub-axis sharding the
     heads (the whole axis when the head count divides it); ``cluster``:
     the paper's cluster sub-axis (size 1 on the head-parallel layout);
-    ``data``: the data-parallel axes."""
+    ``data``: the data-parallel axes; ``fused_combine``: the decode
+    adapters' flash combine over the cluster as one tree with the
+    flash-merge operator (the reference's option, off by default)."""
 
     model: Optional[Axis] = None
     heads: Optional[Axis] = None
     cluster: Optional[Axis] = None
     data: Tuple[MeshAxis, ...] = ()
     model_static: int = 1
+    fused_combine: bool = False
 
     # -- sizes -------------------------------------------------------------
     @property

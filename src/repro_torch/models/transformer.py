@@ -6,12 +6,15 @@ The functions that run on a mesh take a ``ctx`` (``models/ctx.py``),
 the single-device context by default, where every collective is the
 identity.  On a model axis of ``ms`` each rank holds its own slice of
 the tree below, cut as the reference's device-major layout cuts it
-(:func:`to_device_major`, ``transformer.py:226–456``): heads (with
-their kv heads, replicated where ``heads_sub`` exceeds them), ``wo``'s
-rows of those heads, ``d_ff / ms`` FFN columns (and ``w_out`` rows),
-``E / ms`` experts, ``V / ms`` vocabulary rows (padded to a multiple of
-``ms`` with zero rows), everything else replicated.  Attention decoders
-with dense or MoE FFNs shard; the other kinds are ROADMAP A.5b.
+(:func:`to_device_major`, ``transformer.py:226–456``): heads over the
+``heads_sub`` ranks (with their kv heads, replicated where ``heads_sub``
+exceeds them) and, on a cluster sub-axis above 1, each head's dims over
+the cluster (MLA: ``wq``'s head dims and ``wdkv``'s latent columns),
+``wo``'s rows of those heads (replicated over the cluster), ``d_ff /
+ms`` FFN columns (and ``w_out`` rows), ``E / ms`` experts, ``V / ms``
+vocabulary rows (padded to a multiple of ``ms`` with zero rows),
+everything else replicated.  Attention decoders with dense or MoE FFNs
+shard; the other kinds are the second half of ROADMAP A.5b.
 
 Parameter tree (the train layout; leaves are tensors):
 
@@ -249,7 +252,8 @@ def _block_rules(blk: Dict[str, Any]) -> Dict[str, Any]:
                 out[name] = {k: _FFN_RULES[k] for k in val}
         else:
             raise NotImplementedError(
-                f"{name} blocks on a model axis above 1 (ROADMAP A.5b)")
+                f"{name} blocks on a model axis above 1 (ROADMAP A.5b, "
+                "second half)")
     return out
 
 
@@ -263,7 +267,7 @@ def _param_rules(params: Dict[str, Any]) -> Dict[str, Any]:
             out[k] = [_block_rules(b) for b in v]
         else:
             raise NotImplementedError(
-                f"{k} on a model axis above 1 (ROADMAP A.5b)")
+                f"{k} on a model axis above 1 (ROADMAP A.5b, second half)")
     return out
 
 
@@ -340,7 +344,8 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda",
     if ms > 1 and (cfg.block_pattern == (RWKV6,) or RECURRENT in
                    cfg.layer_kinds or cfg.frontend or cfg.encoder):
         raise NotImplementedError(
-            f"{cfg.name} on a model axis of {ms} (ROADMAP A.5b)")
+            f"{cfg.name} on a model axis of {ms}: recurrent, RWKV-6 and "
+            "modality models on a mesh are ROADMAP A.5b's second half")
 
     def cut(t, rule):
         if ms == 1 or rule == "rep":

@@ -67,11 +67,14 @@ beside an encoder, ``engine.py:428``): ``L + 1`` kernel calls fused,
 ``L`` unfused.  InternVL2-2B is a GQA decoder once its prefill has
 spliced the patch embeddings into the prompt.
 
-On a mesh (``ctx``, ``models/ctx.py``; head-parallel, a cluster of 1
-inside each rank) a rank runs its own heads, ``d_ff`` columns, experts
-and vocabulary shard, and the partials meet as in the reference: the
-embedding's ``psum_model``; each attention layer's output in the heads
-reduce (``core/dataflow.py:ClusterSpec``, the tree); on the fused path
+On a mesh (``ctx``, ``models/ctx.py``) a rank runs its own heads,
+``d_ff`` columns, experts and vocabulary shard, and the partials meet as
+in the reference: the embedding's ``psum_model``; each attention layer's
+output in the heads reduce (``core/dataflow.py:ClusterSpec``, the tree)
+— with a cluster sub-axis above 1 (a cluster across devices: the
+``heads_sub`` ranks of a group share its heads, each holding ``1/n`` of
+every cache's rows, ``ServeConfig.cluster_size``) after the layer's
+flash combine over the cluster (``core/dataflow.py``); on the fused path
 B2's partial (``add_r`` on model rank 0 only) in the tree ClusterReduce
 over the model axis (``psum_model`` on an axis that is not a power of
 two), on the unfused path the FFN's ``psum_model``; the MoE's
@@ -105,7 +108,7 @@ from repro_torch.core.dataflow import (ClusterSpec, KVBlock, MLAWeights,
                                        mla_attention_packed,
                                        split_token_attention,
                                        split_token_attention_packed)
-from repro_torch.core.dataflow import append_rows
+from repro_torch.core.dataflow import AppendSlot, _append_slot
 from repro_torch.core.device import resolve_device
 from repro_torch.core.tracecount import live_attend_blocks
 from repro_torch.kernels.flash_decode.flash_decode import (
@@ -145,6 +148,9 @@ class ServeConfig:
     # the ranks sharding the heads (ParallelCtx.heads_size): a rank's
     # caches hold max(1, n_kv / heads_size) kv heads
     heads_size: int = 1
+    # the cluster sub-axis (ParallelCtx.cluster_size): a rank's caches
+    # hold 1/cluster_size of the sequence (engine.py:143–167)
+    cluster_size: int = 1
     # "xla" = the unfused dataflow around B5; "pallas" = the fused kernels
     # (resolved from "auto" by core/autotune.py, as in the reference)
     backend: str = "xla"
@@ -177,7 +183,13 @@ class EngineOptions:
     ``"auto"`` and ``prepack`` ``"auto"`` | ``"on"`` | ``"off"``
     (``core/autotune.py``); ``check_finite``, ``track_work``,
     ``kv_fingerprint`` and ``shadow_head`` add their state leaves
-    (:class:`ServeConfig`)."""
+    (:class:`ServeConfig`); ``cluster``: the serve cluster on a mesh
+    (None: ``launch/specs.py:serving_layout``'s pick; ``n``: the layout
+    ``Layout(ms, ms // n)``, as the reference's ``serve.py:181–183``);
+    ``fused_combine``: the unfused paths' flash combine over the cluster
+    as one tree (``engine.py:125``)."""
+    fused_combine: bool = False
+    cluster: Optional[int] = None
     backend: str = "xla"
     prepack: Any = "auto"
     check_finite: bool = False
@@ -233,9 +245,11 @@ def init_decode_state(cfg: ModelConfig, scfg: ServeConfig, *,
     ``kv_fp`` (one ``[G, B]`` int32 per block-pattern position) and
     ``kv_fp_tail`` (one ``[B]`` per tail layer).  On a mesh ``B`` is the
     rank's slots and ``kv`` its kv heads, ``max(1, n_kv /
-    scfg.heads_size)`` (``engine.py:144–167``)."""
+    scfg.heads_size)``, and a cache holds its cluster rank's ``S / n``
+    rows, ``n`` = ``scfg.cluster_size`` (``engine.py:144–167``)."""
     dev = resolve_device(device)
     B, S = scfg.batch_local, scfg.max_seq
+    n = scfg.cluster_size
     kv_loc = max(1, cfg.n_kv_heads // scfg.heads_size)
     period = len(cfg.block_pattern)
     G = cfg.n_layers // period
@@ -249,11 +263,13 @@ def init_decode_state(cfg: ModelConfig, scfg: ServeConfig, *,
             return rglru_state_init(B, cfg.rglru_d_state or cfg.d_model,
                                     cfg.conv1d_width, lead=lead, device=dev)
         if cfg.mla is not None:
-            k_shape = (S, B, cfg.mla.kv_lora_rank + cfg.mla.rope_head_dim)
-            v_shape = (S, B, 1)
+            k_shape = (S // n, B,
+                       cfg.mla.kv_lora_rank + cfg.mla.rope_head_dim)
+            v_shape = (S // n, B, 1)
         else:
             span = min(cfg.sliding_window, S) if kind == ATTN_LOCAL else S
-            k_shape = v_shape = (span, B * kv_loc, cfg.resolved_head_dim)
+            k_shape = v_shape = (max(1, span // n), B * kv_loc,
+                                 cfg.resolved_head_dim)
         return KVBlock(
             k=torch.zeros(lead + k_shape, dtype=torch.bfloat16, device=dev),
             v=torch.zeros(lead + v_shape, dtype=torch.bfloat16, device=dev),
@@ -399,38 +415,57 @@ def _spec(ctx: ParallelCtx) -> Optional[ClusterSpec]:
     """The dataflow's axes (``engine.py:320``); None off a mesh."""
     if ctx.model is None:
         return None
-    return ClusterSpec(heads=ctx.heads)
+    return ClusterSpec(heads=ctx.heads, cluster=ctx.cluster,
+                       fused_combine=ctx.fused_combine)
 
 
-def _split_token_weights(a: Dict[str, torch.Tensor]) -> SplitTokenWeights:
+def _tile(t: Optional[torch.Tensor], ctx: ParallelCtx, dim: int):
+    """Cluster rank ``c``'s ``1/n`` slice ``c`` of ``t`` along ``dim`` (a
+    view); ``t`` itself at cluster 1."""
+    n = ctx.cluster_size
+    if t is None or n == 1:
+        return t
+    w = t.shape[dim] // n
+    return t.narrow(dim, ctx.cluster_index() * w, w)
+
+
+def _split_token_weights(a: Dict[str, torch.Tensor],
+                         ctx: ParallelCtx = SINGLE) -> SplitTokenWeights:
     """Train-layout attention → the unfused dataflow's weights
-    (``engine.py:250``): at cluster size 1 every rank slice is the whole
-    tensor, so this only names the train tensors (no copy)."""
-    return SplitTokenWeights(wq=a["wq"], wk=a["wk"], wv=a["wv"], wo=a["wo"],
+    (``engine.py:250–271``): the train layout already holds the rank's
+    heads and head-dim segments; ``wo`` (``[q·hd, D]``, replicated over
+    the cluster) gives the cluster rank's ``D/n`` column tile, a view.
+    At cluster 1 this only names the train tensors."""
+    return SplitTokenWeights(wq=a["wq"], wk=a["wk"], wv=a["wv"],
+                             wo=_tile(a["wo"], ctx, -1),
                              bq=a.get("bq"), bk=a.get("bk"),
                              bv=a.get("bv"))
 
 
-def _mla_weights(a: Dict[str, torch.Tensor]) -> MLAWeights:
-    """Train-layout MLA → the unfused dataflow's weights (``engine.py:274``):
-    at cluster size 1 the rank slices of ``wuk``, ``wuv`` and ``wo`` are
-    the whole tensors, so this only names the train tensors (no copy)."""
-    return MLAWeights(wq=a["wq"], wdkv=a["wdkv"], wuk=a["wuk"], wuv=a["wuv"],
-                      wo=a["wo"])
+def _mla_weights(a: Dict[str, torch.Tensor],
+                 ctx: ParallelCtx = SINGLE) -> MLAWeights:
+    """Train-layout MLA → the unfused dataflow's weights (``engine.py:274–
+    290``): the cluster rank's ``l/n`` latent slice of ``wuk`` (columns)
+    and ``wuv`` (rows) and ``D/n`` column tile of ``wo``, views; at
+    cluster 1 the train tensors themselves."""
+    return MLAWeights(wq=a["wq"], wdkv=a["wdkv"], wuk=_tile(a["wuk"], ctx, -1),
+                      wuv=_tile(a["wuv"], ctx, -2), wo=_tile(a["wo"], ctx, -1))
 
 
-def hoist_serve_weights(params: Dict[str, Any]) -> Dict[str, Any]:
+def hoist_serve_weights(params: Dict[str, Any],
+                        ctx: ParallelCtx = SINGLE) -> Dict[str, Any]:
     """The per-step weight adapters, once per step outside the layer loop
     (``engine.py:303``): every train-layout attention block's ``attn``
     becomes :class:`SplitTokenWeights` or, for MLA, :class:`MLAWeights`
-    (the identity at cluster 1), in the groups and the tail; packed
-    blocks, RG-LRU blocks and RWKV-6 blocks pass through."""
+    (the rank's column tiles on a cluster across devices, the train
+    tensors at cluster 1), in the groups and the tail; packed blocks,
+    RG-LRU blocks and RWKV-6 blocks pass through."""
     def adapt(blk):
         a = blk.get("attn")
         if isinstance(a, dict) and "wk" in a:
-            return dict(blk, attn=_split_token_weights(a))
+            return dict(blk, attn=_split_token_weights(a, ctx))
         if isinstance(a, dict) and "wdkv" in a:
-            return dict(blk, attn=_mla_weights(a))
+            return dict(blk, attn=_mla_weights(a, ctx))
         return blk
 
     return dict(params, blocks=[adapt(b) for b in params["blocks"]],
@@ -440,7 +475,9 @@ def hoist_serve_weights(params: Dict[str, Any]) -> Dict[str, Any]:
 def decode_block(cfg: ModelConfig, kind: str, blk: Dict[str, Any],
                  x: torch.Tensor, cache, cache_lens: torch.Tensor, cos, sin,
                  kernels: Kernels = KERNELS, cross=None, enc_kv=None,
-                 ctx: ParallelCtx = SINGLE) -> torch.Tensor:
+                 ctx: ParallelCtx = SINGLE,
+                 appends: Optional[Dict[Any, AppendSlot]] = None
+                 ) -> torch.Tensor:
     """One layer, ``x [B, D] → [B, D]``; the reference's ``decode_block``
     at cluster size 1.
 
@@ -466,7 +503,8 @@ def decode_block(cfg: ModelConfig, kind: str, blk: Dict[str, Any],
     RWKV-6 (``engine.py:382–389``): the time mix with its recurrence in
     one B7 launch, then the channel mix; the layer's ``RWKV6State``
     ``cache`` is updated in place (``s`` by the kernel, the shift rows by
-    a copy)."""
+    a copy).  ``appends``: the step's append slots by (cache rows, ring)
+    (:func:`_step_appends`; made per layer where not given)."""
     eps = cfg.norm_eps
     if kind == RWKV6:
         p = blk["rwkv"]
@@ -484,29 +522,31 @@ def decode_block(cfg: ModelConfig, kind: str, blk: Dict[str, Any],
         cache.conv.copy_(st.conv)
         return _ffn_tail(cfg, blk, x, a)
     w = blk["attn"]
-    window = cfg.sliding_window if kind == ATTN_LOCAL else 0
+    window = _window(cfg, kind)
     spec = _spec(ctx)
+    ap = (appends or {}).get((cache.k.shape[0], window > 0))
     if isinstance(w, PackedMLAWeights):
         a = mla_attention_packed(x, w, cache, cache_lens, cos, sin,
                                  nope_dim=cfg.mla.nope_head_dim,
                                  rope_dim=cfg.mla.rope_head_dim,
-                                 norm_eps=eps, kernel=kernels.mla, spec=spec)
+                                 norm_eps=eps, kernel=kernels.mla, spec=spec,
+                                 ap=ap)
     elif isinstance(w, PackedSplitTokenWeights):
         a = split_token_attention_packed(x, w, cache, cache_lens, cos, sin,
                                          window=window,
                                          attn_softcap=cfg.attn_softcap,
                                          norm_eps=eps, kernel=kernels.decode,
-                                         spec=spec)
+                                         spec=spec, ap=ap)
     elif isinstance(w, MLAWeights):
         a = mla_attention(rms_norm(x, blk["ln1"], eps), w, cache,
                           cache_lens, cos, sin,
                           nope_dim=cfg.mla.nope_head_dim,
-                          rope_dim=cfg.mla.rope_head_dim, spec=spec)
+                          rope_dim=cfg.mla.rope_head_dim, spec=spec, ap=ap)
     else:
         a = split_token_attention(
             rms_norm(x, blk["ln1"], eps), w, cache, cache_lens, cos, sin,
             window=window, attn_softcap=cfg.attn_softcap, kernel=kernels.flash,
-            spec=spec)
+            spec=spec, ap=ap)
     if isinstance(blk["ffn"], PackedFFNWeights) and enc_kv is None:
         return _fused_ffn_tail(cfg, blk, x, a, kernels, ctx)
     return _ffn_tail(cfg, blk, x, a, cross, enc_kv, ctx)
@@ -569,16 +609,37 @@ def _layer(tree, g: int):
     return None if tree is None else tree[g]
 
 
-def _appended_rows(kind: str, cache, cache_lens: torch.Tensor):
+def _window(cfg: ModelConfig, kind: str) -> int:
+    """The sliding window of a layer of ``kind`` (0: a linear cache)."""
+    return cfg.sliding_window if kind == ATTN_LOCAL else 0
+
+
+def _step_appends(cfg: ModelConfig, kinds, cache_lens: torch.Tensor,
+                  spec: Optional[ClusterSpec]) -> Dict[Any, AppendSlot]:
+    """This step's append slot (``core/dataflow.py:_append_slot``) for
+    each kind of attention cache, keyed by (its rows, ring): it depends
+    on ``cache_lens`` alone, so the step makes it once for every layer."""
+    out: Dict[Any, AppendSlot] = {}
+    for kind, cache in kinds:
+        if isinstance(cache, KVBlock):
+            window = _window(cfg, kind)
+            key = (cache.k.shape[-3], window > 0)
+            if key not in out:
+                out[key] = _append_slot(spec, key[0], cache_lens,
+                                        window=window)
+    return out
+
+
+def _appended_rows(cfg: ModelConfig, kind: str, cache,
+                   appends: Dict[Any, AppendSlot]):
     """For an attention entry: ``(own [B], row [B], bit sum [G, B] of the
-    rows before the step)`` — the rows this step's append overwrites
-    (``core/dataflow.py:append_rows``; a ring on a local layer);
+    rows before the step)`` — the rows this step's append overwrites on
+    this rank (its :func:`_step_appends` slot; a ring on a local layer);
     ``None`` for a recurrent state."""
     if not isinstance(cache, KVBlock):
         return None
-    own, idx = append_rows(cache.k.shape[-3], cache_lens,
-                           ring=kind == ATTN_LOCAL)
-    return own, idx, kv_rows_bitsum(cache, idx)
+    ap = appends[(cache.k.shape[-3], _window(cfg, kind) > 0)]
+    return ap.own, ap.local_slot, kv_rows_bitsum(cache, ap.local_slot)
 
 
 # the KV block ``work_blocks`` counts in: the reference's default
@@ -586,11 +647,12 @@ def _appended_rows(kind: str, cache, cache_lens: torch.Tensor):
 WORK_BLOCK_S = 256
 
 
-def _step_work(cfg: ModelConfig, kinds,
-               cache_lens: torch.Tensor) -> torch.Tensor:
+def _step_work(cfg: ModelConfig, kinds, cache_lens: torch.Tensor,
+               rank: int = 0) -> torch.Tensor:
     """Per-slot attend-step count of one step, summed over the attention
     layers (``engine.py:583–592``): each block-pattern entry counts once
-    per layer group, a tail entry once."""
+    per layer group, a tail entry once; ``rank`` is this process's
+    cluster rank, whose shard's live span it counts."""
     G = cfg.n_layers // len(cfg.block_pattern)
     work = torch.zeros_like(cache_lens)
     for i, (kind, cache) in enumerate(kinds):
@@ -601,7 +663,7 @@ def _step_work(cfg: ModelConfig, kinds,
         s_blk = cache.k.shape[-3]
         n = live_attend_blocks(cache_lens, s_blk=s_blk,
                                block_s=_fit_block_s(s_blk, WORK_BLOCK_S),
-                               window=window, ring=window > 0)
+                               rank=rank, window=window, ring=window > 0)
         work = work + n * (G if i < len(cfg.block_pattern) else 1)
     return work
 
@@ -642,7 +704,7 @@ def decode_step(cfg: ModelConfig, scfg: ServeConfig, params: Dict[str, Any],
     rank's slots, tokens ``[B_loc]``); every rank of the model axis must
     run the step together."""
     _check_not_param_pair(params, "serve")
-    params = hoist_serve_weights(params)
+    params = hoist_serve_weights(params, ctx)
     cache_lens = state["cache_lens"]
     dev = cache_lens.device
     if not (torch.is_tensor(tokens) and tokens.device == dev):
@@ -658,8 +720,9 @@ def decode_step(cfg: ModelConfig, scfg: ServeConfig, params: Dict[str, Any],
     G = cfg.n_layers // period
     kinds = (list(zip(cfg.block_pattern, state["layers"]))
              + list(zip(cfg.layer_kinds[G * period:], state["tail"])))
-    appends = ([_appended_rows(kind, cache, cache_lens)
-                for kind, cache in kinds] if scfg.kv_fingerprint else [])
+    appends = _step_appends(cfg, kinds, cache_lens, _spec(ctx))
+    rows = ([_appended_rows(cfg, kind, cache, appends)
+             for kind, cache in kinds] if scfg.kv_fingerprint else [])
     enc = state.get("enc_kv")
     for g in range(G):
         for i, (kind, blk, caches) in enumerate(zip(
@@ -671,11 +734,11 @@ def decode_step(cfg: ModelConfig, scfg: ServeConfig, params: Dict[str, Any],
                 enc_kv = (enc["k"][li], enc["v"][li])
             x = decode_block(cfg, kind, _layer(blk, g), x,
                              _layer(caches, g), cache_lens, cos, sin,
-                             kernels, cross, enc_kv, ctx)
+                             kernels, cross, enc_kv, ctx, appends)
     for kind, blk, cache in zip(cfg.layer_kinds[G * period:],
                                 params["tail"], state["tail"]):
         x = decode_block(cfg, kind, blk, x, cache, cache_lens, cos, sin,
-                         kernels, ctx=ctx)
+                         kernels, ctx=ctx, appends=appends)
     samp = state["sampling"]
     if isinstance(params.get("head"), PackedHeadWeights):
         cand_v, cand_i = _fused_head_tail(cfg, params["head"], x, kernels,
@@ -696,12 +759,12 @@ def decode_step(cfg: ModelConfig, scfg: ServeConfig, params: Dict[str, Any],
             cfg, x, head_val, nxt, cache_lens >= 0)
     if scfg.track_work:
         new_state["work_blocks"] = state["work_blocks"] + _step_work(
-            cfg, kinds, cache_lens)
+            cfg, kinds, cache_lens, ctx.cluster_index())
     if scfg.kv_fingerprint:
-        for (kind, cache), rows, fp in zip(
-                kinds, appends, state["kv_fp"] + state["kv_fp_tail"]):
-            if rows is not None:
-                own, idx, before = rows
+        for (kind, cache), entry, fp in zip(
+                kinds, rows, state["kv_fp"] + state["kv_fp_tail"]):
+            if entry is not None:
+                own, idx, before = entry
                 delta = kv_rows_bitsum(cache, idx) - before
                 fp.copy_(wrap_i32(fp.to(torch.int64) + torch.where(
                     own, delta, torch.zeros_like(delta))))

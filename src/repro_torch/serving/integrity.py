@@ -109,7 +109,7 @@ def kv_entry_fp(cache: KVBlock, B: int) -> torch.Tensor:
 def kv_rows_bitsum(cache: KVBlock, rows: torch.Tensor) -> torch.Tensor:
     """int64 ``[G, B]`` (``[B]`` unstacked): the bit sum of the k and v
     row ``rows[b]`` of every slot b — the rows a decode step appends
-    (``core/dataflow.py:append_rows``).  Read before and after the step,
+    (``core/dataflow.py:_append_slot``).  Read before and after the step,
     the difference is the step's change to the entry's checksum."""
     B = rows.shape[0]
     b = torch.arange(B, device=rows.device)

@@ -84,17 +84,19 @@ from repro_torch.serving.sampling import (admit_sampling_state,
 
 
 def _fill_global(cache: KVBlock, k: torch.Tensor, v: torch.Tensor,
-                 rows: torch.Tensor, lens: torch.Tensor) -> None:
+                 rows: torch.Tensor, lens: torch.Tensor,
+                 c_rank: int = 0) -> None:
     """Write the prompt k/v ``[n, S_p, kv, hd]`` (MLA: the latent entries
     ``[n, S_p, l+rope]`` and their first column) of the admitted slots
     ``rows [n]`` (lengths ``lens [n]``) into one layer's cache, in place:
-    positions below the length hold the prompt, the rest zeros and
-    ``pos = −1`` (the reference's ``_fill_global`` + ``_merge_admitted``
-    at cluster 1)."""
+    this rank's shard of ``S`` rows holds positions ``c_rank·S …``
+    (cluster rank ``c_rank``; 0 on one device), those below the length
+    the prompt's, the rest zeros and ``pos = −1`` (the reference's
+    ``_fill_global`` + ``_merge_admitted``, ``prefill.py:47–74``)."""
     S = cache.k.shape[0]
     B = cache.pos.shape[1]
     n, S_p = k.shape[:2]
-    idx = torch.arange(S, device=k.device)
+    idx = c_rank * S + torch.arange(S, device=k.device)
     valid = idx[:, None] < lens[None, :]                        # [S, n]
     take = torch.clamp(idx, max=S_p - 1)
     for full, new in ((cache.k, k), (cache.v, v)):
@@ -108,21 +110,25 @@ def _fill_global(cache: KVBlock, k: torch.Tensor, v: torch.Tensor,
 
 
 def _fill_ring(cache: KVBlock, k: torch.Tensor, v: torch.Tensor,
-               rows: torch.Tensor, lens: torch.Tensor) -> None:
-    """Sliding-window ring of ``S`` rows, per admitted slot (the
-    reference's ``_fill_ring`` + ``_merge_admitted`` at cluster 1), in
-    place: ring row ``r`` of slot ``rows[j]`` holds the largest prompt
-    position ``p < lens[j]`` with ``p ≡ r (mod S)`` and ``pos = p``, or
-    zeros and ``pos = −1`` where there is none — every row is rewritten,
-    so nothing of an earlier occupant survives.  The reference takes the
-    window as the modulus; the ring has ``min(window, max_seq)`` rows,
-    the same number whenever a prompt can wrap it."""
+               rows: torch.Tensor, lens: torch.Tensor, c_rank: int = 0,
+               n_cluster: int = 1) -> None:
+    """Sliding-window ring of ``W = n_cluster·S`` slots, this cluster
+    rank's ``S`` of them (slots ``c_rank·S …``), per admitted slot (the
+    reference's ``_fill_ring`` + ``_merge_admitted``, ``prefill.py:77–
+    91``), in place: ring slot ``r`` of slot ``rows[j]`` holds the
+    largest prompt position ``p < lens[j]`` with ``p ≡ r (mod W)`` and
+    ``pos = p``, or zeros and ``pos = −1`` where there is none — every
+    row is rewritten, so nothing of an earlier occupant survives.  The
+    reference takes the window as the modulus; the ring has
+    ``min(window, max_seq)`` slots, the same number whenever a prompt
+    can wrap it."""
     S = cache.k.shape[0]
     B = cache.pos.shape[1]
     n, S_p = k.shape[:2]
-    base = torch.arange(S, device=k.device)[:, None]            # [S, 1]
+    W = n_cluster * S
+    base = c_rank * S + torch.arange(S, device=k.device)[:, None]  # [S, 1]
     have = base < lens[None, :]                                 # [S, n]
-    p = base + torch.clamp(lens[None, :] - 1 - base, min=0) // S * S
+    p = base + torch.clamp(lens[None, :] - 1 - base, min=0) // W * W
     take = torch.clamp(p, max=S_p - 1)
     b_ix = torch.arange(n, device=k.device)[None, :]
     for full, new in ((cache.k, k), (cache.v, v)):
@@ -293,8 +299,16 @@ def _prefill_rows(cfg: ModelConfig, params: Dict[str, Any],
                            device=dev)
     lens_a = torch.as_tensor(lens_np[np.asarray(sel)], device=dev)
     fe = None if frontend_embeds is None else frontend_embeds[run_t]
+    toks = tokens[run_t, :s_eff]
+    n_cl = ctx.cluster_size
+    if s_eff % n_cl:
+        # a cluster splits the sequence into n_cl query blocks
+        # (attention.py:168): pad the run to a multiple of them; causal
+        # attention keeps the padding out of every real position
+        toks = torch.cat([toks, toks.new_zeros(
+            (toks.shape[0], n_cl - s_eff % n_cl))], dim=1)
     x = splice_frontend(cfg, params, embed_tokens(
-        cfg, params["embed"], tokens[run_t, :s_eff], ctx), fe)
+        cfg, params["embed"], toks, ctx), fe)
     enc_out = None
     if cfg.encoder is not None:     # every slot: lengths refused above
         enc_out = encode(cfg, params, fe)
@@ -316,8 +330,12 @@ def _prefill_rows(cfg: ModelConfig, params: Dict[str, Any],
                             enc_out=enc_out, cross_blk=cross, ctx=ctx)
         if cfg.mla is not None:            # prefill.py:145–149
             kv = (kv, kv[..., :1])
-        fill = _fill_ring if kind == ATTN_LOCAL else _fill_global
-        fill(cache, *(t[pick] for t in kv), sel_t, lens_a)
+        if kind == ATTN_LOCAL:
+            _fill_ring(cache, *(t[pick] for t in kv), sel_t, lens_a,
+                       ctx.cluster_index(), n_cl)
+        else:
+            _fill_global(cache, *(t[pick] for t in kv), sel_t, lens_a,
+                         ctx.cluster_index())
     last_raw = x[pick, lens_a - 1]
     last = rms_norm(last_raw, params["final_norm"], cfg.norm_eps)
     table = head_table(cfg, params)

@@ -1,7 +1,7 @@
 """Train layout → serve layout, once at load — the port of
-``repro/serving/prepack.py`` at model size 1.
+``repro/serving/prepack.py``, on each rank's own tree.
 
-At model size 1 there is no cluster gather: ``_pack_attn`` concatenates
+At cluster size 1 there is no cluster gather: ``_pack_attn`` concatenates
 ``wq|wk|wv`` into one ``wqkv [D, (q + 2kv)·hd]`` (the one copy the pack
 makes; :func:`share_packed_qkv` then turns the train tree's ``wq``,
 ``wk`` and ``wv`` into views of it, so the two layouts hold one copy)
@@ -27,9 +27,22 @@ ride through aliased while its self-attention is packed for B1
 
 That is the ``"pallas"`` backend's serve layout.  On ``"xla"`` the
 reference keeps the train-layout segments and only moves the rank
-slices to load time (``prepack.py:84–90``), and at model size 1 every
+slices to load time (``prepack.py:84–90``), and at cluster size 1 every
 slice is the whole tensor: the serve tree IS the train tree — no
-``wqkv`` copy, no bundles, the loose head.
+``wqkv`` copy, no bundles, the loose head.  (On a cluster across devices
+the engine takes ``wo``'s, ``wuk``'s and ``wuv``'s rank slices as views
+each step, ``serving/engine.py:hoist_serve_weights``: the reference's
+non-prepacked adapter.)
+
+On a cluster sub-axis of ``n > 1`` (``ctx``) the ``"pallas"`` pack
+gathers each rank's head-dim segments of ``wq``/``wk``/``wv`` (and the
+biases), and MLA's ``wq`` and ``wdkv`` columns, over the cluster once
+here — the reference's ``_gather_seg`` (``prepack.py:56–70``), which
+is what ``cluster_gather_tiled`` gives at run time — so every rank of a
+cluster holds its heads whole; ``wo``, ``wuk`` and ``wuv`` are stored
+replicated over the cluster already, so ``wo``'s per-head rows and the
+fold ``wproj`` come from the rank's own tensors (``:116–144``).  The
+train tree then keeps its own segments (no views of ``wqkv``).
 """
 from __future__ import annotations
 
@@ -41,13 +54,24 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.dataflow import (PackedFFNWeights, PackedHeadWeights,
                                        PackedMLAWeights,
                                        PackedSplitTokenWeights)
+from repro_torch.models.ctx import SINGLE, ParallelCtx
 from repro_torch.models.moe import is_moe
 
 
-def _pack_attn(a: Dict[str, torch.Tensor], ln1: torch.Tensor
-               ) -> PackedSplitTokenWeights:
-    """Stacked train-layout attention (``wq [G, D, q, hd]``, …) → packed
-    serve layout with the layer axis leading."""
+def _gather_seg(t, ctx: ParallelCtx):
+    """The cluster's segments of ``t``'s last dim, gathered in cluster-rank
+    order (``prepack.py:_gather_seg``); ``t`` itself at cluster 1."""
+    if t is None or ctx.cluster_size == 1:
+        return t
+    return ctx.gather_cluster(t.contiguous(), t.dim() - 1)
+
+
+def _pack_attn(a: Dict[str, torch.Tensor], ln1: torch.Tensor,
+               ctx: ParallelCtx = SINGLE) -> PackedSplitTokenWeights:
+    """Stacked train-layout attention (``wq [G, D, q, hd/n]``, …) → packed
+    serve layout with the layer axis leading, the head dims gathered over
+    the cluster."""
+    a = {k: (t if k == "wo" else _gather_seg(t, ctx)) for k, t in a.items()}
     G, D, q_loc, hd = a["wq"].shape
     kv_loc = a["wk"].shape[2]
     wqkv = torch.cat([a["wq"].reshape(G, D, q_loc * hd),
@@ -61,13 +85,15 @@ def _pack_attn(a: Dict[str, torch.Tensor], ln1: torch.Tensor
     return PackedSplitTokenWeights(wqkv=wqkv, wo=wo, bqkv=bqkv, ln1=ln1)
 
 
-def _pack_mla(a: Dict[str, torch.Tensor], ln1: torch.Tensor
-              ) -> PackedMLAWeights:
-    """Stacked train-layout MLA (``wq [G, D, q, nope+rope]``, …) → packed
-    serve layout (``prepack.py:118–144`` at model size 1).  ``wproj[g, h]
-    = wuv[g, h] · wo[g] rows of head h``, computed in f32 and rounded once
-    to the weights' dtype, one layer at a time so the f32 scratch stays
-    one layer's size."""
+def _pack_mla(a: Dict[str, torch.Tensor], ln1: torch.Tensor,
+              ctx: ParallelCtx = SINGLE) -> PackedMLAWeights:
+    """Stacked train-layout MLA (``wq [G, D, q, (nope+rope)/n]``, …) →
+    packed serve layout (``prepack.py:118–144``): ``wq`` and ``wdkv``
+    gathered over the cluster.  ``wproj[g, h] = wuv[g, h] · wo[g] rows of
+    head h``, computed in f32 and rounded once to the weights' dtype, one
+    layer at a time so the f32 scratch stays one layer's size."""
+    a = dict(a, wq=_gather_seg(a["wq"], ctx),
+             wdkv=_gather_seg(a["wdkv"], ctx))
     G, D, q_loc, hr = a["wq"].shape
     v_dim = a["wuv"].shape[-1]
     wo4 = a["wo"].reshape(G, q_loc, v_dim, a["wo"].shape[-1])
@@ -100,8 +126,11 @@ def share_packed_qkv(train: Dict[str, Any], serve: Dict[str, Any]
     products, no copy)."""
     def share(blk, packed):
         a = packed.get("attn")
-        if not isinstance(a, PackedSplitTokenWeights):
-            return blk
+        if (not isinstance(a, PackedSplitTokenWeights)
+                or a.wqkv.shape[-1] != sum(blk["attn"][n].shape[-2]
+                                           * blk["attn"][n].shape[-1]
+                                           for n in ("wq", "wk", "wv"))):
+            return blk                 # (on a cluster: other head dims)
         views = {}
         for names, fused in ((("wq", "wk", "wv"), a.wqkv),
                              (("bq", "bk", "bv"), a.bqkv)):
@@ -124,7 +153,8 @@ def bundle_head(cfg: ModelConfig, params: Dict[str, Any]) -> PackedHeadWeights:
 
 
 def prepack_for_serving(cfg: ModelConfig, params: Dict[str, Any], *,
-                        backend: str = "pallas") -> Dict[str, Any]:
+                        backend: str = "pallas",
+                        ctx: ParallelCtx = SINGLE) -> Dict[str, Any]:
     """Serve tree.  ``"pallas"``: every attention block's ``attn`` packed,
     its dense ``ffn`` bundled (with ``post_ln1``) — a MoE ``ffn`` and
     ``ln2`` aliased as they are —, a post-norm block's ``post_ln2``
@@ -136,10 +166,15 @@ def prepack_for_serving(cfg: ModelConfig, params: Dict[str, Any], *,
     table); ``embed`` aliases the train tensor.  ``"xla"``: ``params``
     itself — its RG-LRU, local- and global-attention blocks and its
     ``tail`` ride through as the train tree, and the engine names the
-    attention weights per step (``engine.py:hoist_serve_weights``)."""
+    attention weights per step (``engine.py:hoist_serve_weights``).
+    ``ctx``: the rank's mesh axes (every rank of a cluster packs
+    together: the gather is a collective)."""
     if backend != "pallas":
         return params
-    pack_attn = _pack_mla if cfg.mla is not None else _pack_attn
+    pack_fn = _pack_mla if cfg.mla is not None else _pack_attn
+
+    def pack_attn(a, ln1):
+        return pack_fn(a, ln1, ctx)
 
     def pack_block(blk):
         if "attn" not in blk:

@@ -152,14 +152,18 @@ def engines_body(rank, world, cases):
     for key, case in cases.items():
         cfg = dataclasses.replace(reduced(get_config(case["arch"])),
                                   **case["replace"])
-        lay = serving_layout(cfg, mesh.shape["model"])
+        cluster = case.get("cluster")
+        lay = serving_layout(cfg, mesh.shape["model"],
+                             seq_len=case["max_seq"],
+                             batch=case["prompts"].shape[0], cluster=cluster)
         train = from_reference_params(
             cfg, case["params"], lay=lay,
             rank=mesh.axes["model"].index, device="cpu")
         eng = build_engine_full(
             cfg, mesh=mesh, max_seq=case["max_seq"],
             batch_global=case["prompts"].shape[0], train_params=train,
-            options=EngineOptions(backend=case["backend"], shadow_head=True))
+            options=EngineOptions(backend=case["backend"], shadow_head=True,
+                                  cluster=cluster))
         tok, st = eng.prefill_fn(eng.params["train"], eng.state,
                                  case["prompts"])
         toks, gaps = [tok.numpy()], []
@@ -183,18 +187,20 @@ def forward_body(rank, world, cases):
     import dataclasses
     from repro_torch.configs import get_config, reduced
     from repro_torch.launch.mesh import make_test_mesh
-    from repro_torch.launch.specs import ctx_for, serving_layout
+    from repro_torch.launch.specs import ctx_for
     from repro_torch.models.layers import lm_head_logits
     from repro_torch.models.transformer import (forward, from_reference_params,
                                                 head_table)
     from repro_torch.serving.engine import _merge_vocab_shards
     from repro_torch.serving.sampling import head_candidates
+    from repro_torch.models.transformer import Layout
     mesh = make_test_mesh(device="cpu")
     out = {}
     for key, case in cases.items():
         cfg = dataclasses.replace(reduced(get_config(case["arch"])),
                                   **case["replace"])
-        lay = serving_layout(cfg, mesh.shape["model"])
+        ms = mesh.shape["model"]
+        lay = Layout(ms, heads_sub=ms // case.get("cluster", 1))
         ctx = ctx_for(mesh, lay)
         p = from_reference_params(cfg, case["params"], lay=lay,
                                   rank=ctx.model_index(), device="cpu")
@@ -240,3 +246,218 @@ def scheduler_body(rank, world, trace_spec):
             events=list(sched.events), work=sched.work_blocks(),
             lens=sched.cache_lens(), prepack=eng.scfg.prepack)
     return out
+
+
+# ---------------------------------------------------------------------------
+# A cluster across devices (tests/test_torch_cluster.py)
+# ---------------------------------------------------------------------------
+def _serve_leaves(tree):
+    """The attention serve leaves of the first block pattern entry and of
+    the tail as ``{path: numpy}`` (NamedTuple fields by name)."""
+    out = {}
+
+    def walk(node, path):
+        if node is None:
+            return
+        if torch.is_tensor(node):
+            out[path] = to_np(node)
+        elif hasattr(node, "_asdict"):
+            for k, v in node._asdict().items():
+                walk(v, f"{path}/{k}")
+        elif isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, f"{path}/{k}")
+    for part in ("blocks", "tail"):
+        for i, blk in enumerate(tree[part]):
+            walk(blk.get("attn"), f"{part}/{i}/attn")
+    return out
+
+
+def prepack_body(mesh, cases):
+    """The port's serve leaves of each case's rank slice: ``"pallas"``'s
+    prepack (the cluster gather over this rank's cluster) and ``"xla"``'s
+    per-step adapters (``hoist_serve_weights``: the column tiles)."""
+    import dataclasses
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch.specs import ctx_for
+    from repro_torch.models.transformer import (Layout,
+                                                from_reference_params)
+    from repro_torch.serving.engine import hoist_serve_weights
+    from repro_torch.serving.prepack import prepack_for_serving
+    out = {}
+    for key, case in cases.items():
+        cfg = reduced(get_config(case["arch"]))
+        if case.get("dense"):
+            cfg = dataclasses.replace(cfg, moe=None)
+        lay = Layout(mesh.shape["model"], heads_sub=case["heads_sub"])
+        ctx = ctx_for(mesh, lay)
+        train = from_reference_params(cfg, case["params"], lay=lay,
+                                      rank=ctx.model_index(), device="cpu")
+        out[key] = dict(
+            pallas=_serve_leaves(prepack_for_serving(cfg, train,
+                                                     backend="pallas",
+                                                     ctx=ctx)),
+            xla=_serve_leaves(hoist_serve_weights(train, ctx)))
+    return out
+
+
+def _full_logits(cfg, eng, state, model_axis):
+    """The global ``[B, V]`` f32 logits of the stashed pre-head residual
+    (``shadow_head``), the ranks' vocabulary shards gathered."""
+    from repro_torch.core import primitives as prim
+    from repro_torch.models.layers import lm_head_logits, rms_norm
+    from repro_torch.models.transformer import head_table
+    p = eng.params["train"]
+    x = rms_norm(state["head_resid"], p["final_norm"], cfg.norm_eps)
+    logits = prim.cluster_gather_xla(
+        lm_head_logits(head_table(cfg, p), x.to(torch.bfloat16)),
+        model_axis, dim=-1)
+    return eng.to_global(logits)[:, :cfg.vocab_size]
+
+
+def cluster_engines_body(mesh, cases):
+    """Each case's engine at ``EngineOptions(cluster=n)`` with the
+    reference's weights: prefill and teacher-forced tokens, each step's
+    global logits (rank 0 only, for the near-tie check), the layout and
+    a rank's cache shape."""
+    import dataclasses
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch.serve import build_engine_full
+    from repro_torch.models.transformer import (Layout,
+                                                from_reference_params)
+    from repro_torch.serving.engine import EngineOptions
+    out = {}
+    for key, case in cases.items():
+        cfg = dataclasses.replace(reduced(get_config(case["arch"])),
+                                  **case["replace"])
+        ms, n = mesh.shape["model"], case["cluster"]
+        train = from_reference_params(
+            cfg, case["params"], lay=Layout(ms, heads_sub=ms // n),
+            rank=mesh.axes["model"].index, device="cpu")
+        eng = build_engine_full(
+            cfg, mesh=mesh, max_seq=case["max_seq"],
+            batch_global=case["prompts"].shape[0], train_params=train,
+            options=EngineOptions(backend=case["backend"], cluster=n,
+                                  shadow_head=True,
+                                  fused_combine=case.get("fused_combine",
+                                                         False)))
+        tok, st = eng.prefill_fn(eng.params["train"], eng.state,
+                                 case["prompts"])
+        toks, logits = [tok.numpy()], [_full_logits(cfg, eng, st,
+                                                    mesh.axes["model"])]
+        for forced in case["forced"]:
+            tok, st = eng.decode_fn(eng.params["serve"], st, forced)
+            toks.append(tok.numpy())
+            logits.append(_full_logits(cfg, eng, st, mesh.axes["model"]))
+        out[key] = dict(tokens=np.stack(toks),
+                        logits=to_np(torch.stack(logits)) if mesh.rank == 0
+                        else None,
+                        cluster=eng.ctx.cluster_size,
+                        heads=eng.ctx.heads_size,
+                        cache_lens=eng.to_global(st["cache_lens"]).numpy(),
+                        k_shape=tuple(st["layers"][0].k.shape))
+    return out
+
+
+def cluster_sampling_body(mesh, spec):
+    """Sampled streams at each cluster of ``spec["clusters"]``: the
+    pallas engine's fused-head candidates and the full-logits oracle (the
+    same serve tree without its ``head`` bundle: the loose head), from
+    the same admit, with a retired slot and per-slot temperature, top-k,
+    top-p and seeds; and the greedy stream for the did-it-sample check."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch.serve import build_engine_full
+    from repro_torch.serving.engine import EngineOptions, reset_decode_state
+    from repro_torch.serving.sampling import host_sampling_rows
+    out = {}
+    for arch in spec["archs"]:
+        cfg = reduced(get_config(arch))
+        for n in spec["clusters"]:
+            eng = build_engine_full(
+                cfg, mesh=mesh, max_seq=spec["max_seq"], batch_global=4,
+                options=EngineOptions(backend="pallas", cluster=n), seed=0)
+            serve = eng.params["serve"]
+            head = serve["head"]
+            oracle = {k: v for k, v in serve.items() if k != "head"}
+            oracle.update({"final_norm": head.ln, "embed" if
+                           cfg.tie_embeddings else "lm_head": head.table})
+            rows = host_sampling_rows(4)
+            for name, vals in spec["rows"].items():
+                rows[name][:] = vals
+            res = {}
+            for label, p, sampled in (("fused", serve, True),
+                                      ("oracle", oracle, True),
+                                      ("greedy", serve, False)):
+                st = reset_decode_state(cfg, eng.scfg, eng.state)
+                r = rows if sampled else host_sampling_rows(4)
+                tok, st = eng.admit_fn(eng.params["train"], st,
+                                       spec["prompts"], np.full(4, 12), r)
+                st = eng.retire_fn(st, np.array([0, 0, 1, 0]))
+                toks = [tok.numpy()]
+                for forced in spec["forced"]:
+                    tok, st = eng.decode_fn(p, st, forced, sampled=sampled)
+                    toks.append(tok.numpy())
+                res[label] = np.stack(toks)
+            out[f"{arch}-c{n}"] = res
+    return out
+
+
+def split_head_body(mesh, data):
+    """Alg. 5 (``core/dataflow.py:split_head_attention``) on the heads 2 ×
+    cluster 2 sub-axes of the model axis of 4, this rank's inputs."""
+    from repro_torch.core import dataflow as df
+    from repro_torch.core import primitives as prim
+    model = mesh.axes["model"]
+    spec = df.ClusterSpec(heads=prim.SubAxis(model, 2, minor_size=2),
+                          cluster=prim.SubAxis(model, 2, minor_size=1))
+    d, m = divmod(mesh.rank, mesh.shape["model"])
+    t = {k: torch.from_numpy(np.ascontiguousarray(v[d, m]))
+         for k, v in data.items() if k != "cache_len"}
+    w = df.SplitHeadWeights(t["wq"], t["wk"], t["wv"], t["wo"])
+    cache = df.KVBlock(t["k"].clone(), t["v"].clone(), t["pos"].clone())
+    o, cache = df.split_head_attention(spec, t["x"], w, cache,
+                                       int(data["cache_len"]))
+    return dict(o=to_np(o), k=to_np(cache.k), v=to_np(cache.v),
+                pos=to_np(cache.pos))
+
+
+def cluster_sched_body(mesh, trace_spec):
+    """The same trace through ``SlotScheduler`` on ``"xla"`` and on
+    ``"pallas"`` at ``EngineOptions(cluster=2)`` on the 2 × 4 mesh (odd
+    prompt lengths: prefill pads a run to the cluster's query blocks)."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch.serve import build_engine_full
+    from repro_torch.serving.engine import EngineOptions
+    from repro_torch.serving.scheduler import (Request, SlotScheduler,
+                                               replay_trace)
+    cfg = reduced(get_config("llama2-7b"))
+    out = {}
+    for backend in ("xla", "pallas"):
+        eng = build_engine_full(cfg, mesh=mesh, max_seq=32, batch_global=4,
+                                options=EngineOptions(backend=backend,
+                                                      cluster=2,
+                                                      track_work=True))
+        sched = SlotScheduler(eng, prompt_cap=8)
+        res = replay_trace(sched, [(a, Request(rid, prompt, new))
+                                   for rid, (a, prompt, new)
+                                   in enumerate(trace_spec)])
+        out[backend] = dict(
+            tokens=[(r, res[r].tokens) for r in sorted(res)],
+            events=list(sched.events), lens=sched.cache_lens(),
+            cluster=eng.ctx.cluster_size)
+    return out
+
+
+def cluster_body(rank, world, prepack_cases, fwd_cases, engine_cases,
+                 sampling_spec, split_head_data, sched_trace):
+    """Everything of ``tests/test_torch_cluster.py`` that runs on the 2 × 4
+    mesh, in one world."""
+    from repro_torch.launch.mesh import make_test_mesh
+    mesh = make_test_mesh(device="cpu")
+    return dict(prepack=prepack_body(mesh, prepack_cases),
+                forward=forward_body(rank, world, fwd_cases),
+                engines=cluster_engines_body(mesh, engine_cases),
+                sampling=cluster_sampling_body(mesh, sampling_spec),
+                split_head=split_head_body(mesh, split_head_data),
+                sched=cluster_sched_body(mesh, sched_trace))
+

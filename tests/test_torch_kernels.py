@@ -182,18 +182,21 @@ def test_fused_decode_plain_at_rank_split_edges(lens):
 
 
 def test_fused_decode_unported_modes_raise():
-    """``fuse_out`` True/False, ``pos_base`` ≠ 0 and an unfused norm still
-    raise; the window and the softcap (Gemma-2's modes, ported) run and
-    give ``ref.py``'s result (their full cases: ``tests/test_torch_gemma2
-    .py``; ``bqkv``'s: ``tests/test_torch_qwen2.py``)."""
+    """``fuse_out`` True/False and an unfused norm still raise, and so
+    does a ``pos_base`` below −1 (``ValueError``: ``pos_base`` ≥ 0 and −1
+    are ported, their cases below); the window and the softcap (Gemma-2's
+    modes, ported) run and give ``ref.py``'s result (their full cases:
+    ``tests/test_torch_gemma2.py``; ``bqkv``'s:
+    ``tests/test_torch_qwen2.py``)."""
     j, t = _b1_inputs((1, 2, 3, 30), "owner", "f32")
     args = (t["x"], t["wqkv"], t["wo"], t["ln1"], t["kc"], t["vc"],
             t["pos"], t["lens"], t["inc"], t["cos"], t["sin"])
     kw = dict(q_heads=4, kv_heads=4)
-    for bad in (dict(fuse_out=True), dict(fuse_out=False),
-                dict(pos_base=16)):
+    for bad in (dict(fuse_out=True), dict(fuse_out=False)):
         with pytest.raises(NotImplementedError):
             b1.fused_decode_attention(*args, **kw, **bad)
+    with pytest.raises(ValueError, match="pos_base"):
+        b1.fused_decode_attention(*args, **kw, pos_base=-2)
     with pytest.raises(NotImplementedError):
         b1.fused_decode_attention(*args[:3], None, *args[4:], **kw)
     got = b1.fused_decode_attention(*args, **kw, window=8, attn_softcap=0.5)
@@ -314,14 +317,250 @@ def test_fused_mla_decode_plain_vs_pallas_and_ref(lens, include, dt):
 
 
 def test_fused_mla_decode_unported_modes_raise():
+    """``fuse_out`` True/False and an unfused norm raise, and so does a
+    ring's ``pos_base = −1`` (``ValueError``: the reference's MLA cache
+    is linear); ``pos_base`` ≥ 0 runs (its cases below)."""
     _, t = _b4_inputs((1, 2, 3, 4, 5), "owner", "f32")
-    for bad in (dict(fuse_out=True), dict(fuse_out=False),
-                dict(pos_base=-1), dict(pos_base=32)):
+    for bad in (dict(fuse_out=True), dict(fuse_out=False)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             _call_b4(t, **bad)
+    with pytest.raises(ValueError, match="pos_base"):
+        _call_b4(t, pos_base=-1)
     t["ln1"] = None
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         _call_b4(t)
+
+
+# ---------------------------------------------------------------------------
+# A cluster across devices: B1 and B4 on one rank's shard (pos_base), B5's
+# rank-local mode, and the identity that makes the cluster right — n
+# launches over n shards of one cache, merged, equal one launch over it
+# ---------------------------------------------------------------------------
+N_SHARD, S_SHARD = 2, 16          # two ranks of 16 rows: a 32-row cache
+# −1 free; 5: rank 1 holds none of its rows and does not own its token;
+# 16: rank 0 holds its rows, rank 1 owns the new token; 27 spans both; 32
+# (B4) a full cache, no owner
+SHARD_LENS = (-1, 5, 16, 27)
+
+
+def _merge_ranks(parts):
+    """The ranks' ``(m, l, o)`` merged in rank order (``flash_merge``, the
+    combine's operator), from rank 0's partial."""
+    from repro_torch.core.primitives import flash_merge
+    out = parts[0]
+    for p in parts[1:]:
+        out = flash_merge(out, p)
+    return out
+
+
+def _shard(a, r, axis=0):
+    return a.narrow(axis, r * S_SHARD, S_SHARD) if torch.is_tensor(a) \
+        else jax.lax.slice_in_dim(a, r * S_SHARD, (r + 1) * S_SHARD,
+                                  axis=axis)
+
+
+def _ring_pos(lens, W):
+    """Ring slot g of slot b holds the largest position p < cache_len
+    with p ≡ g (mod W) (prefill's ring fill, then decode's appends)."""
+    g = np.arange(W)[:, None]
+    lens = np.asarray(lens)[None, :]
+    p = g + np.maximum(lens - 1 - g, 0) // W * W
+    return np.where(g < lens, p, -1).astype(np.int32)
+
+
+def _b1_shard_case(dt, ring):
+    W = N_SHARD * S_SHARD
+    lens = (-1, 5, 40, 63) if ring else SHARD_LENS
+    j, t = _b1_inputs(lens, "owner", dt, seed=7, S=W)
+    if ring:
+        pos = _ring_pos(lens, W)
+        j["pos"], t["pos"] = jnp.asarray(pos), torch.from_numpy(pos)
+    lens_np = np.asarray(lens)
+    slot = lens_np % W if ring else lens_np
+    owners = [((slot // S_SHARD == r) & (lens_np >= 0)).astype(np.int32)
+              for r in range(N_SHARD)]
+    whole_inc = ((lens_np >= 0) & (ring | (lens_np < W))).astype(np.int32)
+    return j, t, owners, whole_inc, W
+
+
+def _b1_call(t, kc, vc, pos, inc, **kw):
+    return b1.fused_decode_attention(
+        t["x"], t["wqkv"], t["wo"], t["ln1"], kc, vc, pos, t["lens"],
+        torch.from_numpy(inc), t["cos"], t["sin"], q_heads=B1_SHAPE["nq"],
+        kv_heads=B1_SHAPE["nkv"], norm_eps=1e-6, **kw)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("ring", [False, True])
+def test_fused_decode_on_cluster_shards_vs_pallas_ref_and_whole(ring, dt):
+    """B1 on each of two ranks' shards of one cache (``pos_base`` 0 and
+    16 on a linear cache; −1 on a 32-slot ring with the window, the
+    slots wrapped), the new token on its owner rank only, against the
+    interpret-mode Pallas kernel at that ``pos_base`` and ``ref.py``; a
+    live slot whose rank holds none of its rows ends as the reference's
+    does (``m`` −1e30, ``l`` 1).  The ranks' partials merged equal one
+    launch over the whole cache."""
+    j, t, owners, whole_inc, W = _b1_shard_case(dt, ring)
+    B, nq, nkv, hd = (B1_SHAPE[k] for k in ("B", "nq", "nkv", "hd"))
+    win = dict(window=W) if ring else {}
+    parts = []
+    for r in range(N_SHARD):
+        pb = -1 if ring else r * S_SHARD
+        got = _b1_call(t, _shard(t["kc"], r), _shard(t["vc"], r),
+                       _shard(t["pos"], r), owners[r], pos_base=pb, **win)
+        kc = _shard(j["kc"], r).reshape(S_SHARD, B, nkv, hd)
+        vc = _shard(j["vc"], r).reshape(S_SHARD, B, nkv, hd)
+        for use_ref in (False, True):
+            def one(xb, kb, vb, cl, cb, sb, pb_, ib):
+                kw = dict(q_heads=nq, kv_heads=nkv, fuse_out="partial_o",
+                          pos=pb_, include_new=ib, norm_scale=j["ln1"],
+                          norm_eps=1e-6, **win)
+                if use_ref:
+                    out = fused_decode_attention_ref(
+                        xb[None], j["wqkv"], None, j["wo"], kb, vb, cl, cb,
+                        sb, **kw)
+                else:
+                    out = jax_fused_decode(
+                        xb[None], j["wqkv"], None, j["wo"], kb, vb, cl, cb,
+                        sb, block_s=8, interpret=True, ring=ring,
+                        pos_base=jnp.int32(pb), **kw)
+                return tuple(o[0] for o in out)
+            want = jax.jit(jax.vmap(one, in_axes=(0, 1, 1, 0, 0, 0, 1, 0)))(
+                j["x"], kc, vc, j["lens"], j["cos"], j["sin"],
+                _shard(j["pos"], r), jnp.asarray(owners[r]))
+            for name, g, w in zip(("o", "k_new", "v_new", "m", "l"), got,
+                                  want):
+                np.testing.assert_allclose(_np(g), _np(w), **_tol(dt),
+                                           err_msg=f"{name} r{r} {use_ref}")
+        parts.append((got[3], got[4], got[0]))
+    if not ring:                  # slot 1 (5 positions) on rank 1
+        assert parts[1][0][1].eq(-1e30).all() and parts[1][1][1].eq(1).all()
+    m, l, o = _merge_ranks(parts)
+    whole = _b1_call(t, t["kc"], t["vc"], t["pos"], whole_inc, **win)
+    live = torch.from_numpy(np.asarray(t["lens"]) >= 0)
+    norm = lambda o_, l_: (o_ / l_[..., None])[live]
+    np.testing.assert_allclose(_np(norm(o, l)), _np(norm(whole[0], whole[4])),
+                               **_tol(dt))
+    np.testing.assert_allclose(_np(m[live]), _np(whole[3][live]), **_tol(dt))
+
+
+def _b4_shard_case(dt):
+    W = N_SHARD * S_SHARD
+    lens = SHARD_LENS + (W,)
+    j, t = _b4_inputs(lens, "owner", dt, seed=8)
+    lens_np = np.asarray(lens)
+    owners = [((lens_np // S_SHARD == r) & (lens_np >= 0)).astype(np.int32)
+              for r in range(N_SHARD)]
+    return j, t, owners, lens_np
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_fused_mla_decode_on_cluster_shards_vs_pallas_ref_and_whole(dt):
+    """B4 on each of two ranks' shards of one latent cache (``pos_base``
+    0 and 16), the new token on its owner only, against the
+    interpret-mode Pallas kernel at that ``pos_base`` (``B4_PALLAS_TOL``)
+    and ``ref.py`` (the file's tolerance); the merged partials equal one
+    launch over the whole cache."""
+    j, t, owners, lens_np = _b4_shard_case(dt)
+    nq, nope, rope, lr_, D = (B4_SHAPE[k] for k in
+                              ("nq", "nope", "rope", "l", "D"))
+    wo_unused = jnp.zeros((1, 1), j["x"].dtype)
+    parts = []
+    for r in range(N_SHARD):
+        tr = dict(t, cc=_shard(t["cc"], r), pos=_shard(t["pos"], r),
+                  inc=torch.from_numpy(owners[r]))
+        got = _call_b4(tr, pos_base=r * S_SHARD)
+        for use_ref in (False, True):
+            def one(xb, cb, cl, cosb, sinb, pb, ib):
+                kw = dict(q_heads=nq, nope=nope, rope_d=rope, l_rank=lr_,
+                          v_dim=D, fuse_out="partial_o", pos=pb,
+                          include_new=ib, norm_scale=j["ln1"], norm_eps=1e-6)
+                fn = fused_mla_decode_attention_ref if use_ref else \
+                    functools.partial(jax_mla, block_s=8, interpret=True,
+                                      pos_base=jnp.int32(r * S_SHARD))
+                out = fn(xb[None], j["wq"], j["wdkv"], j["wuk"], j["wproj"],
+                         wo_unused, cb, cl, cosb, sinb, **kw)
+                return tuple(o[0] for o in out)
+            want = jax.jit(jax.vmap(one, in_axes=(0, 1, 0, 0, 0, 1, 0)))(
+                j["x"], _shard(j["cc"], r), j["lens"], j["cos"], j["sin"],
+                _shard(j["pos"], r), jnp.asarray(owners[r]))
+            tol = _tol(dt) if use_ref else B4_PALLAS_TOL
+            for name, g, w in zip(("o", "c_new", "m", "l"), got, want):
+                g, w = _np(g), _np(w)
+                if name == "o":
+                    sc = np.abs(w).max(axis=(1, 2), keepdims=True)
+                    g, w = g / sc, w / sc
+                np.testing.assert_allclose(g, w, **tol,
+                                           err_msg=f"{name} r{r} {use_ref}")
+        parts.append((got[2], got[3], got[0]))
+    assert parts[1][0][1].eq(-1e30).all() and parts[1][1][1].eq(1).all()
+    m, l, o = _merge_ranks(parts)
+    whole = _call_b4(dict(t, inc=torch.from_numpy(
+        ((lens_np >= 0) & (lens_np < N_SHARD * S_SHARD)).astype(np.int32))))
+    live = torch.from_numpy(lens_np >= 0)
+    a, b = (o / l[..., None])[live], (whole[0] / whole[3][..., None])[live]
+    sc = b.abs().amax(dim=(1, 2), keepdim=True)
+    np.testing.assert_allclose(_np(a / sc), _np(b / sc), **_tol(dt))
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("ring", [False, True])
+def test_flash_decode_rank_local_mode_vs_reference_and_whole(ring, dt):
+    """B5's rank-local mode (stored-pos mask, f32 ``(o, m, l)``) on each of
+    two ranks' shards of one per-slot cache against the reference's
+    unfused path's partial (``dataflow.bucketed_flash_attention`` with
+    its mask, ``dataflow.py:551–562``); the ranks' partials merged,
+    normalized, equal the one-device call over the whole cache.  On the
+    ring the window masks by stored pos; a rank's span whose rows are all
+    masked, or empty, holds ``(−1e30, 0, 0)``."""
+    from repro.core.dataflow import bucketed_flash_attention
+    rng = np.random.default_rng(9)
+    B, q_loc, kv_loc, hd = 4, 4, 2, 16
+    W = N_SHARD * S_SHARD
+    newest = np.array((-1, 4, 37, 62) if ring else (-1, 4, 16, 30), np.int32)
+    pos = (_ring_pos(newest + 1, W) if ring else np.where(
+        np.arange(W)[:, None] <= newest[None, :],
+        np.arange(W)[:, None], -1).astype(np.int32))
+    window = 24 if ring else 0
+    arrs = dict(q=rng.standard_normal((B, q_loc, hd)),
+                k=rng.standard_normal((W, B, kv_loc, hd)),
+                v=rng.standard_normal((W, B, kv_loc, hd)))
+    j = {k: _both(a.astype(np.float32), dt)[0] for k, a in arrs.items()}
+    t = {k: _both(a.astype(np.float32), dt)[1] for k, a in arrs.items()}
+    t_pos, t_cl = torch.from_numpy(pos), torch.from_numpy(newest)
+    scale = hd ** -0.5
+    parts = []
+    for r in range(N_SHARD):
+        o, m, l = b5.flash_decode_attention(
+            t["q"], _shard(t["k"], r), _shard(t["v"], r), t_cl,
+            window=window, pos=_shard(t_pos, r),
+            pos_base=-1 if ring else r * S_SHARD)
+        assert o.dtype == m.dtype == l.dtype == torch.float32
+        p_r = jnp.asarray(pos[r * S_SHARD:(r + 1) * S_SHARD])
+        valid = (p_r >= 0) & (p_r <= jnp.asarray(newest)[None, :])
+        if window:
+            valid &= p_r > jnp.asarray(newest)[None, :] - window
+        qf = j["q"].reshape(B, kv_loc, q_loc // kv_loc, hd).astype(
+            j["k"].dtype)
+        wm, wl, wo, _ = bucketed_flash_attention(
+            qf, _shard(j["k"], r), _shard(j["v"], r), valid, scale=scale,
+            block_s=8)
+        for name, g, w in (("m", m, wm), ("l", l, wl), ("o", o, wo)):
+            np.testing.assert_allclose(
+                _np(g), _np(w).reshape(_np(g).shape), **_tol(dt),
+                err_msg=f"{name} r{r}")
+        parts.append((m, l, o))
+    assert parts[0][0][0].eq(-1e30).all() and parts[0][1][0].eq(0).all()
+    m, l, o = _merge_ranks(parts)
+    lens = torch.clamp(t_cl + 1, 0, W).to(torch.int32)
+    if ring:                       # a wrapped ring: the window by stored pos
+        want = b5.flash_decode_attention(t["q"], t["k"], t["v"], t_cl,
+                                         window=window, pos=t_pos)
+        want = want[0] / torch.clamp(want[2][..., None], min=1e-30)
+    else:
+        want = b5.flash_decode_attention(t["q"], t["k"], t["v"], lens)
+    got = o / torch.clamp(l[..., None], min=1e-30)
+    np.testing.assert_allclose(_np(got), _np(want), **_tol(dt))
 
 
 # ---------------------------------------------------------------------------
@@ -779,6 +1018,48 @@ def test_fused_decode_wrapper_cluster_size(monkeypatch, heads, kv, D, C, H):
     (args,) = calls
     assert args[11] is None                      # no bqkv: a null pointer
     assert args[17:25] == (B, D, S, heads, kv, hd, C, H)
+
+
+def test_cluster_modes_reach_the_library(monkeypatch):
+    """A cluster across devices: B1's ``pos_base`` is the library call's
+    int after the window; B5's rank-local mode hands the library ``pos``,
+    the slots' ``cache_len`` (for the mask) and its three f32 outputs
+    (``o`` is also the call's output pointer), and refuses f32 inputs
+    and head dims other than 128 (its kernel instances are bf16 at 128,
+    the caches of every model the port shards)."""
+    calls = _record_launch(monkeypatch)
+    bf, f32, i32 = torch.bfloat16, torch.float32, torch.int32
+    B, S, hd, D = 2, 8, 128, 256
+    b1.fused_decode_cuda(
+        torch.zeros(B, D, dtype=bf), torch.zeros(D, 3 * hd, dtype=bf),
+        torch.zeros(1, hd, D, dtype=bf), torch.zeros(D, dtype=f32),
+        torch.zeros(S, B, hd, dtype=bf), torch.zeros(S, B, hd, dtype=bf),
+        torch.zeros(S, B, dtype=i32), torch.zeros(B, dtype=i32),
+        torch.zeros(B, dtype=i32), torch.zeros(B, hd // 2, dtype=f32),
+        torch.zeros(B, hd // 2, dtype=f32), q_heads=1, kv_heads=1,
+        scale=hd ** -0.5, norm_eps=1e-6, window=4, pos_base=512)
+    assert calls[-1][25:27] == (4, 512)
+    q = torch.zeros(B, 4, 128, dtype=bf)
+    kc = torch.zeros(S, B, 2, 128, dtype=bf)
+    pos = torch.zeros(S, B, dtype=i32)
+    cl = torch.tensor([3, -1], dtype=i32)
+    o, m, l = b5.flash_decode_cuda(q, kc, kc.clone(), cl, pos=pos,
+                                   pos_base=-1)
+    args = calls[-1]
+    assert o.dtype == m.dtype == l.dtype == f32
+    assert o.shape == q.shape and m.shape == l.shape == (B, 4)
+    assert args[4] == o.data_ptr() and args[3] != cl.data_ptr()
+    assert args[17:22] == (pos.data_ptr(), cl.data_ptr(), o.data_ptr(),
+                           m.data_ptr(), l.data_ptr())
+    assert b5.flash_decode_cuda(q, kc, kc.clone(), cl).dtype == bf
+    assert calls[-1][17:22] == (None,) * 5
+    with pytest.raises(NotImplementedError, match="bf16"):
+        b5.flash_decode_cuda(q.float(), kc.float(), kc.float(), cl,
+                             pos=pos)
+    with pytest.raises(NotImplementedError, match="head dim 128"):
+        b5.flash_decode_cuda(q[..., :64].contiguous(),
+                             kc[..., :64].contiguous(),
+                             kc[..., :64].contiguous(), cl, pos=pos)
 
 
 def _record_empty(monkeypatch):

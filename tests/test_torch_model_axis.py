@@ -53,7 +53,7 @@ SLOTS, PROMPT, STEPS, MAX_SEQ = 4, 8, 5, 24
 QWEN = dict(n_heads=32, n_kv_heads=4)
 ENGINES = {f"{arch}-{backend}": dict(arch=arch, backend=backend,
                                      replace=QWEN if arch == "qwen2-72b"
-                                     else {})
+                                     else {}, cluster=1)
            for arch in ("qwen2-72b", "deepseek-v2-lite", "llama2-7b")
            for backend in ("xla", "pallas")}
 FORWARD = {arch: dict(arch=arch, replace=QWEN if arch == "qwen2-72b" else {})
@@ -323,24 +323,32 @@ def test_scheduler_fused_vs_unfused_on_2_device_model_axis(tmp_path):
 
 
 def test_unsharded_layouts_raise_naming_a5b(monkeypatch):
-    """A layout that would put a cluster across devices, a model axis
-    past 8, and the recurrent, RWKV-6 and modality models on a model axis
-    above 1 raise ``NotImplementedError`` naming ROADMAP A.5b; a CUDA
-    mesh on a host with fewer GPUs than ranks raises, and no world falls
-    back to gloo."""
+    """The boundary after A.5b's first half: a cluster across devices
+    serves (the reference's pick — a model axis past the heads gives a
+    cluster above 1 — or an explicit ``cluster``), a ``cluster`` that
+    does not divide the axis or the heads raises ``ValueError``, and the
+    recurrent, RWKV-6 and modality models on a model axis above 1 raise
+    ``NotImplementedError`` naming A.5b's second half; a CUDA mesh on a
+    host with fewer GPUs than ranks raises, and no world falls back to
+    gloo."""
     from repro_torch.launch import mesh as mesh_mod
     qwen = reduced(get_config("qwen2-72b"))                # 4 heads
-    assert specs.serving_layout(qwen, 4).heads_sub == 4
-    assert specs.serving_layout(qwen, 1).cluster == 1
-    for cfg, ms in ((qwen, 8), (dataclasses.replace(qwen, n_heads=16), 16)):
-        with pytest.raises(NotImplementedError, match="A.5b"):
-            specs.serving_layout(cfg, ms)
+    kw = dict(seq_len=24, batch=4)
+    assert specs.serving_layout(qwen, 4, **kw).heads_sub == 4
+    assert specs.serving_layout(qwen, 1, **kw).cluster == 1
+    assert specs.serving_layout(qwen, 8, **kw).cluster == 2
+    assert specs.serving_layout(dataclasses.replace(qwen, n_heads=16), 16,
+                                **kw).cluster == 1
+    assert specs.serving_layout(qwen, 4, cluster=4, **kw).heads_sub == 1
+    for bad in (3, 8):
+        with pytest.raises(ValueError, match="cluster"):
+            specs.serving_layout(qwen, 4, cluster=bad, **kw)
     for arch in ("rwkv6-3b", "recurrentgemma-9b", "seamless-m4t-medium",
                  "internvl2-2b"):
         cfg = reduced(get_config(arch))
-        with pytest.raises(NotImplementedError, match="A.5b"):
-            specs.serving_layout(cfg, 2)
-        with pytest.raises(NotImplementedError, match="A.5b"):
+        with pytest.raises(NotImplementedError, match="A.5b's second half"):
+            specs.serving_layout(cfg, 2, **kw)
+        with pytest.raises(NotImplementedError, match="A.5b's second half"):
             init_params(cfg, device="cpu", lay=Layout(2))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
