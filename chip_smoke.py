@@ -629,7 +629,7 @@ def shard_live(pos, lens, pos_base, window=0, newest=False):
 
 
 def gqa_case(cfg, gen, lens=None, *, S=MAX_SEQ, ring=False,
-             check_only=None, heads=None, shard=None):
+             check_only=None, heads=None, shard=None, ring_rows=None):
     """B1 at ``cfg``'s widths with its attention softcap and, on a model
     with q/k/v biases, a seeded ``bqkv``, on a linear cache of ``S`` rows
     — or, with ``ring``, as Gemma-2's local layers call it: on their ring
@@ -639,7 +639,9 @@ def gqa_case(cfg, gen, lens=None, *, S=MAX_SEQ, ring=False,
     ``(mesh size, query heads, kv heads)`` a check-only case at one
     rank's heads of that mesh; with ``shard`` ``(n, r)``, rank ``r``'s
     shard of the cache on a cluster of ``n`` across devices
-    (:func:`shard_of`: ``pos_base``, the owner's ``include_new``)."""
+    (:func:`shard_of`: ``pos_base``, the owner's ``include_new``);
+    ``ring_rows``: a ring of that many rows (``min(window, max_seq)``
+    below the window), the window still masking."""
     B, D = SLOTS, cfg.d_model
     nq, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     if heads is not None:
@@ -648,7 +650,7 @@ def gqa_case(cfg, gen, lens=None, *, S=MAX_SEQ, ring=False,
     window = cfg.sliding_window if ring else 0
     check_only = lens is not None if check_only is None else check_only
     if ring:
-        S = window
+        S = ring_rows or window
         lens = torch.tensor(lens, dtype=torch.int32, device="cuda")
         pos = ring_positions(S, lens)
     else:
@@ -796,13 +798,14 @@ def mla_case(cfg, gen, lens=None, heads=None, shard=None):
     return case
 
 
-def wkv_case(cfg, gen, S: int, check_only: bool = False):
+def wkv_case(cfg, gen, S: int, check_only: bool = False, heads=None):
     """B7 at ``[SLOTS, S, H, hd]`` with the model path's scales: r, k, v
     the projections of a normed row (≈ N(0, 1)), w the decay
     exp(−exp(−0.5 + δ)), u ≈ 0.1, and a random ``s0`` (a state after a
     prompt) beside the zero one prefill starts from; ``check_only`` at a
-    length no path runs (no phase 6 row)."""
-    B, H, hd = SLOTS, cfg.d_model // cfg.rwkv_head_dim, cfg.rwkv_head_dim
+    length no path runs (no phase 6 row); ``heads``: a mesh rank's."""
+    B, hd = SLOTS, cfg.rwkv_head_dim
+    H = heads or cfg.d_model // hd
     f32 = torch.float32
     shape = (B, S, H, hd)
     args = dict(r=randn(gen, shape, 1.0, f32), k=randn(gen, shape, 1.0, f32),
@@ -829,16 +832,19 @@ def wkv_case(cfg, gen, S: int, check_only: bool = False):
 WKV_EDGE_LENS = (130, 17)
 
 
-def rglru_case(cfg, gen, S: int):
+def rglru_case(cfg, gen, S: int, channels=None):
     """B6 at ``[SLOTS, S, C]`` with the model path's scales: ``log_a =
     −8·softplus(Λ)·r`` (Λ as the init lays it out over the channels, r
     a sigmoid gate), ``b = √(1 − a²)·i·u`` (i a sigmoid gate, u ≈ N(0,
     1)), and a random ``h0`` (a state after a prompt) beside the zero
-    one prefill starts from."""
+    one prefill starts from; ``channels``: rank 0's of a mesh (a
+    check-only case)."""
     B, C = SLOTS, cfg.rglru_d_state or cfg.d_model
     f32 = torch.float32
     lam = torch.log(torch.expm1(-torch.log(torch.linspace(
         0.9, 0.999, C, device="cuda")) * 2.0 / 8.0))
+    C = channels or C
+    lam = lam[:C]
     log_a = -8.0 * F.softplus(lam) * torch.sigmoid(
         randn(gen, (B, S, C), 1.0, f32))
     b = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12)) \
@@ -851,11 +857,15 @@ def rglru_case(cfg, gen, S: int):
         h0s.insert(0, torch.zeros_like(args["h0"]))
     n_bytes = 3 * B * S * C * 4 + 2 * B * C * 4
     n_ops = 3 * B * S * C                  # exp, multiply, add
-    return dict(name="rglru_scan", fn=rglru_scan, plain=rglru_scan_plain,
+    case = dict(name="rglru_scan", fn=rglru_scan, plain=rglru_scan_plain,
                 args=args, kw={}, h0s=h0s, rate=F32_FLOPS,
                 stage="prefill" if S > 1 else "decode",
                 cost=(n_bytes, n_ops),
                 replaces="src/repro/kernels/rglru_scan/rglru_scan.py:50")
+    if channels:
+        case.update(check_only=True, stage=f"{case['stage']} S {S}, "
+                    f"{C} channels a rank")
+    return case
 
 
 # B5 at RecurrentGemma's shape, ragged: the first batch's lengths
@@ -946,19 +956,22 @@ MERGE_REL_TOL = 1e-3           # n shards' f32 partials merged against one
                                # head)'s largest element
 
 
-def rank_flash_case(cfg, gen, shard, lens, *, ring=False, q_scale=1.0):
+def rank_flash_case(cfg, gen, shard, lens, *, ring=False, q_scale=1.0,
+                    heads=None, ring_rows=None):
     """B5's rank-local mode (a cluster across devices: the stored-pos
     mask, the f32 partial ``(o, m, l)``) on rank ``r`` of ``n``'s shard
     (``shard = (n, r)``) of the unfused path's per-slot cache after the
     append (positions up to each slot's ``cache_len``): Llama2-7B's
     1024-row linear cache, or Gemma-2's 4096-slot local ring with the
-    window and the cap, ``q`` scaled so the cap bites; check-only."""
+    window and the cap, ``q`` scaled so the cap bites; check-only.
+    ``heads``: a rank's ``(query, kv)`` heads; ``ring_rows``: a ring of
+    that many rows below the window."""
     B, hd = SLOTS, cfg.resolved_head_dim
-    nq, nkv = cfg.n_heads, cfg.n_kv_heads
+    nq, nkv = heads or (cfg.n_heads, cfg.n_kv_heads)
     lens = torch.tensor(lens, dtype=torch.int32, device="cuda")
     if ring:
-        W, window, cap = cfg.sliding_window, cfg.sliding_window, \
-            cfg.attn_softcap
+        W, window, cap = (ring_rows or cfg.sliding_window,
+                          cfg.sliding_window, cfg.attn_softcap)
         pos = ring_positions(W, lens + 1)
     else:
         W, window, cap = MAX_SEQ, 0, 0.0
@@ -1107,11 +1120,79 @@ def kernel_cases(path, cfg, backend):
                 for gated, acts in ((True, ("gelu_tanh", "relu", "relu2")),
                                     (False, ("silu", "gelu_tanh", "relu")))
                 for act in acts]
+    cases += mesh_rank_cases(path, cfg, backend, gen)
     if backend == "xla":
         cases.append(loose_head_case(cfg, gen))
     for case in cases:
         case["path"], case["backend"] = path, backend
     return cases
+
+
+# The recurrent and modality models on a mesh (ROADMAP A.5b, second half):
+# one rank's shapes at the reference's picks of 8 slots
+# (launch/specs.py:serving_layout), held check-only on this one card.
+# RecurrentGemma-9B takes a cluster across devices at every model axis:
+# at max_seq 4096 every head on every rank, (1, n) for n = 2, 4, 8, each
+# rank 2048 / n slots of the local layers' ring; at max_seq 1024 (2, 2)
+# on 4 GPUs and (4, 4) on 16, 8/1 and 4/1 heads on 512 and 256 slots of
+# a 1024-slot ring.  RWKV-6, SeamlessM4T-medium and InternVL2-2B are
+# head-parallel up to 8 GPUs.
+MESH_AXES = (2, 4, 8)
+RGEMMA_RING_RANKS = ((4, 2, 2), (16, 4, 4))    # (GPUs, heads_sub, cluster)
+
+
+def mesh_rank_cases(path, cfg, backend, gen):
+    """One rank's kernel shapes on a model axis of 2, 4 and 8 GPUs (and
+    RecurrentGemma's 16), check-only: RecurrentGemma's B1 16/1 on the
+    shards of a 2048-slot ring, 8/1 and 4/1 on those of a 1024-slot one
+    (``pos_base`` −1), B2 at ``d_ff / ms`` and B6 at ``d_state / ms``
+    channels on ``"pallas"``, B5's rank-local mode at head dim 256 on
+    the same shards on ``"xla"``; RWKV-6's B7 at ``heads / ms`` heads;
+    SeamlessM4T's B1 MHA at ``16 / ms`` heads of 64 and B3 on the last
+    rank's padded vocabulary shard; InternVL2's B1 at ``16 / ms`` over
+    ``8 / ms`` heads, B2 at ``d_ff / ms`` and B3 likewise."""
+    D, F, nq = cfg.d_model, cfg.d_ff, cfg.n_heads
+    out = []
+    if path == RGEMMA and backend == "pallas":
+        for n in MESH_AXES:
+            out += [gqa_case(cfg, gen, RGEMMA_LENS, ring=True, shard=(n, r),
+                             heads=(n, nq, 1)) for r in (0, n - 1)]
+        for ms, hs, n in RGEMMA_RING_RANKS:
+            out += [gqa_case(cfg, gen, CLUSTER_LENS, ring=True,
+                             ring_rows=MAX_SEQ, shard=(n, r),
+                             heads=(ms, nq // hs, 1)) for r in (0, n - 1)]
+        C, n_prompt = cfg.rglru_d_state, LOCKSTEP[path][1][-1][0]
+        for ms in MESH_AXES:
+            out += [ffn_case(cfg, gen, width=(D, F // ms)),
+                    rglru_case(cfg, gen, n_prompt, channels=C // ms),
+                    rglru_case(cfg, gen, 1, channels=C // ms)]
+    elif path == RGEMMA:
+        out += [rank_flash_case(cfg, gen, (2, r), RGEMMA_LENS, ring=True)
+                for r in range(2)]
+        for ms, hs, n in RGEMMA_RING_RANKS:
+            out += [rank_flash_case(cfg, gen, (n, r), CLUSTER_LENS,
+                                    ring=True, ring_rows=MAX_SEQ,
+                                    heads=(nq // hs, 1))
+                    for r in (0, n - 1)]
+    elif cfg.block_pattern == (RWKV6,):
+        H = D // cfg.rwkv_head_dim
+        for ms in MESH_AXES:
+            for S in (LOCKSTEP[path][1][-1][0], 1):
+                case = wkv_case(cfg, gen, S, check_only=True,
+                                heads=H // ms)
+                case["stage"] = (f"a rank of {ms} GPUs: {H // ms} heads, "
+                                 f"S {S}")
+                out.append(case)
+    elif path in (SEAMLESS, INTERNVL) and backend == "pallas":
+        V = cfg.vocab_size
+        for ms in MESH_AXES:
+            v_loc = -(-V // ms)
+            out += [gqa_case(cfg, gen, heads=(ms, nq // ms,
+                                              cfg.n_kv_heads // ms)),
+                    head_case(cfg, gen, v_loc, pad=v_loc * ms - V)]
+            if cfg.encoder is None:
+                out.append(ffn_case(cfg, gen, width=(D, F // ms)))
+    return out
 
 
 def ffn_case(cfg, gen, act=None, gated=None, width=None, slots=SLOTS):
@@ -1163,7 +1244,7 @@ def loose_head_case(cfg, gen):
 RAGGED_VOCAB = 32011
 
 
-def head_case(cfg, gen, vocab=None):
+def head_case(cfg, gen, vocab=None, pad=0):
     """B3 at ``cfg``'s width and vocabulary, with its logit softcap; with
     ``vocab`` a check-only case at that vocabulary, where slot 1's eight
     best rows (5000–5007) all lie in one CTA's run
@@ -1171,14 +1252,18 @@ def head_case(cfg, gen, vocab=None):
     CTA's neighbours and the other clusters bring no candidate of slot 1
     to the merges.  With a softcap (Gemma-2's 30), slot 2's two best rows
     have different logits that the cap makes equal in f32: the kernel
-    must cap every logit before its top-k for the lower index to win."""
+    must cap every logit before its top-k for the lower index to win.
+    ``pad``: the last rank's shard of a vocabulary padded over a mesh —
+    its last ``pad`` rows zeros (not masked, as the reference's)."""
     B, D, V = SLOTS, cfg.d_model, vocab or cfg.vocab_size
     table = randn(gen, (V, D), D ** -0.5)
     x_head = randn(gen, (B, D), 1.0)
     # a tie across the first and the last vocab tile, at the top of
     # slot 0's candidates: the lower index must come first
     table[100] = torch.sign(x_head[0]).to(torch.bfloat16) * 0.05
-    table[V - 1] = table[100]
+    table[V - 1 - pad] = table[100]
+    if pad:
+        table[V - pad:] = 0
     if vocab:
         for i in range(8):
             table[5000 + i] = (torch.sign(x_head[1]) * (0.04 - 0.002 * i)
@@ -1204,7 +1289,8 @@ def head_case(cfg, gen, vocab=None):
     if cap:
         case["tie"] = (2, [200, 201])
     if vocab:
-        case.update(check_only=True, stage=f"vocab {V}")
+        case.update(check_only=True, stage=f"vocab {V}"
+                    + (f", the last {pad} rows padding" if pad else ""))
     return case
 
 
@@ -1408,6 +1494,295 @@ def shard_merge_phase() -> None:
                 max_rel_err=f"{rel:.3e}", max_abs_err=f"{err_o:.3e}",
                 tolerance=MERGE_REL_TOL, ok=True)
         del case
+
+
+# ---------------------------------------------------------------------------
+# Phase 3c: the model axis's rank-sum identity at full width — a layer's
+# rank slices, run one rank after another on this card, and their
+# collectives, equal the layer run whole
+# ---------------------------------------------------------------------------
+class ThreadWorld:
+    """The ``torch.distributed`` calls ``core/primitives.py`` makes, for
+    ``n`` ranks that are threads of this process on the one card: a send
+    is a copy into the receiver's mailbox, an all-gather and an
+    all-reduce meet at a barrier (the sum in rank order).  Installed as
+    ``primitives.dist`` for the block of a ``with``, so the port's own
+    collectives — the paper's trees and the reference's ``psum`` — run
+    unchanged between the ranks."""
+
+    class ReduceOp:
+        SUM, MAX, MIN = "sum", "max", "min"
+
+    isend, irecv = "isend", "irecv"
+
+    class P2POp:
+        def __init__(self, op, tensor, peer):
+            self.op, self.tensor, self.peer = op, tensor, peer
+
+    def __init__(self, n: int):
+        import queue
+        import threading
+        self.n, self.local = n, threading.local()
+        self.boxes = {(a, b): queue.Queue() for a in range(n)
+                      for b in range(n)}
+        self.barrier = threading.Barrier(n, timeout=300)
+        self.slots = [None] * n
+
+    def __enter__(self):
+        from repro_torch.core import primitives as prim
+        self.prim, self.saved = prim, prim.dist
+        prim.dist = self
+        return self
+
+    def __exit__(self, *exc):
+        self.prim.dist = self.saved
+
+    def get_backend(self, group=None):
+        return "threads"
+
+    def batch_isend_irecv(self, ops):
+        me = self.local.rank
+        for op in ops:
+            if op.op == self.isend:
+                self.boxes[me, op.peer].put(op.tensor.clone())
+        for op in ops:
+            if op.op == self.irecv:
+                op.tensor.copy_(self.boxes[op.peer, me].get(timeout=300))
+        return []
+
+    def _exchange(self, t):
+        self.slots[self.local.rank] = t.clone()
+        self.barrier.wait()
+        parts = list(self.slots)
+        self.barrier.wait()
+        return parts
+
+    def all_gather(self, parts, t, group=None):
+        for dst, src in zip(parts, self._exchange(t)):
+            dst.copy_(src)
+
+    def all_reduce(self, t, op="sum", group=None):
+        parts = self._exchange(t)
+        acc = parts[0].clone()
+        for p in parts[1:]:
+            acc = acc + p if op == "sum" else (
+                torch.maximum(acc, p) if op == "max" else torch.minimum(acc, p))
+        t.copy_(acc)
+
+    def run(self, body):
+        """``body(rank)`` on every rank, each in a thread; the results in
+        rank order (an exception in any rank is raised here)."""
+        import threading
+        out, errs = [None] * self.n, []
+
+        def main(r):
+            self.local.rank = r
+            try:
+                out[r] = body(r)
+            except BaseException as e:         # re-raised below
+                errs.append(e)
+                self.barrier.abort()
+        threads = [threading.Thread(target=main, args=(r,))
+                   for r in range(self.n)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if errs:
+            raise errs[0]
+        return out
+
+
+# one layer of each model (its index in a one-group config) and the
+# backends whose kernels differ on it
+MESH_MERGE_SEQ = 4096                 # the reference's picks at max_seq 4096
+MESH_MERGE_TOL = 2e-2          # a layer's bf16 output from rank partials
+                               # summed in another order: a few bf16 steps
+                               # (2^-8) of each slot's largest element,
+                               # the scale its residual sums round at
+MESH_MERGE_LAYERS = (
+    (RGEMMA, 0, ("pallas",)),         # RG-LRU + FFN: B6 (both backends)
+    (RGEMMA, 2, ("pallas", "xla")),   # local attention: B1 or B5, ring
+    ("rwkv6-3b", 0, ("pallas",)),     # time and channel mix: B7
+    (SEAMLESS, 0, ("pallas", "xla")),  # self-, cross-attention, FFN
+    (INTERNVL, 0, ("pallas", "xla")))
+MESH_MERGE_LENS = [-1, 0, 37, 300, 511, 512, 513, 1000]
+RGEMMA_MERGE_LENS = [-1, 37, 2047, 2048, 2049, 2080, 2111, 4000]
+
+
+def one_group(cfg):
+    """``cfg`` cut to its first layer group (RecurrentGemma R, R, L; one
+    layer otherwise, an encoder to one layer)."""
+    kw = dict(n_layers=len(cfg.block_pattern))
+    if cfg.encoder is not None:
+        kw["encoder"] = dataclasses.replace(cfg.encoder, n_layers=1)
+    return dataclasses.replace(cfg, **kw)
+
+
+def merge_state(cfg, gen):
+    """A decode state of ``cfg`` at ``MESH_MERGE_SEQ`` for the 8 slots,
+    every leaf random: caches with the positions prefill and the appends
+    leave (rings wrapped), RG-LRU and RWKV-6 states, ``enc_kv``."""
+    from repro_torch.core.dataflow import KVBlock
+    from repro_torch.serving.engine import ServeConfig
+    state = init_decode_state(cfg, ServeConfig(
+        max_seq=MESH_MERGE_SEQ, batch_local=SLOTS), device="cuda")
+    ring = ATTN_LOCAL in cfg.block_pattern
+    lens = torch.tensor(RGEMMA_MERGE_LENS if ring else MESH_MERGE_LENS,
+                        dtype=torch.int32, device="cuda")
+    state["cache_lens"] = lens
+    for kind, leaf in zip(cfg.block_pattern, state["layers"]):
+        for t in leaf:
+            if t.dtype != torch.int32:
+                t.copy_(randn(gen, t.shape, 1.0, t.dtype))
+        if isinstance(leaf, KVBlock):
+            S = leaf.pos.shape[1]
+            leaf.pos[0] = (ring_positions(S, lens) if kind == ATTN_LOCAL
+                           else decode_lens(S, lens.tolist())[1])
+    for t in (state.get("enc_kv") or {}).values():
+        t.copy_(randn(gen, t.shape, 1.0))
+    return state
+
+
+def rank_state(cfg, lay, r, state):
+    """Model rank ``r``'s share of a whole decode ``state`` (copies): its
+    kv heads of every cache and of ``enc_kv`` (replicated where the heads
+    ranks outnumber them) and its cluster rank's rows, its RG-LRU
+    channels, its RWKV-6 heads."""
+    from repro_torch.core.dataflow import KVBlock
+    hs, n, ms = lay.heads_sub, lay.cluster, lay.model_size
+    h, c = divmod(r, n)
+    B = SLOTS
+
+    def kv_heads(t, kv):                 # [..., B·kv, hd] → the rank's
+        kv_loc = max(1, kv // hs)
+        k0 = h * kv // hs if hs <= kv else h // (hs // kv)
+        v = t.unflatten(-2, (B, kv))[..., k0:k0 + kv_loc, :]
+        return v.flatten(-3, -2).contiguous()
+
+    out = dict(state, layers=[])
+    for kind, leaf in zip(cfg.block_pattern, state["layers"]):
+        if isinstance(leaf, KVBlock):
+            S = leaf.pos.shape[1] // n
+            rows = slice(c * S, (c + 1) * S)
+            out["layers"].append(KVBlock(
+                kv_heads(leaf.k[:, rows], cfg.n_kv_heads),
+                kv_heads(leaf.v[:, rows], cfg.n_kv_heads),
+                leaf.pos[:, rows].contiguous()))
+        elif kind == RECURRENT:
+            C = leaf.h.shape[-1] // ms
+            out["layers"].append(type(leaf)(
+                *(t[..., r * C:(r + 1) * C].contiguous() for t in leaf)))
+        else:
+            H = leaf.s.shape[2] // hs
+            out["layers"].append(leaf._replace(
+                s=leaf.s[:, :, h * H:(h + 1) * H].contiguous(),
+                x_prev_t=leaf.x_prev_t.clone(),
+                x_prev_c=leaf.x_prev_c.clone()))
+    if "enc_kv" in state:
+        out["enc_kv"] = {k: kv_heads(t, cfg.n_kv_heads)
+                         for k, t in state["enc_kv"].items()}
+    return out
+
+
+def run_layer(cfg, params, state, x, i, backend, ctx):
+    """Layer ``i`` (of the one group) of a decode step on ``params`` and
+    ``state`` (updated in place) through the port's kernels:
+    ``serving/engine.py:decode_block`` on the serve tree of ``backend``."""
+    from repro_torch.serving.prepack import prepack_for_serving
+    kind = cfg.block_pattern[i]
+    serve = (prepack_for_serving(cfg, params, backend="pallas", ctx=ctx)
+             if backend == "pallas" else params)
+    serve = engine_mod.hoist_serve_weights(serve, ctx)
+    cache = engine_mod._layer(state["layers"][i], 0)
+    lens = state["cache_lens"]
+    cos = sin = None
+    if not cfg.is_attention_free:
+        cos, sin = rope_at(lens, cfg.resolved_head_dim, cfg.rope_theta)
+    cross = enc_kv = None
+    if cfg.encoder is not None:
+        cross = engine_mod._layer(serve["cross_attn"], 0)
+        enc_kv = (state["enc_kv"]["k"][0], state["enc_kv"]["v"][0])
+    appends = engine_mod._step_appends(cfg, [(kind, cache)], lens,
+                                       engine_mod._spec(ctx))
+    return engine_mod.decode_block(
+        cfg, kind, engine_mod._layer(serve["blocks"][i], 0), x, cache, lens,
+        cos, sin, KERNELS, cross, enc_kv, ctx, appends)
+
+
+def mesh_merge_phase() -> None:
+    """The identity that makes the model axis right, at full width on the
+    card: for one layer of each of RecurrentGemma-9B (an RG-LRU layer,
+    and a local-attention layer whose ring splits over the cluster),
+    RWKV-6 3B, SeamlessM4T-medium (a decoder layer with its
+    cross-attention) and InternVL2-2B, each rank of a model axis of 2 and
+    4 — at the reference's pick for max_seq 4096 — runs its
+    ``shard_params`` slice and its share of the state through the port's
+    kernels (threads of this process, one card), the ranks' partials
+    summed in rank order where the reference puts a ``psum`` and merged
+    ``(m, l, o)`` where it puts a cluster combine (the port's own
+    collectives, ``ThreadWorld``); every rank's output equals the layer
+    run unsharded within ``MESH_MERGE_TOL`` of each slot's largest
+    element.  The ranks' outputs need not be equal to the bit: the
+    paper's tree sums four bf16 partials in another grouping on each
+    rank."""
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.specs import ctx_for, serving_layout
+    from repro_torch.core.primitives import MeshAxis
+    from repro_torch.models.ctx import SINGLE
+    from repro_torch.models.transformer import init_params, shard_params
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 5)
+    built = {}
+    for path, i, backends in MESH_MERGE_LAYERS:
+        if path not in built:
+            built.clear()
+            cfg = one_group(get_config(path))
+            built[path] = (cfg, init_params(cfg, seed=SEED, device="cuda"),
+                           merge_state(cfg, gen))
+        cfg, whole, state = built[path]
+        x = randn(gen, (SLOTS, cfg.d_model), 1.0)
+        for backend in backends:
+            want = run_layer(cfg, whole, clone_state(state), x, i, backend,
+                             SINGLE)
+            for ms in (2, 4):
+                lay = serving_layout(cfg, ms, seq_len=MESH_MERGE_SEQ,
+                                     batch=SLOTS)
+                world = ThreadWorld(ms)
+
+                def body(r):
+                    model = MeshAxis("model", tuple(range(ms)), r,
+                                     tuple(range(ms)))
+                    mesh = Mesh({"data": 1, "model": ms}, {
+                        "model": model,
+                        "data": MeshAxis("data", (r,), 0, None)}, r,
+                        torch.device("cuda"))
+                    ctx = ctx_for(mesh, lay)
+                    part = shard_params(cfg, lay, whole, r)
+                    return run_layer(cfg, part, rank_state(cfg, lay, r,
+                                                           state),
+                                     x, i, backend, ctx)
+                with world:
+                    outs = world.run(body)
+                torch.cuda.synchronize()
+                err = max(close_rel(f"mesh_merge {path} layer {i} "
+                                    f"{backend} ms={ms} rank {r}", got,
+                                    want, MESH_MERGE_TOL)
+                          for r, got in enumerate(outs))
+                rel = max(float(((got.float() - want.float()).abs().amax(-1)
+                                 / want.float().abs().amax(-1)).max())
+                          for got in outs)
+                say("mesh_merge", model=path, layer=i,
+                    kind=cfg.block_pattern[i], backend=backend,
+                    model_axis=ms, heads_sub=lay.heads_sub,
+                    cluster=lay.cluster, max_abs_err=f"{err:.3e}",
+                    max_rel_err=f"{rel:.3e}", tolerance=MESH_MERGE_TOL,
+                    ok=True)
+                del outs, world
+            del want
+        del x
+    built.clear()
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -2688,6 +3063,8 @@ def main() -> int:
 
     # a cluster across devices: n shards' launches merged, against one
     shard_merge_phase()
+    # the model axis: a layer's rank slices, run in turn, against the layer
+    mesh_merge_phase()
 
     # the host's cost of a graph launch before any profiler trace (a
     # trace leaves the host's graph launches slower for the rest of the

@@ -23,11 +23,13 @@ backend waits for the missing peer.
 
 An axis of size 1 returns its input and moves nothing; a tree over an
 axis whose size is not a power of two raises, as the reference does.
-``cluster_reduce_xla`` is ``dist.all_reduce`` (the reference's
-``lax.psum``): the backend's own summation order, so it agrees with the
-tree and with XLA's ``psum`` only to rounding; a bf16 or f16 tensor is
-summed in f32 and rounded once, as XLA's CPU ``psum`` of bf16 rounds
-(gloo would round after every add).
+``cluster_reduce_xla`` is the reference's ``lax.psum``: on gloo (the
+CPU, where the port is held against the reference) an all-gather and
+the sum in rank order, ``((x0 + x1) + x2) + …``, which is XLA's CPU
+``psum`` to the bit; on NCCL ``dist.all_reduce``, in the backend's own
+order, so it agrees with the tree and with XLA only to rounding.  A bf16
+or f16 tensor is summed in f32 and rounded once, as XLA's CPU ``psum``
+of bf16 rounds (gloo's all-reduce would round after every add).
 """
 from __future__ import annotations
 
@@ -240,12 +242,20 @@ def cluster_reduce_xla(x: PyTree, axis: MeshAxis, op: str = "sum") -> PyTree:
     if axis.size == 1:
         return x
 
+    in_order = op == "sum" and dist.get_backend(axis.group) == "gloo"
+
     def leaf(t):
         # a 16-bit float sums in f32 and rounds once, as XLA's psum does
         low = t.dtype in (torch.bfloat16, torch.float16)
         out = t.float() if low else t.clone()
-        dist.all_reduce(out, op=getattr(dist.ReduceOp, _DIST_OPS[op]),
-                        group=axis.group)
+        if in_order:             # XLA's CPU psum: rank 0 + rank 1 + …
+            parts = cluster_gather_xla(out, axis, tiled=False)
+            out = parts[0].clone()
+            for p in parts[1:]:
+                out += p
+        else:
+            dist.all_reduce(out, op=getattr(dist.ReduceOp, _DIST_OPS[op]),
+                            group=axis.group)
         return out.to(t.dtype) if low else out
 
     return _tree_map(leaf, x)

@@ -29,8 +29,10 @@
 // Its output is the unnormalized f32 acc with m and l, for the combine.
 // The mode is a template parameter (POS): the one-device instances are
 // the kernel as it was, and the rank-local instances are bf16 at head dim
-// 128, the caches of every model the port shards (a third of the build
-// time the other head dims' would add).
+// 128, the caches of every attention decoder the port shards, and at
+// head dim 256 only the three query-row counts RecurrentGemma-9B's ring
+// shards take (launch_pos256; every instance of every head dim would
+// add a third to the build time).
 //
 // Bound on an H100: bytes.  Each valid K and V row is read once for all
 // nq = NB·qpk query rows of its (group, kv head), at 4·nq FLOPs per
@@ -662,6 +664,25 @@ int launch_hd(int nq, const void* q, const void* k, const void* v,
   return (int)cudaErrorInvalidValue;
 }
 
+// The rank-local instances at head dim 256: RecurrentGemma-9B's local
+// layers on a ring shard, with the query heads a rank holds at the serve
+// layouts that take a cluster across devices (16 at heads_sub 1, 8 and 4
+// at 2 and 4, one kv head): the tensor-core, register-bucket and
+// warp-split ways of launch_hd, each at its one row count.
+int launch_pos256(int nq, const void* q, const void* k, const void* v,
+                  const void* lens, void* o, int G, int GB, int NB, int S,
+                  int kv, int qpk, int C, float scale, float cap, int window,
+                  const int* pos, const int* clens, float* of, float* m,
+                  float* l, cudaStream_t st) {
+#define ARGS q, k, v, lens, o, G, GB, NB, S, kv, qpk, C, scale, cap, window, \
+    pos, clens, of, m, l, st
+  if (nq == 16) return launch<bf16, 256, 0, 1, 0, true>(ARGS);
+  if (nq == 8) return launch<bf16, 256, 8, 0, 0, true>(ARGS);
+  if (nq == 4) return launch<bf16, 256, 0, 0, 4, true>(ARGS);
+#undef ARGS
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" int flash_decode_launch(const void* q, const void* k,
@@ -674,9 +695,10 @@ extern "C" int flash_decode_launch(const void* q, const void* k,
   const int nq = NB * qpk;
   if (G < 1 || GB < 1 || G % GB || NB < 1 || S < 1 || kv < 1 || qpk < 1 ||
       GB * nq > MAXQ || (long long)kv * (G / GB) > 65535 ||
-      // the rank-local mode (bf16, head dim 128): the per-slot form, pos
-      // and cache_len with the partial's three outputs, or none of them
-      (pos != nullptr && (NB != 1 || is_f32 || hd != 128 || clens == nullptr ||
+      // the rank-local mode (bf16, head dim 128 or 256): the per-slot
+      // form, pos and cache_len with the partial's three outputs, or none
+      (pos != nullptr && (NB != 1 || is_f32 || (hd != 128 && hd != 256) ||
+                          clens == nullptr ||
                           of == nullptr || m == nullptr || l == nullptr)) ||
       (pos == nullptr && (of != nullptr || m != nullptr || l != nullptr)))
     return (int)cudaErrorInvalidValue;
@@ -687,7 +709,8 @@ extern "C" int flash_decode_launch(const void* q, const void* k,
     case 64 * 2: return launch_hd<bf16, 64, false>(ARGS);
     case 128 * 2: return pos ? launch_hd<bf16, 128, true>(ARGS)
                              : launch_hd<bf16, 128, false>(ARGS);
-    case 256 * 2: return launch_hd<bf16, 256, false>(ARGS);
+    case 256 * 2: return pos ? launch_pos256(ARGS)
+                             : launch_hd<bf16, 256, false>(ARGS);
     case 64 * 2 + 1: return launch_hd<float, 64, false>(ARGS);
     case 128 * 2 + 1: return launch_hd<float, 128, false>(ARGS);
     case 256 * 2 + 1: return launch_hd<float, 256, false>(ARGS);

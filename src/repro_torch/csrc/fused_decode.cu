@@ -969,11 +969,13 @@ constexpr size_t SMEM_MAX = 232448;
 // The instances: (H, hd) = (q_per_kv, 128) for q_per_kv 1-4, (2, 128)
 // for q_per_kv 8 (Qwen2-72B: four clusters of two query heads a kv head),
 // (2, 256) for q_per_kv 16 (RecurrentGemma-9B: 8 clusters of two query
-// heads) and (1, 64) for MHA (SeamlessM4T-medium: a cluster a head)
+// heads) and for 8 and 4 (a rank of RecurrentGemma-9B on a mesh at
+// heads_sub 2 and 4: 4 and 2 such clusters), and (1, 64) for MHA
+// (SeamlessM4T-medium: a cluster a head)
 bool instance_ok(int qpk, int hd, int H) {
   if (hd == 128) return (H == qpk && H >= 1 && H <= 4) || (qpk == 8 && H == 2);
   if (hd == 64) return qpk == 1 && H == 1;
-  return hd == 256 && qpk == 16 && H == 2;
+  return hd == 256 && (qpk == 16 || qpk == 8 || qpk == 4) && H == 2;
 }
 
 // The plan the kernel takes: C ranks (a power of two up to 8) that split

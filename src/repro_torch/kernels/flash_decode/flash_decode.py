@@ -37,8 +37,10 @@ reference's ``bucketed_flash_attention`` (``dataflow.py:264``), which
 ``cluster_flash_combine`` merges over the ranks; a rank with no valid
 row of a slot holds ``(−1e30, 0, 0)``.  Only a cluster above 1 uses it;
 on the card it has kernel instances of its own (bf16, the caches' dtype,
-at head dim 128: every model the port shards) and the one-device
-instances are unchanged.
+at head dim 128: every attention decoder the port shards; and at head
+dim 256 with 16, 8 or 4 query rows a slot: RecurrentGemma-9B's local
+layers on a ring shard, a rank's heads at the picks that take a
+cluster across devices) and the one-device instances are unchanged.
 
 CUDA kernel: ``csrc/flash_decode.cu``.  What bounds it on an H100: the
 bytes of the valid K/V rows, each read once for all query heads of its
@@ -67,6 +69,10 @@ from repro_torch.kernels import _build
 
 _HEAD_DIMS = (64, 128, 256)   # the kernel's template instances
 _MAX_ROWS = 32                # query rows per (cache, kv head)
+# the rank-local mode's instances beside head dim 128's: (head dim,
+# query rows a slot) of RecurrentGemma-9B's ring shards (csrc
+# launch_pos256)
+_RANK_LOCAL = ((256, 16), (256, 8), (256, 4))
 _MAX_CLUSTER = 8              # the portable thread-block cluster size
 _TILE_ROWS = 64               # cache rows a tile (csrc TR)
 _TARGET_CLUSTERS = 64
@@ -225,13 +231,15 @@ def flash_decode_cuda(q, k_cache, v_cache, cache_len, *, scale=None,
             or lens.shape != (G,) or window < 0 or attn_softcap < 0
             or kv_loc * G > 65535
             or (pos is not None and (q.dtype != torch.bfloat16
-                                     or hd != 128))):
+                                     or (hd, qpk) not in _RANK_LOCAL
+                                     and hd != 128))):
         raise NotImplementedError(
             f"flash_decode CUDA kernel: head dim in {_HEAD_DIMS}, bf16 or "
             f"f32, q [B, q_loc, hd] with q_loc a multiple of kv_loc, cache "
             f"[S, kv_loc, hd] with a scalar length or [S, B, kv_loc, hd] "
             f"with lengths [B] (the rank-local mode: bf16 at head dim "
-            f"128), at most "
+            f"128, or at 256 with {sorted(q for _, q in _RANK_LOCAL)} "
+            f"query heads a kv head), at most "
             f"{_MAX_ROWS} query rows per cache and "
             f"kv head; got q {tuple(q.shape)} {q.dtype}, cache "
             f"{tuple(k_cache.shape)}, lengths {tuple(lens.shape)}")

@@ -7,7 +7,8 @@ Replaces ``repro/kernels/fused_decode/fused_decode.py:fused_decode_attention``
 the projection and before RoPE, ``fused_decode.py:103``),
 ``fuse_out="partial_o"``, MHA, GQA or MQA up to 4 query heads a kv head
 and GQA 8 (Qwen2-72B's 64/8) at ``head_dim`` 128, MQA 16/1 at
-``head_dim`` 256 (RecurrentGemma-9B's local layers) and MHA at
+``head_dim`` 256 (RecurrentGemma-9B's local layers, and the 8/1 and 4/1
+a rank of them holds on a mesh at ``heads_sub`` 2 and 4) and MHA at
 ``head_dim`` 64 (SeamlessM4T-medium's decoder), on a linear cache or —
 the local layers of Gemma-2 and RecurrentGemma — a sliding window over
 a ring cache, with or without the attention softcap; on one device or
@@ -45,7 +46,9 @@ and v again and reads its rows again.  At
 SMs, so the kv head's heads split into 8 clusters of 8 CTAs holding 2
 heads each (64 CTAs, 512 rows a rank): each cluster projects the kv
 head's k and v again and attends the same rows, reads that mostly hit
-L2 (the plans measured: PERF.md §6).  At ``head_dim`` 64 and MHA
+L2 (the plans measured: PERF.md §6); a mesh rank's 8/1 and 4/1 take the
+same instance, 4 and 2 clusters of 8 CTAs (32 and 16 CTAs: a simple
+correct plan, not tuned).  At ``head_dim`` 64 and MHA
 (SeamlessM4T-medium, 16/16 at ``D`` 1024) one cluster a head: 16 clusters
 of 4 CTAs, 64 CTAs of 256 rows.
 Each rank projects its ``D/C`` rows of the cluster's ``wqkv`` columns
@@ -99,9 +102,10 @@ _TARGET_CTAS = 128   # about one CTA per SM of an H100 (132)
 _WAVE_CLUSTERS = _build.WAVE_CTAS // _MAX_CLUSTER   # clusters of 8 at once
 # the kernel's instances: head dim → {q_per_kv: query heads a cluster}
 # (hd 128: a kv head's 1-4 query heads in one cluster; hd 256: MQA 16/1,
-# RecurrentGemma-9B's, in clusters of two query heads; hd 64: MHA,
-# SeamlessM4T-medium's, a cluster a head)
-_HEADS = {64: {1: 1}, 128: {1: 1, 2: 2, 3: 3, 4: 4, 8: 2}, 256: {16: 2}}
+# RecurrentGemma-9B's, and a mesh rank's 8/1 and 4/1 of it, in clusters
+# of two query heads; hd 64: MHA, SeamlessM4T-medium's, a cluster a head)
+_HEADS = {64: {1: 1}, 128: {1: 1, 2: 2, 3: 3, 4: 4, 8: 2},
+          256: {16: 2, 8: 2, 4: 2}}
 # wqkv rows a rank may hold, by (head dim, query heads a cluster): csrc
 # MAX_NTO · 64 — 1152 for two heads (Gemma-2 27B's 4608 over 4 ranks),
 # else 1024 — and at hd 256 1024, what the shared memory leaves room for

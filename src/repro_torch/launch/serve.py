@@ -41,8 +41,11 @@ given as that slice) and the decode state of its data rank's
 ``batch_global / data`` slots, and every step takes and returns the
 GLOBAL tokens on every process (its rows in, the data axis gathered
 out), so a serving loop makes the same host decisions on every rank.
-Above a model axis of 1 the decode step runs eagerly: no CUDA graph is
-captured around the collectives.
+Every registered model serves so — the recurrent ones (RWKV-6,
+RecurrentGemma) and the modality ones (``prefill_fn`` and
+:func:`generate` take the global frontend embeddings, each process its
+rows) too.  Above a model axis of 1 the decode step runs eagerly: no
+CUDA graph is captured around the collectives.
 """
 from __future__ import annotations
 

@@ -6,22 +6,22 @@ The serve cluster is picked as the reference picks it: its tuning model
 (``core/autotune.py:tune_cluster``, carried over in the port's
 ``core/autotune.py`` as the reference's rule, TPU constants and all),
 then halved until :func:`_cluster_ok` holds, falling back to the train
-factoring (``layout_for``) where no cluster does.  On the registered
-models that model keeps the cluster inside one device (heads over the
-whole model axis) up to a model axis of 8, and picks a cluster of 2
-across devices at 16 for Qwen2-72B, Granite-8B and Minitron-4B.  An
-explicit ``cluster`` wins (the reference's ``serve.py:181–183``).
-
-The port shards attention decoders with dense or MoE FFNs and no
-frontend or encoder; the recurrent, RWKV-6 and modality models on a
-model axis above 1 raise ``NotImplementedError`` (ROADMAP A.5b, second
-half).
+factoring (``layout_for``) where no cluster does, and taking it
+outright for attention-free models (RWKV-6: the technique does not
+apply).  On the registered models that model keeps the cluster inside
+one device (heads over the whole model axis) up to a model axis of 8,
+and picks a cluster of 2 across devices at 16 for Qwen2-72B,
+Granite-8B, Minitron-4B and InternVL2-2B; RecurrentGemma-9B, its one
+kv head at head dim 256, takes a cluster across devices at every
+model axis above 1 (at ``max_seq`` 4096 every head on every rank, the
+sequence over the axis).  An explicit ``cluster`` wins (the
+reference's ``serve.py:181–183``).
 """
 from __future__ import annotations
 
 from typing import Optional
 
-from repro_torch.configs.base import (ATTN_GLOBAL, ATTN_LOCAL, ModelConfig)
+from repro_torch.configs.base import ModelConfig
 from repro_torch.core.autotune import tune_cluster
 from repro_torch.launch.mesh import Mesh
 from repro_torch.models.ctx import ParallelCtx, make_train_ctx
@@ -47,20 +47,6 @@ def _cluster_ok(cfg: ModelConfig, ms: int, n: int) -> bool:
     return True
 
 
-def check_mesh_model(cfg: ModelConfig, ms: int) -> None:
-    """Raise where the port does not serve ``cfg`` on a model axis of
-    ``ms`` > 1: only attention decoders (dense FFNs or MoE) without a
-    frontend or an encoder shard (ROADMAP A.5b's second half)."""
-    if ms == 1:
-        return
-    if (set(cfg.layer_kinds) - {ATTN_GLOBAL, ATTN_LOCAL}
-            or cfg.frontend is not None or cfg.encoder is not None):
-        raise NotImplementedError(
-            f"{cfg.name}: recurrent, RWKV-6 and modality models on a model "
-            f"axis of {ms} are ROADMAP A.5b's second half; the port shards "
-            "attention decoders with dense or MoE FFNs")
-
-
 def serving_layout(cfg: ModelConfig, ms: int, *, seq_len: int, batch: int,
                    cluster: Optional[int] = None) -> Layout:
     """The serve layout on a model axis of ``ms`` for a cache of
@@ -68,8 +54,8 @@ def serving_layout(cfg: ModelConfig, ms: int, *, seq_len: int, batch: int,
     cluster ``tune_cluster`` picks, halved until :func:`_cluster_ok`,
     else ``layout_for``'s factoring; ``cluster`` given: ``Layout(ms, ms //
     cluster)``, which must divide the axis and pass :func:`_cluster_ok`
-    (``ValueError`` otherwise)."""
-    check_mesh_model(cfg, ms)
+    (``ValueError`` otherwise); ``layout_for`` on an attention-free
+    model (``specs.py:67–68``)."""
     if cluster is not None:
         if cluster < 1 or ms % cluster or not _cluster_ok(cfg, ms, cluster):
             raise ValueError(
@@ -77,6 +63,8 @@ def serving_layout(cfg: ModelConfig, ms: int, *, seq_len: int, batch: int,
                 f"of {ms} does not divide its heads, head dim, d_model or "
                 "window")
         return Layout(ms, heads_sub=ms // cluster)
+    if cfg.is_attention_free:
+        return layout_for(cfg, ms)
     best = tune_cluster(cfg, seq_len=seq_len, batch=max(1, batch),
                         model_axis=ms)
     n = best.cluster_size

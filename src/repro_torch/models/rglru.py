@@ -1,5 +1,5 @@
 """Griffin / RecurrentGemma recurrent block (RG-LRU, arXiv:2402.19427) —
-the port of ``repro/models/rglru.py`` at model size 1.
+the port of ``repro/models/rglru.py``.
 
     x ─ linear ─ conv1d(width 4) ─ RG-LRU ─┐
                                             ⊙ ─ out-linear
@@ -24,7 +24,12 @@ each row's largest element), not bit for bit.
 Parameters are a dict with the reference's ``RGLRUParams`` field names:
 ``w_x``/``w_gate [D, C]``, ``conv_w [width, C]``, ``conv_b [C]``,
 ``w_r``/``w_i [nb, bs, bs]`` (block-diagonal gates, ``nb`` = the
-model's heads), ``b_r``/``b_i``/``lam [C]`` f32, ``w_out [C, D]``.
+model's heads), ``b_r``/``b_i``/``lam [C]`` f32, ``w_out [C, D]``.  On
+a mesh (``ctx``) a rank holds ``C / ms`` channels of every tensor — its
+whole gate blocks, since the channels are block-major — and the block's
+output is the ranks' partials summed by ``psum_model``
+(``rglru.py:131``, ``:145``): the recurrence is per channel, so it moves
+nothing between ranks.
 
 Numerics follow the reference: the projections, the causal conv and
 ``(h ⊙ gate) @ w_out`` run in the model dtype; the gates in f32 (the
@@ -43,10 +48,20 @@ import torch.nn.functional as F
 
 from repro_torch.core.device import resolve_device
 from repro_torch.kernels.rglru_scan.rglru_scan import rglru_scan as _b6
+from repro_torch.models.ctx import SINGLE, ParallelCtx
 from repro_torch.models.layers import seeded_normal
 
 Params = Dict[str, torch.Tensor]
 _C = 8.0                      # Griffin's fixed constant
+
+
+# How a leaf splits over the model axis (``transformer.py:_layout_rglru``
+# of the reference): every tensor on its channel axis — ``col`` the last
+# (``w_x``, ``w_gate``, ``conv_w``), ``vec`` a vector's, ``blocks`` the
+# gate blocks (whole), ``row`` ``w_out``'s rows.
+RGLRU_RULES = {"w_x": "col", "w_gate": "col", "conv_w": "col",
+               "conv_b": "vec", "w_r": "blocks", "b_r": "vec",
+               "w_i": "blocks", "b_i": "vec", "lam": "vec", "w_out": "row"}
 
 
 class RGLRUState(NamedTuple):
@@ -123,61 +138,69 @@ def _gate(p: Params, x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x @ p["w_gate"], approximate="tanh")
 
 
-def rglru_block(p: Params, x: torch.Tensor, *, scan: Callable = _b6
-                ) -> torch.Tensor:
+def rglru_block(p: Params, x: torch.Tensor, *, scan: Callable = _b6,
+                ctx: ParallelCtx = SINGLE) -> torch.Tensor:
     """Full recurrent block (train / prefill) from the zero state.
-    ``x [B, S, D]`` (normed) → ``[B, S, D]``."""
+    ``x [B, S, D]`` (normed) → ``[B, S, D]``, the ranks' channel partials
+    summed on a mesh."""
     u = _causal_conv(p, x @ p["w_x"])
     h = rglru_scan(p, u, scan=scan)
-    return (h * _gate(p, x)) @ p["w_out"]
+    return ctx.psum_model((h * _gate(p, x)) @ p["w_out"])
 
 
 def rglru_block_step(p: Params, x: torch.Tensor, state: RGLRUState, *,
                      scan: Callable = _b6,
-                     h_out: Optional[torch.Tensor] = None
+                     h_out: Optional[torch.Tensor] = None,
+                     ctx: ParallelCtx = SINGLE
                      ) -> Tuple[torch.Tensor, RGLRUState]:
     """Decode step, ``x [B, D]`` (normed) → ``([B, D], new state)``;
-    ``h_out`` (may be ``state.h``) receives the new f32 ``h``."""
+    ``h_out`` (may be ``state.h``) receives the new f32 ``h``; on a mesh
+    the state is the rank's channels and the output the ranks' sum."""
     u = x @ p["w_x"]                                         # [B, C]
     hist = torch.cat([state.conv.float(), u[:, None].float()], dim=1)
     u_c = torch.einsum("bwd,wd->bd", hist, p["conv_w"].float()).to(
         u.dtype) + p["conv_b"]
     h, h_new = rglru_step(p, u_c, state.h, scan=scan, h_out=h_out)
-    y = (h * _gate(p, x)) @ p["w_out"]
+    y = ctx.psum_model((h * _gate(p, x)) @ p["w_out"])
     return y, RGLRUState(h=h_new, conv=hist[:, 1:])
 
 
 def rglru_init(gen: torch.Generator, d_model: int, d_state: int,
                n_blocks: int, width: int = 4, *,
-               lead: Tuple[int, ...] = (), dtype=torch.bfloat16) -> Params:
+               lead: Tuple[int, ...] = (), dtype=torch.bfloat16,
+               cut: Callable = lambda t, rule: t) -> Params:
     """Random params on ``gen``'s device with the reference's scales
     (``rglru.py:149–170``): 1/√D for ``w_x``/``w_gate``, 0.2 for
     ``conv_w``, 1/√bs for ``w_r``/``w_i`` and ``w_out`` (``bs = d_state
     / n_blocks``), zero biases, and ``Λ`` such that ``a ∈ (0.9, 0.999)``
-    at ``r = 0.5``.  ``lead``: leading axes (the layer-group axis)."""
+    at ``r = 0.5``.  ``lead``: leading axes (the layer-group axis);
+    ``cut(tensor, rule)`` takes each leaf as drawn to a rank's slice
+    (:data:`RGLRU_RULES`)."""
     dev = gen.device
     s, bs = 1.0 / math.sqrt(d_model), d_state // n_blocks
     sb = 1.0 / math.sqrt(bs)
 
-    def normal(shape, scale):
-        return seeded_normal(gen, lead + shape, scale, dtype)
+    def normal(name, shape, scale):
+        return cut(seeded_normal(gen, lead + shape, scale, dtype),
+                   RGLRU_RULES[name])
 
     def zeros(dt):
-        return torch.zeros(lead + (d_state,), dtype=dt, device=dev)
+        return cut(torch.zeros(lead + (d_state,), dtype=dt, device=dev),
+                   "vec")
 
     lam = torch.log(torch.expm1(-torch.log(torch.linspace(
         0.9, 0.999, d_state, device=dev)) * 2.0 / _C))
     return {
-        "w_x": normal((d_model, d_state), s),
-        "w_gate": normal((d_model, d_state), s),
-        "conv_w": normal((width, d_state), 0.2),
+        "w_x": normal("w_x", (d_model, d_state), s),
+        "w_gate": normal("w_gate", (d_model, d_state), s),
+        "conv_w": normal("conv_w", (width, d_state), 0.2),
         "conv_b": zeros(dtype),
-        "w_r": normal((n_blocks, bs, bs), sb),
+        "w_r": normal("w_r", (n_blocks, bs, bs), sb),
         "b_r": zeros(torch.float32),
-        "w_i": normal((n_blocks, bs, bs), sb),
+        "w_i": normal("w_i", (n_blocks, bs, bs), sb),
         "b_i": zeros(torch.float32),
-        "lam": lam.expand(lead + (d_state,)).contiguous(),
-        "w_out": normal((d_state, d_model), sb),
+        "lam": cut(lam.expand(lead + (d_state,)).contiguous(), "vec"),
+        "w_out": normal("w_out", (d_state, d_model), sb),
     }
 
 

@@ -1,6 +1,7 @@
 """Model assembly — the port of ``repro/models/transformer.py`` for
-attention decoders with dense or MoE FFNs, RWKV-6 and the
-RG-LRU/local-attention hybrid (RecurrentGemma).
+attention decoders with dense or MoE FFNs, RWKV-6, the
+RG-LRU/local-attention hybrid (RecurrentGemma) and the modality models
+(a frontend spliced into the prompt, or feeding an encoder).
 
 The functions that run on a mesh take a ``ctx`` (``models/ctx.py``),
 the single-device context by default, where every collective is the
@@ -12,9 +13,14 @@ exceeds them) and, on a cluster sub-axis above 1, each head's dims over
 the cluster (MLA: ``wq``'s head dims and ``wdkv``'s latent columns),
 ``wo``'s rows of those heads (replicated over the cluster), ``d_ff /
 ms`` FFN columns (and ``w_out`` rows), ``E / ms`` experts, ``V / ms``
-vocabulary rows (padded to a multiple of ``ms`` with zero rows),
-everything else replicated.  Attention decoders with dense or MoE FFNs
-shard; the other kinds are the second half of ROADMAP A.5b.
+vocabulary rows (padded to a multiple of ``ms`` with zero rows); an
+RG-LRU block's ``d_state / ms`` channels of every tensor (its gate
+blocks whole); an RWKV-6 block's heads over ``heads_sub`` and its
+channel mix's ``d_ff`` over the axis; the encoder's attention on the
+decoder's ``heads_sub × cluster`` factoring with the encoder's heads,
+the cross-attention as the decoder's attention; everything else
+replicated (``frontend_proj``, the norms, RWKV-6's ``mu``, ``lora_a``
+and ``cm_r``).
 
 Parameter tree (the train layout; leaves are tensors):
 
@@ -66,6 +72,8 @@ from repro_torch.models import rwkv6 as rwkv_mod
 from repro_torch.models.ctx import SINGLE, ParallelCtx, pick_heads_sub
 from repro_torch.models.layers import (embed_lookup, ffn_apply, padded_vocab,
                                        rms_norm, seeded_normal)
+from repro_torch.models.rglru import RGLRU_RULES
+from repro_torch.models.rwkv6 import RWKV_RULES
 
 
 def _check_supported(cfg: ModelConfig) -> None:
@@ -189,10 +197,16 @@ def _dm(x: torch.Tensor, rule: str, cfg: ModelConfig, lay: Layout
     ``bk``, ``bv``); ``heads3`` heads on axis −3 (MLA's ``wuk``,
     ``wuv``); ``wo`` the rows of each head (``[q·v, D]``); ``dkv`` MLA's
     latent columns over the cluster, replicated over the heads; ``col``
-    / ``row`` the FFN's ``d_ff`` columns / rows; ``expert`` the expert
-    axis; ``vocab`` the rows, padded to a multiple of ``ms``
+    / ``row`` the last / second-last axis over the whole model axis (the
+    FFN's ``d_ff``, RG-LRU's channels); ``vec`` a vector's channels;
+    ``blocks`` RG-LRU's gate blocks; ``expert`` the expert axis;
+    ``vocab`` the rows, padded to a multiple of ``ms``; ``hcol`` /
+    ``hrow`` RWKV-6's channels / ``w_out`` rows by head; ``ekv`` /
+    ``ewo`` ``kv`` / ``wo`` with the encoder's heads
     (``transformer.py:247–420``)."""
     ms = lay.model_size
+    if rule in ("ekv", "ewo"):
+        cfg, rule = _enc_view(cfg), rule[1:]
     if rule == "rep":
         return _dm_replicate(x, ms)
     if rule == "q":
@@ -207,15 +221,21 @@ def _dm(x: torch.Tensor, rule: str, cfg: ModelConfig, lay: Layout
         w = x.reshape(x.shape[:-2] + (nh, x.shape[-2] // nh, d))
         out = _dm_heads(w, lay, -3, None)
         return out.reshape(out.shape[:-3] + (-1, d))
+    if rule in ("hcol", "hrow"):
+        hd = cfg.rwkv_head_dim
+        a = -1 if rule == "hcol" else -2
+        w = x.unflatten(a, (x.shape[a] // hd, hd))
+        out = _dm_heads(w, lay, a - 1, None)
+        return out.flatten(a - 1, a)
     if rule == "dkv":
         w = _dm_split(x, lay.cluster, -1)
         w = w[None].expand((lay.heads_sub,) + tuple(w.shape))
         return w.reshape((ms,) + tuple(w.shape[2:]))
-    if rule == "col":
+    if rule in ("col", "vec"):
         return _dm_split(x, ms, -1)
     if rule == "row":
         return _dm_split(x, ms, -2)
-    if rule == "expert":
+    if rule in ("expert", "blocks"):
         return _dm_split(x, ms, -3)
     if rule == "vocab":
         v_pad = padded_vocab(cfg.vocab_size, ms)
@@ -228,6 +248,7 @@ def _dm(x: torch.Tensor, rule: str, cfg: ModelConfig, lay: Layout
 
 _ATTN_RULES = {"wq": "q", "wk": "kv", "wv": "kv", "wo": "wo", "bq": "q",
                "bk": "kv", "bv": "kv"}
+_ENC_ATTN_RULES = {"wq": "q", "wk": "ekv", "wv": "ekv", "wo": "ewo"}
 _MLA_RULES = {"wq": "q", "wdkv": "dkv", "wuk": "heads3", "wuv": "heads3",
               "wo": "wo"}
 _FFN_RULES = {"w_in": "col", "w_gate": "col", "w_out": "row"}
@@ -235,14 +256,17 @@ _MOE_RULES = {"router": "rep", "w_in": "expert", "w_gate": "expert",
               "w_out": "expert"}
 
 
-def _block_rules(blk: Dict[str, Any]) -> Dict[str, Any]:
-    """The rule of every leaf of a block (``transformer.py:354``)."""
+def _block_rules(blk: Dict[str, Any], encoder: bool = False
+                 ) -> Dict[str, Any]:
+    """The rule of every leaf of a block (``transformer.py:354``); an
+    encoder block's attention takes the encoder's heads."""
     out: Dict[str, Any] = {}
     for name, val in blk.items():
         if name.startswith("ln") or name.startswith("post_ln"):
             out[name] = "rep"
         elif name == "attn":
-            rules = _MLA_RULES if "wdkv" in val else _ATTN_RULES
+            rules = (_MLA_RULES if "wdkv" in val
+                     else _ENC_ATTN_RULES if encoder else _ATTN_RULES)
             out[name] = {k: rules[k] for k in val}
         elif name == "ffn":
             if "router" in val:
@@ -250,24 +274,28 @@ def _block_rules(blk: Dict[str, Any]) -> Dict[str, Any]:
                                  else _MOE_RULES[k]) for k in val}
             else:
                 out[name] = {k: _FFN_RULES[k] for k in val}
+        elif name == "rglru":
+            out[name] = {k: RGLRU_RULES[k] for k in val}
+        elif name == "rwkv":
+            out[name] = {k: RWKV_RULES[k] for k in val}
         else:
-            raise NotImplementedError(
-                f"{name} blocks on a model axis above 1 (ROADMAP A.5b, "
-                "second half)")
+            raise KeyError(name)
     return out
 
 
 def _param_rules(params: Dict[str, Any]) -> Dict[str, Any]:
-    top = {"embed": "vocab", "lm_head": "vocab", "final_norm": "rep"}
+    top = {"embed": "vocab", "lm_head": "vocab", "final_norm": "rep",
+           "frontend_proj": "rep", "enc_final_norm": "rep"}
     out: Dict[str, Any] = {}
     for k, v in params.items():
         if k in top:
             out[k] = top[k]
         elif k in ("blocks", "tail"):
             out[k] = [_block_rules(b) for b in v]
+        elif k in ("encoder", "cross_attn"):
+            out[k] = _block_rules(v, encoder=k == "encoder")
         else:
-            raise NotImplementedError(
-                f"{k} on a model axis above 1 (ROADMAP A.5b, second half)")
+            raise KeyError(k)
     return out
 
 
@@ -341,11 +369,6 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda",
     L, nq, nkv = cfg.n_layers, cfg.n_heads, cfg.n_kv_heads
     lay = lay or Layout()
     ms = lay.model_size
-    if ms > 1 and (cfg.block_pattern == (RWKV6,) or RECURRENT in
-                   cfg.layer_kinds or cfg.frontend or cfg.encoder):
-        raise NotImplementedError(
-            f"{cfg.name} on a model axis of {ms}: recurrent, RWKV-6 and "
-            "modality models on a mesh are ROADMAP A.5b's second half")
 
     def cut(t, rule):
         if ms == 1 or rule == "rep":
@@ -361,9 +384,9 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda",
                "ln2": torch.zeros((L, d), device=dev),
                "rwkv": rwkv_mod.rwkv6_init(
                    gen, d, cfg.rwkv_head_dim, d // cfg.rwkv_head_dim, F,
-                   lead=(L,), dtype=dtype)}
-        return {"embed": dense((cfg.vocab_size, d), 0.02),
-                "lm_head": dense((cfg.vocab_size, d), s_in),
+                   lead=(L,), dtype=dtype, cut=cut)}
+        return {"embed": dense((cfg.vocab_size, d), 0.02, "vocab"),
+                "lm_head": dense((cfg.vocab_size, d), s_in, "vocab"),
                 "final_norm": torch.zeros((d,), device=dev),
                 "blocks": [blk], "tail": []}
 
@@ -379,7 +402,7 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda",
         if kind == RECURRENT:
             blk["rglru"] = rglru_mod.rglru_init(
                 gen, d, cfg.rglru_d_state or d, nq, cfg.conv1d_width,
-                lead=lead, dtype=dtype)
+                lead=lead, dtype=dtype, cut=cut)
         elif cfg.mla is not None:
             m = cfg.mla
             blk["attn"] = {
@@ -434,18 +457,20 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda",
     if cfg.encoder is not None:
         e = cfg.encoder
         lead, ehd, eF = (e.n_layers,), d // e.n_heads, e.d_ff
-        ffn = {"w_in": dense(lead + (d, eF), s_in)}
+        ffn = {"w_in": dense(lead + (d, eF), s_in, "col")}
         if cfg.ffn_gated:
-            ffn["w_gate"] = dense(lead + (d, eF), s_in)
-        ffn["w_out"] = dense(lead + (eF, d), 1.0 / math.sqrt(eF))
+            ffn["w_gate"] = dense(lead + (d, eF), s_in, "col")
+        ffn["w_out"] = dense(lead + (eF, d), 1.0 / math.sqrt(eF), "row")
         params["encoder"] = {
             "ln1": torch.zeros(lead + (d,), device=dev),
             "ln2": torch.zeros(lead + (d,), device=dev),
-            "attn": {"wq": dense(lead + (d, e.n_heads, ehd), s_in),
-                     "wk": dense(lead + (d, e.n_kv_heads, ehd), s_in),
-                     "wv": dense(lead + (d, e.n_kv_heads, ehd), s_in),
+            "attn": {"wq": dense(lead + (d, e.n_heads, ehd), s_in, "q"),
+                     "wk": dense(lead + (d, e.n_kv_heads, ehd), s_in,
+                                 "ekv"),
+                     "wv": dense(lead + (d, e.n_kv_heads, ehd), s_in,
+                                 "ekv"),
                      "wo": dense(lead + (e.n_heads * ehd, d),
-                                 1.0 / math.sqrt(e.n_heads * ehd))},
+                                 1.0 / math.sqrt(e.n_heads * ehd), "ewo")},
             "ffn": ffn}
         params["enc_final_norm"] = torch.zeros((d,), device=dev)
         params["cross_attn"] = {
@@ -571,11 +596,12 @@ def apply_block(cfg: ModelConfig, blk: Dict[str, Any], x: torch.Tensor, *,
     eps = cfg.norm_eps
     if "rwkv" in blk:                  # transformer.py:473–479
         return rwkv_mod.rwkv6_block(blk["rwkv"], x, cfg.rwkv_head_dim,
-                                    blk["ln1"], blk["ln2"], eps), None
+                                    blk["ln1"], blk["ln2"], eps,
+                                    ctx=ctx), None
     h = rms_norm(x, blk["ln1"], eps)
     kv = None
     if kind == RECURRENT:              # transformer.py:480–482
-        a = rglru_mod.rglru_block(blk["rglru"], h)
+        a = rglru_mod.rglru_block(blk["rglru"], h, ctx=ctx)
     elif cfg.mla is not None:
         a, kv = attn_mod.mla_attention_train(blk["attn"], h, cfg,
                                              return_kv=return_kv, ctx=ctx)
@@ -586,7 +612,7 @@ def apply_block(cfg: ModelConfig, blk: Dict[str, Any], x: torch.Tensor, *,
     if cross_blk is not None and enc_out is not None:
         x = x + cross_attention(cross_blk["attn"],
                                 rms_norm(x, cross_blk["ln"], eps), enc_out,
-                                cfg)
+                                cfg, ctx)
     f = block_ffn(cfg, blk["ffn"], rms_norm(x, blk["ln2"], eps), ctx)
     return x + post_norm(blk, "post_ln2", f, eps), kv
 
@@ -610,21 +636,30 @@ def block_ffn(cfg: ModelConfig, ffn: Dict[str, Any], h: torch.Tensor,
 
 
 def cross_attention(p: Dict[str, torch.Tensor], x: torch.Tensor,
-                    enc_out: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+                    enc_out: torch.Tensor, cfg: ModelConfig,
+                    ctx: ParallelCtx = SINGLE) -> torch.Tensor:
     """Decoder cross-attention over a whole sequence (train and prefill,
     ``transformer.py:507``): q from ``x [B, S, D]``, k and v projected
     from ``enc_out [B, P, D]``, no RoPE and no mask, every query row
-    attending all ``P`` frames."""
+    attending all ``P`` frames.  On a mesh a rank projects its heads
+    (their head-dim segments on a cluster above 1, gathered, and its
+    query block of the sequence, the blocks gathered back) and the
+    heads' partials meet in ``psum_heads``."""
     B, S, _ = x.shape
-    q_loc, hd = p["wq"].shape[1], p["wq"].shape[2]
+    n = ctx.cluster_size
+    q_loc, hd = p["wq"].shape[1], p["wq"].shape[2] * n
     kv_loc = p["wk"].shape[1]
     q = torch.einsum("bsd,dqh->bsqh", x, p["wq"])
     k = torch.einsum("bpd,dkh->bpkh", enc_out, p["wk"])
     v = torch.einsum("bpd,dkh->bpkh", enc_out, p["wv"])
-    qg = q.reshape(B, S, kv_loc, q_loc // kv_loc, hd)
+    q, k, v = (ctx.gather_cluster(t, 3) for t in (q, k, v))
+    s_blk, q_off = S // n, ctx.cluster_index() * (S // n)
+    qg = q[:, q_off:q_off + s_blk].reshape(B, s_blk, kv_loc,
+                                           q_loc // kv_loc, hd)
     out = attn_mod._flash(qg, k, v, q_offset=0, causal=False, window=0,
                           cap=0.0, scale=1.0 / math.sqrt(hd))
-    return out.reshape(B, S, q_loc * hd) @ p["wo"]
+    y = ctx.psum_heads(out.reshape(B, s_blk, q_loc * hd) @ p["wo"])
+    return ctx.gather_cluster(y, 1) if n > 1 else y
 
 
 def _enc_view(cfg: ModelConfig) -> ModelConfig:
@@ -638,11 +673,14 @@ def _enc_view(cfg: ModelConfig) -> ModelConfig:
 
 
 def encode(cfg: ModelConfig, params: Dict[str, Any],
-           frontend_embeds: torch.Tensor) -> torch.Tensor:
+           frontend_embeds: torch.Tensor, ctx: ParallelCtx = SINGLE
+           ) -> torch.Tensor:
     """The encoder stack over the stub frontend's embeddings ``[B, P, F]``
-    → ``[B, P, D]`` (``transformer.py:547``): the projection, then per
-    block bidirectional attention (RoPE, no mask) and the FFN, each with
-    its residual add, then ``enc_final_norm``."""
+    → ``[B, P, D]`` (``transformer.py:547``): the projection
+    (replicated), then per block bidirectional attention (RoPE, no mask)
+    and the FFN, each with its residual add — on a mesh the rank's heads
+    and ``d_ff`` columns, as a decoder block's —, then
+    ``enc_final_norm``."""
     if frontend_embeds is None:
         raise ValueError(f"{cfg.name}: the encoder's frontend embeddings "
                          "are required")
@@ -654,10 +692,10 @@ def encode(cfg: ModelConfig, params: Dict[str, Any],
         blk = _pick(params["encoder"], i)
         a, _ = attn_mod.attention_train(blk["attn"],
                                         rms_norm(x, blk["ln1"], eps), ecfg,
-                                        ATTN_GLOBAL, causal=False)
+                                        ATTN_GLOBAL, causal=False, ctx=ctx)
         x = x + a
         x = x + ffn_apply(blk["ffn"], rms_norm(x, blk["ln2"], eps),
-                          cfg.ffn_act)
+                          cfg.ffn_act, ctx)
     return rms_norm(x, params["enc_final_norm"], eps)
 
 
@@ -690,7 +728,7 @@ def forward(cfg: ModelConfig, params: Dict[str, Any], tokens: torch.Tensor,
     x = splice_frontend(cfg, params, embed_tokens(cfg, params["embed"],
                                                   tokens, ctx),
                         frontend_embeds)
-    enc_out = (encode(cfg, params, frontend_embeds)
+    enc_out = (encode(cfg, params, frontend_embeds, ctx)
                if cfg.encoder is not None else None)
     for kind, blk, cross in zip(cfg.layer_kinds, layer_params(params, cfg),
                                 cross_params(params, cfg)):

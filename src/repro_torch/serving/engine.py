@@ -78,9 +78,13 @@ flash combine over the cluster (``core/dataflow.py``); on the fused path
 B2's partial (``add_r`` on model rank 0 only) in the tree ClusterReduce
 over the model axis (``psum_model`` on an axis that is not a power of
 two), on the unfused path the FFN's ``psum_model``; the MoE's
-``psum_model``; the head's per-rank top-``CAND_K`` (ids offset by the
-rank's first vocabulary row) merged by the tree with the commutative
-``topk_pair_merge``, so every rank holds the same candidates.
+``psum_model``; an RG-LRU layer's ``psum_model`` over the rank's
+channels; an RWKV-6 time mix's ``psum_heads`` over the rank's heads and
+its channel mix's ``psum_model``; a cross-attention's ``psum_heads``
+over the rank's heads of the static ``enc_kv``; the head's per-rank
+top-``CAND_K`` (ids offset by the rank's first vocabulary row) merged by
+the tree with the commutative ``topk_pair_merge``, so every rank holds
+the same candidates.
 
 Decode is ragged on attention models: ``state["cache_lens"] [B]`` lets
 every slot advance on its own, and ``−1`` marks a free slot (no KV
@@ -245,23 +249,27 @@ def init_decode_state(cfg: ModelConfig, scfg: ServeConfig, *,
     ``kv_fp`` (one ``[G, B]`` int32 per block-pattern position) and
     ``kv_fp_tail`` (one ``[B]`` per tail layer).  On a mesh ``B`` is the
     rank's slots and ``kv`` its kv heads, ``max(1, n_kv /
-    scfg.heads_size)``, and a cache holds its cluster rank's ``S / n``
-    rows, ``n`` = ``scfg.cluster_size`` (``engine.py:144–167``)."""
+    scfg.heads_size)`` (``enc_kv``'s too), a cache holds its cluster
+    rank's ``S / n`` rows, ``n`` = ``scfg.cluster_size``, an RG-LRU
+    state the rank's ``C / ms`` channels and an RWKV-6 state its ``H /
+    heads_size`` heads (``engine.py:144–243``)."""
     dev = resolve_device(device)
     B, S = scfg.batch_local, scfg.max_seq
     n = scfg.cluster_size
     kv_loc = max(1, cfg.n_kv_heads // scfg.heads_size)
+    ms = scfg.heads_size * n
     period = len(cfg.block_pattern)
     G = cfg.n_layers // period
 
     def state_for(kind, lead):
         if kind == RWKV6:
             hd = cfg.rwkv_head_dim
-            return rwkv6_state_init(B, cfg.d_model // hd, hd, cfg.d_model,
-                                    lead=lead, device=dev)
+            return rwkv6_state_init(B, cfg.d_model // hd // scfg.heads_size,
+                                    hd, cfg.d_model, lead=lead, device=dev)
         if kind == RECURRENT:
-            return rglru_state_init(B, cfg.rglru_d_state or cfg.d_model,
-                                    cfg.conv1d_width, lead=lead, device=dev)
+            return rglru_state_init(B, (cfg.rglru_d_state or cfg.d_model)
+                                    // ms, cfg.conv1d_width, lead=lead,
+                                    device=dev)
         if cfg.mla is not None:
             k_shape = (S // n, B,
                        cfg.mla.kv_lora_rank + cfg.mla.rope_head_dim)
@@ -306,7 +314,7 @@ def init_decode_state(cfg: ModelConfig, scfg: ServeConfig, *,
         state["head_tok"] = torch.zeros((B,), dtype=torch.int32, device=dev)
     if cfg.encoder is not None:
         shape = (cfg.n_layers, cfg.frontend.num_positions,
-                 B * cfg.n_kv_heads, cfg.resolved_head_dim)
+                 B * kv_loc, cfg.resolved_head_dim)
         state["enc_kv"] = {
             n: torch.zeros(shape, dtype=torch.bfloat16, device=dev)
             for n in ("k", "v")}
@@ -510,17 +518,18 @@ def decode_block(cfg: ModelConfig, kind: str, blk: Dict[str, Any],
         p = blk["rwkv"]
         a, _, st = rwkv6_step(p, rms_norm(x, blk["ln1"], eps),
                               cfg.rwkv_head_dim, cache, scan=kernels.wkv,
-                              s_out=cache.s)
+                              s_out=cache.s, ctx=ctx)
         x = x + a
-        c, st = rwkv6_channel_step(p, rms_norm(x, blk["ln2"], eps), st)
+        c, st = rwkv6_channel_step(p, rms_norm(x, blk["ln2"], eps), st, ctx)
         cache.x_prev_t.copy_(st.x_prev_t)
         cache.x_prev_c.copy_(st.x_prev_c)
         return x + c
     if kind == RECURRENT:
         a, st = rglru_block_step(blk["rglru"], rms_norm(x, blk["ln1"], eps),
-                                 cache, scan=kernels.rglru, h_out=cache.h)
+                                 cache, scan=kernels.rglru, h_out=cache.h,
+                                 ctx=ctx)
         cache.conv.copy_(st.conv)
-        return _ffn_tail(cfg, blk, x, a)
+        return _ffn_tail(cfg, blk, x, a, ctx=ctx)
     w = blk["attn"]
     window = _window(cfg, kind)
     spec = _spec(ctx)
@@ -563,22 +572,25 @@ def _ffn_tail(cfg: ModelConfig, blk: Dict[str, Any], x: torch.Tensor,
     eps = cfg.norm_eps
     x = x + post_norm(blk, "post_ln1", a, eps)
     if enc_kv is not None:
-        x = x + _cross_decode(cross, x, enc_kv, cfg)
+        x = x + _cross_decode(cross, x, enc_kv, cfg, ctx)
     f = block_ffn(cfg, blk["ffn"], rms_norm(x, blk["ln2"], eps), ctx)
     return x + post_norm(blk, "post_ln2", f, eps)
 
 
 def _cross_decode(cross: Dict[str, Any], x: torch.Tensor, enc_kv,
-                  cfg: ModelConfig) -> torch.Tensor:
+                  cfg: ModelConfig, ctx: ParallelCtx = SINGLE
+                  ) -> torch.Tensor:
     """Decoder cross-attention of ``x [B, D]`` against the layer's static
     encoder keys and values ``(k, v)``, ``[P, B·kv, hd]`` each
-    (``engine.py:456``): ``rms_norm(ln)``, ``q = h·wq``, an f32 softmax
-    over all ``P`` frames, ``o·wo`` in the model dtype."""
+    (``engine.py:456–477``): ``rms_norm(ln)``, ``q = h·wq``, an f32
+    softmax over all ``P`` frames, ``o·wo`` in the model dtype; on a mesh
+    the rank's heads (``q``'s head-dim segments gathered over a cluster
+    above 1; ``enc_kv`` holds whole heads), summed by ``psum_heads``."""
     p = cross["attn"]
     B = x.shape[0]
-    q_loc, hd = p["wq"].shape[1], p["wq"].shape[2]
+    q_loc, hd = p["wq"].shape[1], p["wq"].shape[2] * ctx.cluster_size
     h = rms_norm(x, cross["ln"], cfg.norm_eps)
-    q = torch.einsum("bd,dqh->bqh", h, p["wq"])
+    q = ctx.gather_cluster(torch.einsum("bd,dqh->bqh", h, p["wq"]), 2)
     k, v = enc_kv
     P = k.shape[0]
     kv_loc = k.shape[1] // B
@@ -588,7 +600,7 @@ def _cross_decode(cross: Dict[str, Any], x: torch.Tensor, enc_kv,
     s = torch.einsum("bkqh,pbkh->bkqp", qg, kc) / math.sqrt(hd)
     pr = torch.softmax(s, dim=-1)
     o = torch.einsum("bkqp,pbkh->bkqh", pr, vc).reshape(B, q_loc * hd)
-    return o.to(x.dtype) @ p["wo"]
+    return ctx.psum_heads(o.to(x.dtype) @ p["wo"])
 
 
 def _check_not_param_pair(params: Any, want: str) -> None:

@@ -54,6 +54,15 @@ itself, and an encoder's k/v are the whole batch's, so ``lengths`` on a
 config with RWKV-6 or RG-LRU layers or an encoder raises, as the
 reference's assertion does.  The caches and states are written
 in place.
+
+On a mesh an RG-LRU layer runs the rank's channels and an RWKV-6 layer
+its heads, each writing the rank's part of the state, with the
+reference's ``psum_model`` and ``psum_heads``; an encoder-decoder
+encodes on the rank's encoder heads and writes its kv heads of
+``enc_kv``; RecurrentGemma's local layers fill their cluster rank's
+share of the ring.  Where a cluster pads a run to its query blocks, a
+recurrent layer runs the real positions only (the padding would fold
+into its state).
 """
 from __future__ import annotations
 
@@ -142,51 +151,68 @@ def _fill_ring(cache: KVBlock, k: torch.Tensor, v: torch.Tensor,
 
 
 def _prefill_rglru(cfg: ModelConfig, blk: Dict[str, Any], x: torch.Tensor,
-                   st: rglru_mod.RGLRUState) -> torch.Tensor:
+                   st: rglru_mod.RGLRUState, ctx: ParallelCtx = SINGLE
+                   ) -> torch.Tensor:
     """One RG-LRU layer over every slot's whole prompt, from the zero
     state whatever the slot held (``prefill.py:127–146``); writes the
     decode state ``st`` in place: ``h`` is the scan's last output in the
     model dtype, cast to f32 (ROADMAP C6), ``conv`` the last ``width −
-    1`` conv inputs (zeros before the prompt)."""
+    1`` conv inputs (zeros before the prompt).  On a mesh the rank's
+    channels, the block's output summed by ``psum_model``."""
     p, eps = blk["rglru"], cfg.norm_eps
     h1 = rms_norm(x, blk["ln1"], eps)
     u = h1 @ p["w_x"]
     h_seq = rglru_mod.rglru_scan(p, rglru_mod._causal_conv(p, u))
-    x = x + (h_seq * rglru_mod._gate(p, h1)) @ p["w_out"]
+    x = x + ctx.psum_model((h_seq * rglru_mod._gate(p, h1)) @ p["w_out"])
     n_tail = st.conv.shape[1]
     pad = torch.zeros((u.shape[0], n_tail, u.shape[2]), dtype=u.dtype,
                       device=u.device)
     st.h.copy_(h_seq[:, -1])
     st.conv.copy_(torch.cat([pad, u[:, -n_tail:]], dim=1)[:, -n_tail:])
-    return x + block_ffn(cfg, blk["ffn"], rms_norm(x, blk["ln2"], eps))
+    return x + block_ffn(cfg, blk["ffn"], rms_norm(x, blk["ln2"], eps),
+                         ctx)
 
 
 def _prefill_rwkv(cfg: ModelConfig, blk: Dict[str, Any], x: torch.Tensor,
-                  st: RWKV6State) -> torch.Tensor:
+                  st: RWKV6State, ctx: ParallelCtx = SINGLE
+                  ) -> torch.Tensor:
     """One RWKV-6 layer over every slot's whole prompt, from the zero state
-    whatever the slot held; writes ``s_fin`` (through B7) and the normed
-    last inputs into the layer's state ``st`` in place."""
+    whatever the slot held; writes ``s_fin`` (through B7; the rank's
+    heads on a mesh) and the normed last inputs into the layer's state
+    ``st`` in place."""
     p, eps = blk["rwkv"], cfg.norm_eps
     h1 = rms_norm(x, blk["ln1"], eps)
-    a, _ = rwkv6_time_mix(p, h1, cfg.rwkv_head_dim, s_out=st.s)
+    a, _ = rwkv6_time_mix(p, h1, cfg.rwkv_head_dim, s_out=st.s, ctx=ctx)
     x = x + a
     h2 = rms_norm(x, blk["ln2"], eps)
-    x = x + rwkv6_channel_mix(p, h2)
+    x = x + rwkv6_channel_mix(p, h2, ctx=ctx)
     st.x_prev_t.copy_(h1[:, -1])
     st.x_prev_c.copy_(h2[:, -1])
     return x
 
 
+def _recurrent_rows(fn, x: torch.Tensor, s_eff: int) -> torch.Tensor:
+    """``fn`` over the first ``s_eff`` positions of ``x``, the rest (a
+    cluster's padding, which a recurrent state must not fold in) passed
+    through: causal attention keeps them out of every real position."""
+    if x.shape[1] == s_eff:
+        return fn(x)
+    return torch.cat([fn(x[:, :s_eff]), x[:, s_eff:]], dim=1)
+
+
 def _write_enc_kv(cfg: ModelConfig, params: Dict[str, Any],
-                  state: Dict[str, Any], enc_out: torch.Tensor) -> None:
+                  state: Dict[str, Any], enc_out: torch.Tensor,
+                  ctx: ParallelCtx = SINGLE) -> None:
     """Every decoder layer's cross-attention k and v of ``enc_out
     [B, P, D]``, as ``[P, B·kv, hd]`` rounded to bf16, copied into
-    ``state["enc_kv"]`` in place (``prefill.py:217–236``)."""
+    ``state["enc_kv"]`` in place (``prefill.py:217–236``); on a mesh the
+    rank's kv heads, whole (their head-dim segments gathered over a
+    cluster above 1)."""
     P = enc_out.shape[1]
     for i, cross in enumerate(cross_params(params, cfg)):
         for name in ("k", "v"):
-            t = torch.einsum("bpd,dkh->pbkh", enc_out,
-                             cross["attn"]["w" + name])
+            t = ctx.gather_cluster(torch.einsum(
+                "bpd,dkh->pbkh", enc_out, cross["attn"]["w" + name]), 3)
             state["enc_kv"][name][i].copy_(t.reshape(P, -1, t.shape[-1]))
 
 
@@ -311,8 +337,8 @@ def _prefill_rows(cfg: ModelConfig, params: Dict[str, Any],
         cfg, params["embed"], toks, ctx), fe)
     enc_out = None
     if cfg.encoder is not None:     # every slot: lengths refused above
-        enc_out = encode(cfg, params, fe)
-        _write_enc_kv(cfg, params, state, enc_out)
+        enc_out = encode(cfg, params, fe, ctx)
+        _write_enc_kv(cfg, params, state, enc_out, ctx)
     caches = [_layer(c, g)
               for g in range(cfg.n_layers // len(cfg.block_pattern))
               for c in state["layers"]] + list(state["tail"])
@@ -320,11 +346,10 @@ def _prefill_rows(cfg: ModelConfig, params: Dict[str, Any],
                                        layer_params(params, cfg), caches,
                                        cross_params(params, cfg)):
         # the recurrent kinds run with every slot admitted
-        if kind == RWKV6:
-            x = _prefill_rwkv(cfg, blk, x, cache)
-            continue
-        if kind == RECURRENT:
-            x = _prefill_rglru(cfg, blk, x, cache)
+        if kind in (RWKV6, RECURRENT):
+            fn = _prefill_rwkv if kind == RWKV6 else _prefill_rglru
+            x = _recurrent_rows(lambda t: fn(cfg, blk, t, cache, ctx), x,
+                                s_eff)
             continue
         x, kv = apply_block(cfg, blk, x, kind=kind, return_kv=True,
                             enc_out=enc_out, cross_blk=cross, ctx=ctx)

@@ -170,6 +170,10 @@ class Router:
                  max_requeues: Optional[int] = None):
         if not engines:
             raise ValueError("router needs at least one replica")
+        if any(eng.ctx.model is not None for eng in engines):
+            raise NotImplementedError(
+                "the fleet on a mesh (replicas of a sharded engine) is the "
+                "remaining part of ROADMAP A.5b")
         max_seq = engines[0].scfg.max_seq
         # a full-length stream appends prompt + (max_new − 1) inputs
         if prompt_cap + max_new_cap - 1 > max_seq:

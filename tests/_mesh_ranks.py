@@ -315,6 +315,33 @@ def _full_logits(cfg, eng, state, model_axis):
     return eng.to_global(logits)[:, :cfg.vocab_size]
 
 
+class _router_margins:
+    """Within the block, every MoE layer's routing also records its
+    router's top-k margin per token — the k-th choice's probability minus
+    the (k+1)-th's (``models/moe.py:route``'s f32 softmax) — into ``recs``
+    as ``(step[0], margins [T])``."""
+
+    def __init__(self, step, recs):
+        self.step, self.recs = step, recs
+
+    def __enter__(self):
+        from repro_torch.models import moe as moe_mod
+        from repro_torch.models.layers import softcap
+        self.mod, self.orig = moe_mod, moe_mod.route
+
+        def route(moe, router, x):
+            probs = torch.softmax(softcap(x.float() @ router.float(),
+                                          moe.router_softcap), dim=-1)
+            top = torch.sort(probs, dim=-1, descending=True).values
+            self.recs.append((self.step[0],
+                              top[:, moe.top_k - 1] - top[:, moe.top_k]))
+            return self.orig(moe, router, x)
+        moe_mod.route = route
+
+    def __exit__(self, *exc):
+        self.mod.route = self.orig
+
+
 def cluster_engines_body(mesh, cases):
     """Each case's engine at ``EngineOptions(cluster=n)`` with the
     reference's weights: prefill and teacher-forced tokens, each step's
@@ -341,15 +368,22 @@ def cluster_engines_body(mesh, cases):
                                   shadow_head=True,
                                   fused_combine=case.get("fused_combine",
                                                          False)))
-        tok, st = eng.prefill_fn(eng.params["train"], eng.state,
-                                 case["prompts"])
-        toks, logits = [tok.numpy()], [_full_logits(cfg, eng, st,
-                                                    mesh.axes["model"])]
-        for forced in case["forced"]:
-            tok, st = eng.decode_fn(eng.params["serve"], st, forced)
-            toks.append(tok.numpy())
-            logits.append(_full_logits(cfg, eng, st, mesh.axes["model"]))
-        out[key] = dict(tokens=np.stack(toks),
+        step, recs = [0], []
+        with _router_margins(step, recs):
+            tok, st = eng.prefill_fn(eng.params["train"], eng.state,
+                                     case["prompts"])
+            toks, logits = [tok.numpy()], [_full_logits(cfg, eng, st,
+                                                        mesh.axes["model"])]
+            for t, forced in enumerate(case["forced"]):
+                step[0] = t + 1
+                tok, st = eng.decode_fn(eng.params["serve"], st, forced)
+                toks.append(tok.numpy())
+                logits.append(_full_logits(cfg, eng, st, mesh.axes["model"]))
+        margins = np.full((len(toks), eng.scfg.batch_local), np.inf)
+        for t, m in recs:
+            margins[t] = np.minimum(margins[t], m.reshape(
+                eng.scfg.batch_local, -1).amin(dim=-1).numpy())
+        out[key] = dict(tokens=np.stack(toks), margins=margins,
                         logits=to_np(torch.stack(logits)) if mesh.rank == 0
                         else None,
                         cluster=eng.ctx.cluster_size,
@@ -461,3 +495,134 @@ def cluster_body(rank, world, prepack_cases, fwd_cases, engine_cases,
                 split_head=split_head_body(mesh, split_head_data),
                 sched=cluster_sched_body(mesh, sched_trace))
 
+
+
+# ---------------------------------------------------------------------------
+# The recurrent and modality models on a mesh (tests/_mesh_models.py)
+# ---------------------------------------------------------------------------
+def _case_cfg(case):
+    import dataclasses
+    from repro_torch.configs import get_config, reduced
+    return dataclasses.replace(
+        reduced(get_config(case["arch"]), **case["reduced"]),
+        **case["replace"])
+
+
+def _state_shapes(cfg, st):
+    """One leaf of each kind of this rank's decode state: the first RG-LRU
+    ``h``, RWKV-6 ``s``, local and global cache ``k`` (a layer's) and
+    ``enc_kv["k"]``."""
+    from repro_torch.configs.base import ATTN_LOCAL, RECURRENT, RWKV6
+    names = {RECURRENT: ("rglru_h", "h"), RWKV6: ("rwkv_s", "s"),
+             ATTN_LOCAL: ("local_k", "k")}
+    out = {}
+    for kind, leaf in zip(cfg.block_pattern, st["layers"]):
+        name, field = names.get(kind, ("global_k", "k"))
+        out.setdefault(name, tuple(getattr(leaf, field).shape[1:]))
+    if "enc_kv" in st:
+        out["enc_k"] = tuple(st["enc_kv"]["k"].shape)
+    return out
+
+
+def model_engines_body(mesh, cases):
+    """Each case's engine (``cluster`` None: the reference's pick) with the
+    reference's weights and the case's frontend embeddings: prefill and
+    teacher-forced tokens, each step's global logits (rank 0 only), the
+    layout, this rank's state shapes, and three tokens of ``generate``
+    from a fresh state."""
+    from repro_torch.launch.serve import build_engine_full, generate
+    from repro_torch.launch.specs import serving_layout
+    from repro_torch.models.transformer import from_reference_params
+    from repro_torch.serving.engine import EngineOptions, reset_decode_state
+    out = {}
+    for key, case in cases.items():
+        cfg = _case_cfg(case)
+        B = case["prompts"].shape[0]
+        lay = serving_layout(cfg, mesh.shape["model"],
+                             seq_len=case["max_seq"], batch=B,
+                             cluster=case["cluster"])
+        train = from_reference_params(cfg, case["params"], lay=lay,
+                                      rank=mesh.axes["model"].index,
+                                      device="cpu")
+        eng = build_engine_full(
+            cfg, mesh=mesh, max_seq=case["max_seq"], batch_global=B,
+            train_params=train,
+            options=EngineOptions(backend=case["backend"], shadow_head=True,
+                                  cluster=case["cluster"]))
+        fe = None if case["fe"] is None else torch.from_numpy(case["fe"])
+        tok, st = eng.prefill_fn(eng.params["train"], eng.state,
+                                 case["prompts"], fe)
+        toks, logits = [tok.numpy()], [_full_logits(cfg, eng, st,
+                                                    mesh.axes["model"])]
+        for forced in case["forced"]:
+            tok, st = eng.decode_fn(eng.params["serve"], st, forced)
+            toks.append(tok.numpy())
+            logits.append(_full_logits(cfg, eng, st, mesh.axes["model"]))
+        out[key] = dict(tokens=np.stack(toks),
+                        logits=to_np(torch.stack(logits)) if mesh.rank == 0
+                        else None,
+                        cluster=eng.ctx.cluster_size,
+                        heads=eng.ctx.heads_size,
+                        cache_lens=eng.to_global(st["cache_lens"]).numpy(),
+                        shapes=_state_shapes(cfg, st))
+        # the lockstep serving loop on the mesh, from a fresh state
+        gen, _ = generate(eng.params, eng.prefill_fn, eng.decode_fn,
+                          reset_decode_state(cfg, eng.scfg, st),
+                          case["prompts"], 3, fe)
+        out[key]["generate"] = gen.numpy()
+        if case["odd"]:      # a prompt one token short: odd at cluster 2
+            st = reset_decode_state(cfg, eng.scfg, st)
+            tok, st = eng.prefill_fn(eng.params["train"], st,
+                                     case["prompts"][:, :-1], fe)
+            odd, odd_logits = [tok.numpy()], [
+                _full_logits(cfg, eng, st, mesh.axes["model"])]
+            for forced in case["forced"][:2]:
+                tok, st = eng.decode_fn(eng.params["serve"], st, forced)
+                odd.append(tok.numpy())
+                odd_logits.append(_full_logits(cfg, eng, st,
+                                               mesh.axes["model"]))
+            out[key].update(odd=np.stack(odd), odd_logits=to_np(
+                torch.stack(odd_logits)))
+    return out
+
+
+def model_forward_body(mesh, cases):
+    """The f32 train-path forward at each case's cluster: this rank's data
+    rows of the final hidden states and the greedy tokens of the last
+    position (the head's vocabulary shards merged by the tree)."""
+    from repro_torch.launch.specs import ctx_for
+    from repro_torch.models.layers import lm_head_logits
+    from repro_torch.models.transformer import (Layout, forward,
+                                                from_reference_params,
+                                                head_table)
+    from repro_torch.serving.engine import _merge_vocab_shards
+    from repro_torch.serving.sampling import head_candidates
+    out = {}
+    ms = mesh.shape["model"]
+    for key, case in cases.items():
+        cfg = _case_cfg(case)
+        ctx = ctx_for(mesh, Layout(ms, heads_sub=ms // case["cluster"]))
+        p = from_reference_params(cfg, case["params"],
+                                  lay=Layout(ms, ms // case["cluster"]),
+                                  rank=ctx.model_index(), device="cpu")
+        b_loc = case["tokens"].shape[0] // mesh.shape["data"]
+        lo = ctx.data_index() * b_loc
+        fe = (None if case["fe"] is None
+              else torch.from_numpy(case["fe"][lo:lo + b_loc]))
+        h = forward(cfg, p, torch.from_numpy(case["tokens"][lo:lo + b_loc]),
+                    fe, ctx=ctx)
+        table = head_table(cfg, p)
+        _, ids = _merge_vocab_shards(ctx, table.shape[0], *head_candidates(
+            lm_head_logits(table, h[:, -1]), 8))
+        out[key] = dict(hidden=h.numpy(), tokens=ids[:, 0].numpy(),
+                        cands=ids.numpy())
+    return out
+
+
+def mesh_models_body(rank, world, engine_cases, fwd_cases):
+    """Everything of ``tests/_mesh_models.py`` that runs on the 2 × 4 mesh,
+    in one world."""
+    from repro_torch.launch.mesh import make_test_mesh
+    mesh = make_test_mesh(device="cpu")
+    return dict(engines=model_engines_body(mesh, engine_cases),
+                forward=model_forward_body(mesh, fwd_cases))

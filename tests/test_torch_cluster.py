@@ -26,11 +26,14 @@ the port's ranks run at the same time.
   within ``NEAR_TIE`` in the port, ROADMAP C2).  DeepSeek-V2-Lite with
   its MoE layers at cluster 2 (``"pallas"``) and 4 (``"xla"``): tokens
   agree on ≥ 0.9; a difference there need not be a near-tie at the head,
-  since a bf16 rounding can flip a top-6 routing choice layers earlier
+  since a bf16 rounding can flip a top-k routing choice layers earlier
   (the reference's own engines at clusters 1 and 2 disagree so on some
-  inputs; ROADMAP C18).  Unfused Llama2-7B at cluster 4 takes
-  ``EngineOptions(fused_combine=True)`` on both sides (the flash combine
-  as one tree).
+  inputs; ROADMAP C18): both sides record every MoE layer's router
+  margin (the k-th choice's probability minus the (k+1)-th's) per token,
+  and every differing (step, slot) must have a margin within
+  ``ROUTER_TIE`` at that step or an earlier one.  Unfused Llama2-7B at
+  cluster 4 takes ``EngineOptions(fused_combine=True)`` on both sides
+  (the flash combine as one tree).
 * Sampled streams: the fused candidates (B3's plain version) and the
   full-logits oracle (the loose head) give identical streams at cluster
   1, 2 and 4 (the counterpart of ``tests/test_sampling.py:381``).
@@ -71,6 +74,11 @@ from repro_torch.models.transformer import (Layout, from_reference_params,
 pytestmark = pytest.mark.multidevice
 
 NEAR_TIE = 0.05          # bf16 logits: a few bf16 steps at |logit| ≈ 2
+# a router near-tie: the k-th and (k+1)-th choices' probabilities within
+# a quarter of bf16's relative step (2^-8 ≈ 3.9e-3) at the ≈ 0.25 the
+# reduced model's second and third of 8 experts take — a bf16 rounding of
+# the layer's input upstream can swap them (ROADMAP C18)
+ROUTER_TIE = 1e-3
 SLOTS, PROMPT, STEPS, MAX_SEQ = 4, 8, 4, 24
 REPLACE = {"gemma2-27b": dict(sliding_window=8)}
 ARCHS = ("llama2-7b", "gemma2-27b", "deepseek-v2-lite-dense")
@@ -124,6 +132,37 @@ def to_np(tree):
         return [to_np(v) for v in tree]
     return None if tree is None else np.asarray(tree)
 
+# the router's top-k margin (the k-th choice's probability minus the
+# (k+1)-th's) of every token each MoE layer routes, per step: a debug
+# callback on each device beside the reference's own route
+import repro.models.moe as moe_mod
+from jax import lax
+_route, STEP, MARGINS = moe_mod.route, [0], []
+
+def _record(m, d):
+    MARGINS.append((STEP[0], int(d), np.asarray(m)))
+
+def route(moe, router, x):
+    idx, w = _route(moe, router, x)
+    logits = moe_mod.softcap(x.astype(jnp.float32)
+                             @ router.astype(jnp.float32), moe.router_softcap)
+    top = lax.top_k(jax.nn.softmax(logits, axis=-1), moe.top_k + 1)[0]
+    jax.debug.callback(_record, top[:, moe.top_k - 1] - top[:, moe.top_k],
+                       lax.axis_index("data"))
+    return idx, w
+
+moe_mod.route = route
+
+def step_margins(n_steps, b_loc):
+    jax.effects_barrier()
+    out = np.full((n_steps, 2 * b_loc), np.inf)
+    for t, d, m in MARGINS:
+        row = m.reshape(b_loc, -1).min(axis=-1)
+        sl = slice(d * b_loc, (d + 1) * b_loc)
+        out[t, sl] = np.minimum(out[t, sl], row)
+    MARGINS.clear()
+    return out
+
 mesh = make_test_mesh()
 out = {{"engines": {{}}, "forward": {{}}}}
 for key, case in spec["engines"].items():
@@ -137,13 +176,18 @@ for key, case in spec["engines"].items():
                                 cluster=case["cluster"],
                                 fused_combine=case.get("fused_combine",
                                                        False)))
+    MARGINS.clear()
+    STEP[0] = 0
     tok, st = eng.prefill_fn(eng.params["train"], eng.state,
                              spec["prompts"], None)
     toks = [np.asarray(tok)]
-    for forced in spec["forced"]:
+    for t, forced in enumerate(spec["forced"]):
+        STEP[0] = t + 1
         tok, st = eng.decode_fn(eng.params["serve"], st, forced)
         toks.append(np.asarray(tok))
-    out["engines"][key] = dict(tokens=np.stack(toks),
+    margins = (step_margins(len(toks), spec["prompts"].shape[0] // 2)
+               if cfg.moe is not None else None)
+    out["engines"][key] = dict(tokens=np.stack(toks), margins=margins,
                                heads_sub=eng.lay.heads_sub,
                                embed=np.asarray(eng.params["train"]["embed"]))
 for key, case in spec["forward"].items():
@@ -411,11 +455,27 @@ def test_engine_at_cluster_matches_reference(results, key):
     agree = float((got == want).mean())
     assert agree >= 0.9, (key, agree, got, want)
     if key in MOE:                 # a routing flip: see the docstring
+        _check_router_near_ties(key, got, want, ref["margins"], np.concatenate(
+            [port[0]["margins"], port[4]["margins"]], axis=1))
         return
     logits = port[0]["logits"]
     gaps = [abs(logits[t, b, got[t, b]] - logits[t, b, want[t, b]])
             for t, b in zip(*np.nonzero(got != want))]
     assert all(g <= NEAR_TIE for g in gaps), (key, gaps)
+
+
+def _check_router_near_ties(key, got, want, ref_m, port_m):
+    """Every (step, slot) where the port's token differs from the
+    reference's traces to a router near-tie: the slot's smallest top-k
+    margin over every MoE layer of this step and the earlier ones (its
+    prompt's tokens at step 0) — in the port or in the reference — is
+    within ``ROUTER_TIE`` (ROADMAP C18)."""
+    cone = np.minimum.accumulate(np.minimum(ref_m, port_m), axis=0)
+    diff = list(zip(*np.nonzero(got != want)))
+    margins = [float(cone[t, b]) for t, b in diff]
+    print(f"{key}: differing (step, slot) {diff}, router margins {margins}; "
+          f"smallest margin a cell {cone.min(axis=0).tolist()}")
+    assert all(m <= ROUTER_TIE for m in margins), (key, diff, margins)
 
 
 @pytest.mark.parametrize("arch", ["llama2-7b", "gemma2-27b"])

@@ -1233,11 +1233,12 @@ def test_rwkv6_scan_wrapper_passes_its_pointers(monkeypatch, alias):
 
 
 def test_cluster_kernels_refuse_unported_shapes(monkeypatch):
-    """B1 at head_dim 256 (GQA 8/2: RecurrentGemma's fused arm, A.4c), a
-    d_model no cluster size splits into 64-row multiples, query heads
-    that are no multiple of the kv heads, and q_per_kv 5 (no instance)
-    raise before the library is reached — q_per_kv 2 and 8 (Gemma-2's
-    and Qwen2-72B's, ported) reach it; so do B2 shapes its plan cannot
+    """B1 at head_dim 256 and q_per_kv 3 (no instance), a d_model no
+    cluster size splits into 64-row multiples, query heads that are no
+    multiple of the kv heads, and q_per_kv 5 (no instance) raise before
+    the library is reached — q_per_kv 2 and 8 (Gemma-2's and Qwen2-72B's,
+    ported) and 4 at head_dim 256 (a mesh rank of RecurrentGemma's local
+    layers, GQA 8/2 here) reach it; so do B2 shapes its plan cannot
     split (d_ff not a multiple of 16, d_model not a multiple of 16 or
     over 1024 rows a rank) and B4 shapes outside MLA's geometry or with
     a d_model whose eighth is not a multiple of 64 up to 512."""
@@ -1248,9 +1249,11 @@ def test_cluster_kernels_refuse_unported_shapes(monkeypatch):
     bf, f32, i32 = torch.bfloat16, torch.float32, torch.int32
     for heads, kv, D, hd in ((8, 2, 256, 256), (4, 4, 72, 128),
                              (6, 4, 256, 128), (10, 2, 256, 128),
-                             (16, 2, 512, 128), (8, 4, 256, 128)):
+                             (16, 2, 512, 128), (8, 4, 256, 128),
+                             (6, 2, 256, 256)):
         B, S = 1, 4
-        ported = heads in (2 * kv, 8 * kv)      # q_per_kv 2 and 8
+        # q_per_kv 2 and 8; at head dim 256 also 4 (a mesh rank's 4/1)
+        ported = heads in (2 * kv, 8 * kv) or (hd, heads) == (256, 4 * kv)
         with pytest.raises(AssertionError if ported
                            else NotImplementedError,
                            match="library" if ported else "fused_decode"):

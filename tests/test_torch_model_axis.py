@@ -323,15 +323,20 @@ def test_scheduler_fused_vs_unfused_on_2_device_model_axis(tmp_path):
 
 
 def test_unsharded_layouts_raise_naming_a5b(monkeypatch):
-    """The boundary after A.5b's first half: a cluster across devices
-    serves (the reference's pick — a model axis past the heads gives a
-    cluster above 1 — or an explicit ``cluster``), a ``cluster`` that
-    does not divide the axis or the heads raises ``ValueError``, and the
-    recurrent, RWKV-6 and modality models on a model axis above 1 raise
-    ``NotImplementedError`` naming A.5b's second half; a CUDA mesh on a
-    host with fewer GPUs than ranks raises, and no world falls back to
+    """The boundary after A.5b's second half, part 1: a cluster across
+    devices serves (the reference's pick — a model axis past the heads
+    gives a cluster above 1 — or an explicit ``cluster``), a ``cluster``
+    that does not divide the axis or the heads raises ``ValueError``; the
+    recurrent, RWKV-6 and modality models take the reference's picks
+    (RecurrentGemma-9B a cluster across devices at every model axis) and
+    a rank's seeded init; the fleet on a mesh raises
+    ``NotImplementedError`` naming A.5b's remaining part; a CUDA mesh on
+    a host with fewer GPUs than ranks raises, and no world falls back to
     gloo."""
+    import types
     from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models.ctx import ParallelCtx
+    from repro_torch.serving.router import Router
     qwen = reduced(get_config("qwen2-72b"))                # 4 heads
     kw = dict(seq_len=24, batch=4)
     assert specs.serving_layout(qwen, 4, **kw).heads_sub == 4
@@ -343,13 +348,24 @@ def test_unsharded_layouts_raise_naming_a5b(monkeypatch):
     for bad in (3, 8):
         with pytest.raises(ValueError, match="cluster"):
             specs.serving_layout(qwen, 4, cluster=bad, **kw)
-    for arch in ("rwkv6-3b", "recurrentgemma-9b", "seamless-m4t-medium",
-                 "internvl2-2b"):
+    # (heads_sub, cluster) at model axes 2, 4, 8, 16, max_seq 1024, 8 slots
+    picks = {"rwkv6-3b": [(2, 1), (4, 1), (8, 1), (8, 2)],
+             "recurrentgemma-9b": [(1, 2), (2, 2), (2, 4), (4, 4)],
+             "seamless-m4t-medium": [(2, 1), (4, 1), (8, 1), (16, 1)],
+             "internvl2-2b": [(2, 1), (4, 1), (8, 1), (8, 2)]}
+    for arch, want in picks.items():
+        for ms, pick in zip((2, 4, 8, 16), want):
+            lay = specs.serving_layout(get_config(arch), ms, seq_len=1024,
+                                       batch=8)
+            assert (lay.heads_sub, lay.cluster) == pick, (arch, ms)
         cfg = reduced(get_config(arch))
-        with pytest.raises(NotImplementedError, match="A.5b's second half"):
-            specs.serving_layout(cfg, 2, **kw)
-        with pytest.raises(NotImplementedError, match="A.5b's second half"):
-            init_params(cfg, device="cpu", lay=Layout(2))
+        part = init_params(cfg, device="cpu", lay=Layout(2), rank=1)
+        assert part["embed"].shape[0] == cfg.vocab_size // 2
+    sharded = types.SimpleNamespace(ctx=ParallelCtx(model=object(),
+                                                    model_static=2))
+    with pytest.raises(NotImplementedError, match="remaining part of "
+                       "ROADMAP A.5b"):
+        Router([sharded], prompt_cap=8, max_new_cap=8)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     with pytest.raises(RuntimeError, match="needs 8 GPUs"):

@@ -18,8 +18,9 @@ their plain versions.
   cache, ragged with a free slot: f32 to 1e-5 (summation order only),
   bf16 compared in f32 to 2e-2;
 * ``cluster_plan`` at the full shapes: 8 clusters of 8 CTAs with two
-  query heads each at 16/1 of 256, ``(0, 0)`` for other ``q_per_kv`` at
-  ``head_dim`` 256, and the wrapper's launch carrying the plan;
+  query heads each at 16/1 of 256 (4 and 2 clusters at a mesh rank's 8/1
+  and 4/1), ``(0, 0)`` for other ``q_per_kv`` at ``head_dim`` 256, and
+  the wrapper's launch carrying the plan;
 * the serve tree with a tail: the RG-LRU blocks and tail layers alias
   the train tree, the local layer is packed (its train q/k/v views of
   ``wqkv``), and an attention layer in a tail (Gemma-2 at 3 layers) is
@@ -194,16 +195,18 @@ def test_fused_decode_mqa16_plain_vs_pallas_and_ref(hd, ring, bf16):
     (16, 1, 512, 256, (8, 2)),        # 64 rows a rank
     (32, 2, 4096, 256, (4, 2)),       # 16 clusters of 4, 1024 rows a rank
     (16, 1, 16384, 256, (0, 0)),      # 2048 rows a rank: no room
-    (8, 1, 4096, 256, (0, 0)),        # q_per_kv 8
-    (4, 1, 4096, 256, (0, 0)),        # q_per_kv 4 (reduced()'s 4/1)
+    (8, 1, 4096, 256, (8, 2)),        # a mesh rank's 8/1: 4 clusters
+    (4, 1, 4096, 256, (8, 2)),        # a mesh rank's 4/1: 2 clusters
     (32, 1, 4096, 256, (0, 0)),       # q_per_kv 32
+    (6, 1, 4096, 256, (0, 0)),        # q_per_kv 6
     (16, 1, 4096, 128, (0, 0)),       # MQA 16/1 at head_dim 128
     (16, 1, 128, 32, (0, 0)),         # the reduced model's head_dim
     (32, 32, 4096, 128, (4, 1))])     # Llama2-7B, as before
 def test_cluster_plan_at_head_dim_256(monkeypatch, heads, kv, D, hd, plan):
     """The plan from the shapes alone: at ``head_dim`` 256 only MQA 16/1
-    has one — two query heads a cluster, 8 clusters of 8 CTAs of 512
-    rows —; any other pair is ``(0, 0)``, and the CUDA wrapper then
+    and the 8/1 and 4/1 of a mesh rank have one — two query heads a
+    cluster, 8, 4 or 2 clusters of 8 CTAs of 512 rows —; any other pair
+    is ``(0, 0)``, and the CUDA wrapper then
     raises ``NotImplementedError`` (never the plain version); at a
     narrow ``d_model`` (512) the one library call carries the plan."""
     assert b1.cluster_plan(heads, kv, D, hd) == plan
